@@ -1,0 +1,9 @@
+from qqq_tpu_torch.models.config import ModelConfig
+from qqq_tpu_torch.models.convert import params_from_numpy
+from qqq_tpu_torch.models.llama import (
+    decode_step,
+    forward,
+    init_params,
+    linear_apply,
+)
+from qqq_tpu_torch.models.quantize import quantize_params_rtn

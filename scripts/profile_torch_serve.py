@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's serving path on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_serve.py [--layers 32] [--ticks 8]
+
+Builds the Llama-2-7B-geometry port model (random weights from a seeded
+generator, RTN per channel, INT8 slot KV cache, fuse=False), admits 4
+prompts of 500 tokens in one prefill dispatch (bucket 512, M = 2048 rows
+per GEMM), then decodes.  It profiles that prefill dispatch and ``--ticks``
+steady decode ticks with ``torch.profiler`` (CPU + CUDA activities) and
+prints, for each: the host wall time (ending in a synchronize), the summed
+device time of all CUDA kernels, the device idle share, and the kernels
+ranked by device time.  The card's name and power limit come first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+
+def kernel_table(prof, top: int = 12):
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        rows.append((e.self_device_time_total / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows[:top]
+
+
+def report(label: str, wall_ms: float, prof, per: int = 1) -> None:
+    busy, rows = kernel_table(prof)
+    print(f"{label}: wall {wall_ms / per:.3f} ms, device kernels "
+          f"{busy / per:.3f} ms, idle share {1 - busy / wall_ms:.3f}"
+          f" (per {'tick' if per > 1 else 'dispatch'})")
+    for ms, n, name in rows:
+        print(f"    {ms / per:9.4f} ms  {n // per:6d}x  {name[:90]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--ticks", type=int, default=8)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: no CUDA device", file=sys.stderr)
+        return 2
+    from qqq_tpu_torch.kernels import build
+    from qqq_tpu_torch.models import (
+        ModelConfig, init_params, quantize_params_rtn,
+    )
+    from qqq_tpu_torch.serve.engine import Engine, Request
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip())
+    build.build_all()
+    dev = torch.device("cuda")
+    cfg = ModelConfig(num_hidden_layers=args.layers)  # Llama-2-7B geometry
+    params = quantize_params_rtn(
+        init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev), cfg)
+    rng = np.random.default_rng(0)
+
+    def requests():
+        return [Request([int(t) for t in rng.integers(0, cfg.vocab_size, 500)],
+                        SamplingParams(max_new_tokens=1000))
+                for _ in range(4)]
+
+    eng = Engine(params, cfg, max_batch=4, max_len=2048, device=dev)
+    active = np.ones(4, bool)
+    eng._admit_batch(requests(), [0, 1, 2, 3], 512)  # warm-up
+    for _ in range(3):
+        eng._decode_tick(active)
+    for s in range(4):
+        eng._free_slot(s)
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng._admit_batch(requests(), [0, 1, 2, 3], 512)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report("prefill, 4 x 500 tokens in bucket 512", wall, prof)
+
+    for _ in range(2):
+        eng._decode_tick(active)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.ticks):
+            eng._decode_tick(active)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report(f"decode, batch 4, cache ~{int(eng.slot_len[0])} tokens", wall,
+           prof, per=args.ticks)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

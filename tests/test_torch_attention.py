@@ -1,0 +1,96 @@
+"""Port (qqq_tpu_torch) against the JAX package: attention over the INT8
+slot cache.  The JAX Pallas kernels run in interpret mode, the port's plain
+versions on the CPU, on the same INT8 cache made from a numpy seed.
+
+Tolerances: the decode path is f32 throughout, and the two sides sum in
+other orders (one XLA einsum against the kernel's loop; the port's one-pass
+softmax) — 1e-6 absolute on outputs of size ~1 (measured: 1.5e-7).  The flash path rounds q,
+the dequantized K/V and the probabilities to bf16 at the same points on both
+sides, so only f32 summation order differs, which can flip a bf16 rounding
+of a probability (2^-8 relative on one term): 2e-3 absolute (measured:
+2.4e-7, no flip at these seeds).  Over a 2048-key cache the two sides also
+tile the online softmax differently (JAX 1024 keys, the port the CUDA
+kernel's 32), so the probabilities are rounded to bf16 against different
+running maxima: same 2e-3 (measured: 4.6e-4 and 8.9e-4 at outputs up to
+0.50 and 1.49).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qqq_tpu.kernels.attention import (
+    decode_attention_int8 as jax_decode, flash_attention_int8 as jax_flash,
+)
+
+from qqq_tpu_torch.kernels.attention import (
+    decode_attention_auto, decode_attention_int8, flash_attention_int8,
+)
+
+
+def _cache(rng, B, nkv, S, hd):
+    kc = rng.integers(-128, 128, size=(B, nkv, S, hd)).astype(np.int8)
+    vc = rng.integers(-128, 128, size=(B, nkv, S, hd)).astype(np.int8)
+    ks = (rng.random((B, nkv, S)) * 0.02 + 1e-3).astype(np.float32)
+    vs = (rng.random((B, nkv, S)) * 0.02 + 1e-3).astype(np.float32)
+    return kc, ks, vc, vs
+
+
+def _both(*arrs):
+    return ([jnp.asarray(a) for a in arrs],
+            [torch.from_numpy(np.array(a)) for a in arrs])
+
+
+@pytest.mark.parametrize("B,nh,nkv,S,hd", [(2, 4, 2, 128, 64),
+                                           (3, 8, 1, 256, 32)])
+def test_decode_attention_matches_jax(B, nh, nkv, S, hd):
+    rng = np.random.default_rng(S + nh)
+    q = rng.standard_normal((B, nh, hd)).astype(np.float32)
+    clen = rng.integers(1, S + 1, size=B).astype(np.int32)
+    clen[0] = 1  # only the current token
+    j, t = _both(q, *_cache(rng, B, nkv, S, hd), clen)
+    ref = np.asarray(jax_decode(*j))
+    out = decode_attention_int8(*t)
+    assert out.shape == (B, nh, hd) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+    assert torch.equal(decode_attention_auto(*t), out)
+
+
+def test_decode_attention_auto_waits_for_s_tiled_kernel():
+    q = torch.zeros((1, 1, 128))
+    kc = torch.zeros((1, 1, 16384, 128), dtype=torch.int8)
+    sc = torch.zeros((1, 1, 16384))
+    with pytest.raises(NotImplementedError, match="_flash_decode_kernel"):
+        decode_attention_auto(q, kc, sc, kc, sc,
+                              torch.ones(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("B,nh,nkv,T,S,clen", [
+    (2, 4, 2, 16, 64, (0, 20)),   # GQA, prefill and a chunk after 20 keys
+    (1, 2, 2, 32, 128, (45,)),    # g = 1, chunk in the middle of the cache
+])
+def test_flash_attention_matches_jax(B, nh, nkv, T, S, clen):
+    hd = 64
+    rng = np.random.default_rng(T + S)
+    q = rng.standard_normal((B, nh, T, hd)).astype(np.float32)
+    j, t = _both(q, *_cache(rng, B, nkv, S, hd), np.array(clen, np.int32))
+    ref = np.asarray(jax_flash(*j, causal=True))
+    out = flash_attention_int8(*t, causal=True)
+    assert out.shape == (B, nh, T, hd)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("clen", [(1000, 1500), (0, 1980)])
+def test_flash_attention_matches_jax_across_key_tiles(clen):
+    """The main path's hd = 128 over a 2048-key cache: JAX walks it in two
+    1024-key tiles, the port in 64 tiles of 32, and the chunks' keys straddle
+    JAX's tile boundary."""
+    B, nh, nkv, T, S, hd = 2, 2, 1, 64, 2048, 128
+    rng = np.random.default_rng(sum(clen))
+    q = rng.standard_normal((B, nh, T, hd)).astype(np.float32)
+    j, t = _both(q, *_cache(rng, B, nkv, S, hd), np.array(clen, np.int32))
+    ref = np.asarray(jax_flash(*j, causal=True))
+    out = flash_attention_int8(*t, causal=True)
+    assert out.shape == (B, nh, T, hd)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-3)
