@@ -5,16 +5,19 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
-1. build the four CUDA kernels from the sources in this checkout;
-2. check each kernel against its plain PyTorch version on the card at the
-   Llama-2-7B shapes of the main path (the GEMM and the KV write
-   bit-exact, the two attention kernels within two bf16 ulps of the largest
-   output), and time it beside its bound, its plain version and a one-call
-   PyTorch yardstick that the port never calls;
-3. serve 4 requests through the port's Engine on full-width, full-depth
-   Llama-2-7B (random weights from a seeded generator, RTN-quantized per
-   channel, INT8 slot KV cache) and check that every kernel ran on that path;
-4. teacher-force a 2-layer cut of the same weights on the card and on the
+1. build the CUDA kernels from the sources in this checkout;
+2. check each of the nine kernels against its plain PyTorch version on the
+   card at the Llama-2-7B shapes of the served paths (the GEMMs and the KV
+   write bit-exact; the GLU-fused GEMMs and the two attention kernels
+   within two bf16 ulps of the largest output), and time it beside its
+   bound, its plain version and a one-call PyTorch yardstick that the port
+   never calls;
+3. serve 4 requests through the port's Engine, with its default arguments
+   (gate/up GLU-fused), on full-width, full-depth Llama-2-7B (random weights
+   from a seeded generator, INT8 slot KV cache): (a) RTN-packed in groups of
+   128, the JAX package's headline quantization, then (b) per channel; each
+   run checks every kernel's launch count against what its dispatches imply;
+4. teacher-force a 2-layer cut of the g128 weights on the card and on the
    CPU (plain versions) and compare the logits step by step.
 
 The last lines are a ``{"kernels": [...]}`` report, the card's name and
@@ -44,6 +47,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor cores
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor cores
 ATTN_ULPS = 2                  # attention kernels vs plain: bf16 ulps
+GLU_F32_TOL = 2.0 ** -20       # GLU kernels vs plain at f32 output, × max|ref|
 
 
 def log(msg: str) -> None:
@@ -94,47 +98,144 @@ def ulp_tol(ref: torch.Tensor) -> float:
     return ATTN_ULPS * 2.0 ** -7 * float(ref.float().abs().max())
 
 
-def check_gemm(dev, gen, timer):
-    from qqq_tpu_torch.core.packing import unpack_int4
-    from qqq_tpu_torch.kernels.w4a8_gemm import w4a8_gemm, w4a8_gemm_plain
+#: the W4A8 GEMM family: wrapper name → (CUDA source, TPU kernel replaced)
+GEMM_KERNELS = {
+    "w4a8_gemm_channel": ("qqq_tpu_torch/csrc/w4a8_gemm.cu",
+                          "qqq_tpu/kernels/w4a8_gemm.py:124"),
+    "w4a8_glu_channel": ("qqq_tpu_torch/csrc/w4a8_gemm.cu",
+                         "qqq_tpu/kernels/w4a8_gemm.py:283"),
+    "w4a8_gemm_group": ("qqq_tpu_torch/csrc/w4a8_group.cu",
+                        "qqq_tpu/kernels/w4a8_gemm.py:161"),
+    "w4a8_glu_group": ("qqq_tpu_torch/csrc/w4a8_group.cu",
+                       "qqq_tpu/kernels/w4a8_gemm.py:362"),
+    "w4a8_gemm_requant": ("qqq_tpu_torch/csrc/w4a8_requant.cu",
+                          "qqq_tpu/kernels/w4a8_gemm.py:81"),
+    "w4a8_glu_requant": ("qqq_tpu_torch/csrc/w4a8_requant.cu",
+                         "qqq_tpu/kernels/w4a8_gemm.py:326"),
+}
+PLAIN_SHAPES = [(H, H), (H, I), (I, H)]  # q/k/v/o, (unfused) gate/up, down
+GLU_SHAPES = [(H, 2 * I)]                # fused gate/up
+#: per kernel: the rows M it is checked at (those the served runs give it:
+#: decode at batch 1 and 4, one row of bucket 128, one of bucket 512, two of
+#: bucket 2048), its (K, N) shapes, and the (M, K, N) its report row shows
+GEMM_CHECKS = {
+    "w4a8_gemm_channel": ((1, 4, 128, 512, 4096), PLAIN_SHAPES, (4, I, H)),
+    "w4a8_glu_channel": ((4, 128, 512, 4096), GLU_SHAPES, (4, H, 2 * I)),
+    "w4a8_gemm_group": ((1, 4, 128), PLAIN_SHAPES, (4, I, H)),
+    "w4a8_glu_group": ((1, 4, 128), GLU_SHAPES, (4, H, 2 * I)),
+    "w4a8_gemm_requant": ((512, 4096), PLAIN_SHAPES, (512, I, H)),
+    "w4a8_glu_requant": ((512, 4096), GLU_SHAPES, (512, H, 2 * I)),
+}
 
-    shapes = [(H, H), (H, I), (I, H)]  # q/k/v/o, gate/up, down
-    report, err = None, 0.0
-    # M: decode at batch 1 and 4; prefill of one row of bucket 128 and 512,
-    # and of two rows of bucket 2048 (phase 3's served run)
-    for M in (1, 4, 128, 512, 4096):
-        for K, N in shapes:
-            a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
-                              dtype=torch.int8)
-            s_tok = torch.rand((M, 1), generator=gen, device=dev) * 0.05 + 1e-3
-            w = torch.randint(-2**31, 2**31 - 1, (K // 8, N), generator=gen,
-                              device=dev, dtype=torch.int32)
-            s_ch = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
-            out = w4a8_gemm(a, s_tok, w, s_ch)
-            ref = w4a8_gemm_plain(a, s_tok, w, s_ch)
-            torch.cuda.synchronize()
-            d = (out.float() - ref.float()).abs().max().item()
-            err = max(err, d)
-            if not torch.equal(out, ref):
-                raise AssertionError(f"w4a8_gemm M={M} K={K} N={N}: not "
-                                     f"bit-exact (max |diff| {d})")
-            x = (a.float() * s_tok).to(torch.bfloat16)
-            wd = (unpack_int4(w).float() * s_ch).to(torch.bfloat16)
-            ms = timer.ms(lambda: w4a8_gemm(a, s_tok, w, s_ch))
-            plain = timer.ms(lambda: w4a8_gemm_plain(a, s_tok, w, s_ch))
-            lib = timer.ms(lambda: torch.matmul(x, wd))
-            nbytes = M * K + M * 4 + K * N // 2 + N * 4 + M * N * 2
-            b, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
-            log(f"  w4a8_gemm M={M:4d} K={K:5d} N={N:5d}: bit-exact; "
-                f"{ms:.4f} ms (bound {b:.4f} by {by}, plain {plain:.4f}, "
-                f"bf16 matmul {lib:.4f})")
-            if (M, K, N) == (4, H, I):  # gate/up at the main path's decode
-                report = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=b, bound_by=by,
-                              shape=f"M=4 K={K} N={N} (decode gate/up)")
-            del a, w, x, wd, out, ref
-    report["max_abs_err"] = err
-    return report
+
+def _dequant_weight(w, s):
+    """bf16 (K, N) weights of packed codes and per-channel (N,) or g128
+    (K/128, N) scales, for the library yardstick."""
+    from qqq_tpu_torch.core.packing import unpack_int4
+
+    q = unpack_int4(w).float()
+    if s.dim() == 1:
+        return (q * s).to(torch.bfloat16)
+    K, N = q.shape
+    return (q.reshape(s.shape[0], K // s.shape[0], N)
+            * s.float()[:, None, :]).reshape(K, N).to(torch.bfloat16)
+
+
+def _glu_halves(wd):
+    """Gate and up columns of a GLU-interleaved (K, 2I) weight."""
+    from qqq_tpu_torch.kernels.w4a8_gemm import GLU_INTERLEAVE
+
+    K, n2 = wd.shape
+    t = wd.reshape(K, n2 // (2 * GLU_INTERLEAVE), 2, GLU_INTERLEAVE)
+    return (t[:, :, 0].reshape(K, n2 // 2).contiguous(),
+            t[:, :, 1].reshape(K, n2 // 2).contiguous())
+
+
+def check_gemm_family(dev, gen, timer):
+    """Each W4A8 GEMM kernel against its plain version at the main path's
+    shapes: bit-exact, except that the GLU kernels' epilogue (another exp
+    than PyTorch's sigmoid) is held to two bf16 ulps of the largest output
+    at bf16 output and, so that an epilogue that rounded gate and up to bf16
+    before silu·mul would show, to GLU_F32_TOL·max|ref| at f32 output.
+    Timed beside its bound, its plain version and bf16 ``torch.matmul`` on
+    the dequantized weights (for GLU: two matmuls and ``silu·mul``)."""
+    import torch.nn.functional as F
+
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    rows = {}
+    for name, (m_list, shapes, at) in GEMM_CHECKS.items():
+        fn = k.KERNEL_WRAPPERS[name]
+        plain_fn = getattr(k, name + "_plain")
+        glu = "_glu_" in name
+        per_channel = name.endswith("_channel")
+        err, row = 0.0, None
+        for M in m_list:
+            for K, N in shapes:
+                a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                                  dtype=torch.int8)
+                s_tok = torch.rand((M, 1), generator=gen, device=dev) * 0.05 \
+                    + 1e-3
+                w = torch.randint(-2**31, 2**31 - 1, (K // 8, N), generator=gen,
+                                  device=dev, dtype=torch.int32)
+                if per_channel:
+                    s = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
+                else:  # g128 scales stored in bf16, as the pipeline stores them
+                    s = (torch.rand((K // 128, N), generator=gen, device=dev)
+                         * 0.01 + 1e-4).to(torch.bfloat16)
+                args = (a, s_tok, w, s)
+                out = fn(*args)
+                ref = plain_fn(*args)
+                torch.cuda.synchronize()
+                d = (out.float() - ref.float()).abs().max().item()
+                err = max(err, d)
+                if glu:
+                    ok, what = d <= ulp_tol(ref), f"max |diff| {d:.3g}"
+                else:
+                    ok, what = torch.equal(out, ref), "bit-exact"
+                if not ok:
+                    raise AssertionError(f"{name} M={M} K={K} N={N}: "
+                                         f"{what}, bound "
+                                         f"{'2 ulps' if glu else 'bit-exact'}")
+                if glu:
+                    out32 = fn(*args, torch.float32)
+                    ref32 = plain_fn(*args, torch.float32)
+                    torch.cuda.synchronize()
+                    d32 = (out32 - ref32).abs().max().item()
+                    tol32 = GLU_F32_TOL * ref32.abs().max().item()
+                    del out32, ref32
+                    if not d32 <= tol32:
+                        raise AssertionError(f"{name} M={M} K={K} N={N} f32 "
+                                             f"out: max |diff| {d32:.3g} > "
+                                             f"{tol32:.3g}")
+                    what += f" (f32 out: {d32:.3g}, bound {tol32:.3g})"
+                x = (a.float() * s_tok).to(torch.bfloat16)
+                wd = _dequant_weight(w, s)
+                if glu:
+                    wg, wu = _glu_halves(wd)
+                    del wd
+                    lib_fn = lambda: F.silu(x @ wg) * (x @ wu)  # noqa: E731
+                else:
+                    lib_fn = lambda: torch.matmul(x, wd)  # noqa: E731
+                ms = timer.ms(lambda: fn(*args))
+                plain = timer.ms(lambda: plain_fn(*args))
+                lib = timer.ms(lib_fn)
+                n_out = N // 2 if glu else N
+                nbytes = (M * K + M * 4 + K * N // 2 + s.numel() * s.element_size()
+                          + M * n_out * 2)
+                b, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
+                log(f"  {name} M={M:4d} K={K:5d} N={N:5d}: {what}; "
+                    f"{ms:.4f} ms (bound {b:.4f} by {by}, plain {plain:.4f}, "
+                    f"bf16 matmul {lib:.4f})")
+                if (M, K, N) == at:
+                    row = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=b, bound_by=by,
+                               shape=f"M={M} K={K} N={N}")
+                del a, w, x, out, ref, lib_fn
+        row["max_abs_err"] = err
+        rows[name] = row
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_kv_write(dev, gen, timer):
@@ -280,15 +381,17 @@ def check_flash(dev, gen, timer):
 
 
 def kernel_fns():
+    """Every kernel wrapper of the served paths → (wrapper, CUDA source, TPU
+    kernel replaced)."""
     from qqq_tpu_torch.kernels.attention import (
         decode_attention_int8, flash_attention_int8,
     )
     from qqq_tpu_torch.kernels.kv_write import slot_decode_write_int8
-    from qqq_tpu_torch.kernels.w4a8_gemm import w4a8_gemm
+    from qqq_tpu_torch.kernels.w4a8_gemm import KERNEL_WRAPPERS
 
-    return {
-        "w4a8_gemm": (w4a8_gemm, "qqq_tpu_torch/csrc/w4a8_gemm.cu",
-                      "qqq_tpu/kernels/w4a8_gemm.py:124"),
+    fns = {name: (KERNEL_WRAPPERS[name], src, rep)
+           for name, (src, rep) in GEMM_KERNELS.items()}
+    fns.update({
         "slot_decode_write_int8": (slot_decode_write_int8,
                                    "qqq_tpu_torch/csrc/kv_write.cu",
                                    "qqq_tpu/kernels/kv_write.py:36"),
@@ -298,24 +401,70 @@ def kernel_fns():
         "flash_attention_int8": (flash_attention_int8,
                                  "qqq_tpu_torch/csrc/flash_attention.cu",
                                  "qqq_tpu/kernels/attention.py:89"),
-    }
+    })
+    return fns
 
 
-def serve(dev, params, config):
+PROMPT_LENS = (100, 300, 600, 900)
+BUCKETS = (128, 512, 2048)
+MAX_BATCH = 4
+
+
+#: the kernels each served run must launch at least once
+SCHEME_KERNELS = {
+    "g128": ("w4a8_gemm_group", "w4a8_glu_group", "w4a8_gemm_requant",
+             "w4a8_glu_requant", "slot_decode_write_int8",
+             "decode_attention_int8", "flash_attention_int8"),
+    "per-channel": ("w4a8_gemm_channel", "w4a8_glu_channel",
+                    "slot_decode_write_int8", "decode_attention_int8",
+                    "flash_attention_int8"),
+}
+
+
+def expected_launches(scheme, n_layers, dispatches, ticks):
+    """Launches per kernel that a served run implies.  Per layer and
+    forward pass: four linears (q/k/v/o) and down_proj on the plain GEMM,
+    gate/up on the GLU GEMM.  g128: the requant route for prefill
+    dispatches of M ≥ 512 rows (T ≥ 64 always holds for the buckets here),
+    the exact route for the rest and for decode."""
+    n_big = sum(1 for m, t in dispatches if m >= 512 and t >= 64)
+    small = len(dispatches) - n_big + ticks
+    exp = dict.fromkeys(GEMM_KERNELS, 0)
+    if scheme == "g128":
+        exp.update(w4a8_gemm_group=5 * n_layers * small,
+                   w4a8_glu_group=n_layers * small,
+                   w4a8_gemm_requant=5 * n_layers * n_big,
+                   w4a8_glu_requant=n_layers * n_big)
+    else:
+        passes = len(dispatches) + ticks
+        exp.update(w4a8_gemm_channel=5 * n_layers * passes,
+                   w4a8_glu_channel=n_layers * passes)
+    exp.update(slot_decode_write_int8=n_layers * ticks,
+               decode_attention_int8=n_layers * ticks,
+               flash_attention_int8=n_layers * len(dispatches))
+    return exp
+
+
+def serve(dev, params, config, scheme):
+    """Serve 4 requests through ``Engine`` with default arguments (gate/up
+    GLU-fused).  Every kernel count is set to 0 just before the run and
+    read just after; each must equal what the run's dispatches imply."""
     from qqq_tpu_torch.serve.engine import Engine, Request
     from qqq_tpu_torch.serve.sampling import SamplingParams
 
     rng = np.random.default_rng(0)
-    lens = (100, 300, 600, 900)
-    prompts = [[int(t) for t in rng.integers(0, V, size=n)] for n in lens]
-    fns = kernel_fns()
-    for fn, _, _ in fns.values():
-        fn.launches = 0
-    eng = Engine(params, config, max_batch=4, max_len=2048,
-                 prefill_buckets=(128, 512, 2048), device=dev)
+    prompts = [[int(t) for t in rng.integers(0, V, size=n)]
+               for n in PROMPT_LENS]
+    eng = Engine(params, config, max_batch=MAX_BATCH, max_len=2048,
+                 prefill_buckets=BUCKETS, device=dev)
+    if not all("gate_up_glu" in layer for layer in eng.params["layers"]):
+        raise AssertionError("Engine() did not fuse gate/up")
     reqs = [Request(prompt_tokens=p,
                     sampling=SamplingParams(max_new_tokens=64))
             for p in prompts]
+    fns = kernel_fns()
+    for fn, _, _ in fns.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     eng.run(reqs)
     torch.cuda.synchronize()
@@ -327,26 +476,28 @@ def serve(dev, params, config):
                 0 <= t < V for t in r.output_tokens):
             raise AssertionError(f"request of {len(r.prompt_tokens)} tokens "
                                  f"returned {len(r.output_tokens)} tokens")
-    expect = {
-        "w4a8_gemm": 7 * L * (st["prefill_dispatches"] + st["decode_ticks"]),
-        "slot_decode_write_int8": L * st["decode_ticks"],
-        "decode_attention_int8": L * st["decode_ticks"],
-        "flash_attention_int8": L * st["prefill_dispatches"],
-    }
+    # (M, T) of each prefill dispatch, as the engine's scheduler chose them
+    dispatches = [(rows * t, t) for rows, t in st["prefill_shapes"]]
+    expect = expected_launches(scheme, config.num_hidden_layers, dispatches,
+                               st["decode_ticks"])
     for name, n in launches.items():
-        if n <= 0 or n != expect[name]:
-            raise AssertionError(f"{name}: {n} launches on the main path, "
-                                 f"expected {expect[name]}")
+        if n != expect[name]:
+            raise AssertionError(f"{scheme}: {name}: {n} launches on the "
+                                 f"served path, expected {expect[name]}")
+        if n == 0 and name in SCHEME_KERNELS[scheme]:
+            raise AssertionError(f"{scheme}: {name} never launched on the "
+                                 f"served path (M, T) = {dispatches}")
     decode_tokens = st["generated_tokens"] - len(reqs)
-    log(f"  served {len(reqs)} requests (prompts {lens}, 64 new tokens, "
-        f"depth {L}) in {wall:.3f} s: {st['prefill_dispatches']} prefill "
-        f"dispatches in {st['prefill_s']:.3f} s, {st['decode_ticks']} "
-        f"decode ticks in {st['decode_s']:.3f} s")
+    log(f"  served {len(reqs)} requests (prompts {PROMPT_LENS}, 64 new "
+        f"tokens, depth {config.num_hidden_layers}, {scheme}, fuse=True) in "
+        f"{wall:.3f} s: {st['prefill_dispatches']} prefill dispatches "
+        f"(M, T) = {dispatches} in {st['prefill_s']:.3f} s, "
+        f"{st['decode_ticks']} decode ticks in {st['decode_s']:.3f} s")
     log(f"  TTFT per request (s): "
         + ", ".join(f"{r.ttft:.3f}" for r in reqs))
     log(f"  decode: {decode_tokens / st['decode_s']:.1f} tok/s over all "
         f"slots, {1e3 * st['decode_s'] / st['decode_ticks']:.2f} ms per tick")
-    log(f"  launches on the main path: {json.dumps(launches)}")
+    log(f"  launches on the served path: {json.dumps(launches)}")
     return launches, prompts[0]
 
 
@@ -369,8 +520,11 @@ def _rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def card_vs_cpu(dev, params, config, prompt):
     """Teacher-force the card's greedy tokens through a 2-layer cut of the
-    same weights on the card (kernels) and on the CPU (plain versions), and
-    compare the logits of the prefill and of 4 decode steps.
+    same weights, GLU-fused as the engine fuses them, on the card (kernels)
+    and on the CPU (plain versions), and compare the logits of the prefill
+    (1 row of bucket 128: M = 128, the exact g128 kernels) and of 4 decode
+    steps (the exact kernels at M = 1); then of a batched prefill of 4 rows
+    of bucket 128 (M = 512, T = 128: the requant kernels).
 
     Tolerance: the GEMM and the KV write give the same bits on both sides
     (phase 2), but RoPE's cos/sin and the attention kernels' sums differ in
@@ -384,11 +538,12 @@ def card_vs_cpu(dev, params, config, prompt):
     differences carry, beside each step.  A fault in a kernel or its
     indexing moves the logits by O(100%); the bound of 10% relative RMS
     sits between the two."""
-    from qqq_tpu_torch.models import forward
+    from qqq_tpu_torch.models import forward, fuse_inference_params
     from qqq_tpu_torch.serve import kv_cache
 
     cfg2 = dataclasses.replace(config, num_hidden_layers=2)
-    cut = {**params, "layers": params["layers"][:2]}
+    cut = fuse_inference_params({**params, "layers": params["layers"][:2]},
+                                cfg2)
     cpu = _tree_map(lambda t: t.cpu(), cut)
     emb = cpu["embed"]
     nudge = torch.rand(emb.shape, generator=torch.Generator().manual_seed(1))
@@ -441,6 +596,66 @@ def card_vs_cpu(dev, params, config, prompt):
         f"tokens {fed}); worst {worst:.3%} RMS, bound "
         f"{CARD_VS_CPU_TOL:.0%}")
 
+    # a batched prefill of M = 4·128 rows, T = 128: the requant kernels
+    rng = np.random.default_rng(1)
+    lens = (100, 128, 64, 117)
+    toks = torch.zeros((len(lens), bucket), dtype=torch.int64)
+    for i, m in enumerate(lens):
+        toks[i, :m] = torch.from_numpy(rng.integers(0, V, size=m))
+    fns = kernel_fns()
+    out = {}
+    for name, d, p in (("card", dev, cut), ("cpu", host, cpu),
+                       ("nudged", host, nudged)):
+        for fn, _, _ in fns.values():
+            fn.launches = 0
+        caches = kv_cache.init(cfg2, len(lens), bucket, quantized=True,
+                               device=d)
+        lg, _ = forward(p, cfg2, toks.to(d), caches=caches,
+                        cache_len=torch.zeros((len(lens),), dtype=torch.int32,
+                                              device=d),
+                        logits_at=torch.tensor(lens, device=d) - 1)
+        out[name] = lg[:, 0].float().cpu()
+        if name == "card":
+            ran = sorted(k for k, (fn, _, _) in fns.items() if fn.launches)
+            if not {"w4a8_gemm_requant", "w4a8_glu_requant"} <= set(ran):
+                raise AssertionError(f"batched prefill ran {ran}, not the "
+                                     "requant kernels")
+    log(f"  batched prefill, 4 rows of bucket 128 (M = 512, T = 128; card "
+        f"kernels {ran}):")
+    for i in range(len(lens)):
+        a, b, c = (out[k][i] for k in ("card", "cpu", "nudged"))
+        if not (torch.isfinite(a).all() and a.shape == (V,)):
+            raise AssertionError(f"batched row {i}: card logits not finite "
+                                 "or of the wrong shape")
+        rel = _rel_rms(a, b)
+        log(f"    row {i} ({lens[i]} tokens): card vs CPU {rel:.3%} RMS (max "
+            f"|diff| {float((a - b).abs().max()):.4g}); CPU vs nudged CPU "
+            f"{_rel_rms(c, b):.3%} RMS; argmax "
+            f"{'agrees' if a.argmax() == b.argmax() else 'differs'}")
+        if rel > CARD_VS_CPU_TOL:
+            raise AssertionError(f"batched row {i}: card vs CPU logits "
+                                 f"differ by {rel:.3%} RMS > "
+                                 f"{CARD_VS_CPU_TOL:.0%}")
+
+
+def random_packed_params(dev, config, group_size):
+    """Random weights from a seeded generator, RTN-packed on the card."""
+    from qqq_tpu_torch.models import init_params, quantize_params_rtn
+
+    t0 = time.perf_counter()
+    params = quantize_params_rtn(
+        init_params(config, torch.Generator(device=dev).manual_seed(0),
+                    dtype=torch.bfloat16, device=dev), config, group_size)
+    torch.cuda.synchronize()
+    packed = sum(l[n]["w_packed"].numel() * 4 for l in params["layers"]
+                 for n in ("q_proj", "k_proj", "v_proj", "o_proj",
+                           "gate_proj", "up_proj", "down_proj"))
+    log(f"  random weights made and RTN-packed (group_size {group_size}) on "
+        f"the card in {time.perf_counter() - t0:.1f} s: {packed / 1e9:.2f} GB "
+        f"packed")
+    torch.cuda.empty_cache()
+    return params
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -448,7 +663,7 @@ def main() -> int:
         return 2
     import_port()
     from qqq_tpu_torch.kernels import build
-    from qqq_tpu_torch.models import ModelConfig, init_params, quantize_params_rtn
+    from qqq_tpu_torch.models import ModelConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -470,7 +685,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     timer = Timer(dev)
     rows = {
-        "w4a8_gemm": check_gemm(dev, gen, timer),
+        **check_gemm_family(dev, gen, timer),
         "slot_decode_write_int8": check_kv_write(dev, gen, timer),
         "decode_attention_int8": check_decode(dev, gen, timer),
         "flash_attention_int8": check_flash(dev, gen, timer),
@@ -478,26 +693,24 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
-    log("phase 3: serve Llama-2-7B (per-channel W4A8, INT8 slot KV cache)")
     config = ModelConfig(vocab_size=V, hidden_size=H, intermediate_size=I,
                          num_hidden_layers=L, num_attention_heads=NH,
                          num_key_value_heads=NKV)
-    t0 = time.perf_counter()
-    params = quantize_params_rtn(
-        init_params(config, torch.Generator(device=dev).manual_seed(0),
-                    dtype=torch.bfloat16, device=dev), config)
-    torch.cuda.synchronize()
-    packed = sum(l[n]["w_packed"].numel() * 4 for l in params["layers"]
-                 for n in ("q_proj", "k_proj", "v_proj", "o_proj",
-                           "gate_proj", "up_proj", "down_proj"))
-    log(f"  random weights made and RTN-packed on the card in "
-        f"{time.perf_counter() - t0:.1f} s: {packed / 1e9:.2f} GB packed")
-    torch.cuda.empty_cache()
-    launches, prompt0 = serve(dev, params, config)
+    runs = {}
+    for scheme, group_size in (("g128", 128), ("per-channel", -1)):
+        log(f"phase 3{'a' if scheme == 'g128' else 'b'}: serve Llama-2-7B "
+            f"({scheme} W4A8, gate/up GLU-fused, INT8 slot KV cache)")
+        params = random_packed_params(dev, config, group_size)
+        runs[scheme], prompt0 = serve(dev, params, config, scheme)
+        if scheme == "g128":
+            log("phase 4: card against CPU, 2-layer cut of the g128 weights")
+            card_vs_cpu(dev, params, config, prompt0)
+        del params
+        torch.cuda.empty_cache()
 
-    log("phase 4: card against CPU, 2-layer cut of the same weights")
-    card_vs_cpu(dev, params, config, prompt0)
-
+    # each kernel's launches from the run whose path it is on: the g128
+    # (main) run, else the per-channel one
+    launches = {k: n or runs["per-channel"][k] for k, n in runs["g128"].items()}
     report = []
     for kname, (fn, source, replaces) in kernel_fns().items():
         r = rows[kname]

@@ -4,5 +4,8 @@ from qqq_tpu_torch.core.quant import (
     find_params_weight,
     quantize_activations_per_token,
     quantize_weight_int,
+    requant_scales,
+    requantize_group_weights_int8,
+    s_extra_from_group_scales,
     w4a8_matmul_reference,
 )

@@ -10,6 +10,10 @@ Weights are ``(K, N) = (in_features, out_features)``.  Rounding is
 half-to-even everywhere (``torch.round``), as in the JAX package, so codes
 are bit-identical between the two.  The MSE grid search of
 ``find_params_weight`` waits for the calibration port.
+
+The g128 requant route of the GEMM regrids the INT4 codes to INT8 through
+the double scale ``s_frac = s_group / s_extra`` (``s_extra`` derived from
+the group scales alone) and takes one int32 dot over the whole K.
 """
 
 from __future__ import annotations
@@ -126,24 +130,73 @@ def quantize_weight_int(
     return q.reshape(K, N).to(torch.int8)
 
 
+def s_extra_from_group_scales(s_group: torch.Tensor) -> torch.Tensor:
+    """The per-channel INT8 scale ``7 · max_g s_group[g, n] / 127`` (N,) f32
+    of (G, N) full group scales of any float dtype; an all-zero channel
+    takes 1.  Equals the absmax / 127 of the dequantized weights for every
+    min/max or MSE-shrunk symmetric INT4 quantization, whose largest group
+    attains a ±7 code."""
+    s = s_group.to(torch.float32).amax(dim=0)
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    return s * (7.0 / 127.0)
+
+
+def requant_scales(s_group: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(s_frac (G, N), s_extra (N,))`` f32 for the requant route:
+    ``s_frac = s_group / s_extra``, one IEEE division per entry."""
+    s_g32 = s_group.to(torch.float32)
+    s_extra = s_extra_from_group_scales(s_g32)
+    return s_g32 / s_extra[None, :], s_extra
+
+
+def requantize_group_weights_int8(
+    q4: torch.Tensor, s_frac: torch.Tensor, group_size: int
+) -> torch.Tensor:
+    """INT4 codes (K, N) in [-8, 7] → INT8 (K, N): ``clip(round(q ·
+    s_frac[g]), ±127)``, the f32 product rounded once, half to even."""
+    K, N = q4.shape
+    qg = q4.to(torch.float32).reshape(K // group_size, group_size, N)
+    w8 = torch.round(qg * s_frac[:, None, :].to(torch.float32))
+    return torch.clamp(w8, -127, 127).reshape(K, N).to(torch.int8)
+
+
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 operands, taken through float64
+    (|a·b| < 2^53 for every K this package meets)."""
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+
+
 def w4a8_matmul_reference(
     a_q: torch.Tensor,
     s_token: torch.Tensor,
     q4: torch.Tensor,
-    s_channel: torch.Tensor,
+    s_channel: Optional[torch.Tensor] = None,
     s_group: Optional[torch.Tensor] = None,
     *,
     group_size: int = -1,
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Per-channel W4A8 GEMM oracle on unpacked codes ``q4`` (K, N):
-    ``(A·W4)_s32 · s_channel · s_token``.  The int32 product is taken
-    through float64, which is exact here (|A·W4| < 2^53)."""
-    if group_size != -1 or s_group is not None:
-        raise NotImplementedError(
-            "the g128 W4A8 GEMM arrives in the next slice of the port"
-        )
-    acc = (a_q.to(torch.float64) @ q4.to(torch.float64)).to(torch.int32)
-    out = acc.to(torch.float32) * s_channel[None, :].to(torch.float32)
-    out = out * s_token.to(torch.float32)
-    return out.to(out_dtype)
+    """W4A8 GEMM oracle on unpacked codes ``q4`` (K, N).
+
+    Per-channel: ``(A·W4)_s32 · s_channel · s_token``.
+    Per-group (``group_size = 128``, ``s_group`` (K/128, N) full scales of
+    any float dtype): ``Σ_g (A_g·W4_g)_s32 · s_group[g]`` accumulated in f32
+    group by group in order, a multiply and an add each rounded on its own,
+    then ``· s_token``."""
+    s_token = s_token.to(torch.float32)
+    if group_size == -1:
+        if s_channel is None:
+            raise ValueError("the per-channel GEMM needs s_channel")
+        acc = int_dot(a_q, q4)
+        out = acc.to(torch.float32) * s_channel[None, :].to(torch.float32)
+        return (out * s_token).to(out_dtype)
+    if s_group is None:
+        raise ValueError("the per-group GEMM needs s_group")
+    M, K = a_q.shape
+    sg = s_group.to(torch.float32)
+    facc = torch.zeros((M, q4.shape[1]), dtype=torch.float32,
+                       device=a_q.device)
+    for g in range(K // group_size):  # the kernels' accumulation order
+        sl = slice(g * group_size, (g + 1) * group_size)
+        facc = facc + int_dot(a_q[:, sl], q4[sl]).to(torch.float32) * sg[g]
+    return (facc * s_token).to(out_dtype)

@@ -1,40 +1,278 @@
-"""Per-channel W4A8 GEMM (port of qqq_tpu/kernels/w4a8_gemm.py:w4a8_gemm and
-w4a8_linear, ``group_size=-1``).
+"""W4A8 GEMM, per channel and g128, plain and GLU-fused (port of
+qqq_tpu/kernels/w4a8_gemm.py: w4a8_gemm, w4a8_linear, fuse_glu_layout,
+w4a8_glu_gemm, w4a8_glu_linear; the activation-quant-fused variants, off by
+default there, are not ported yet).
 
-``D = ((A_i8 · U)_s32 − 8·rowsum(A)) · s_channel[n] · s_token[m]`` with U the
-stored offset codes (q + 8).  On a CUDA tensor :func:`w4a8_gemm` launches
-csrc/w4a8_gemm.cu; on a CPU tensor it runs :func:`w4a8_gemm_plain`, the
-same arithmetic in plain PyTorch.  The int32 core is exact, so the two are
-bit-identical.  The g128 variants (_w4a8_group_kernel,
-_w4a8_requant_group_kernel) and the GLU epilogue (_w4a8_channel_glu_kernel)
-arrive in the next slice.
+Six kernel routes, one wrapper each, each with a plain PyTorch twin and its
+own launch count:
+
+====================  ===============================  =====================
+wrapper               TPU kernel                       CUDA source
+====================  ===============================  =====================
+w4a8_gemm_channel     _w4a8_channel_kernel             csrc/w4a8_gemm.cu
+w4a8_glu_channel      _w4a8_channel_glu_kernel         csrc/w4a8_gemm.cu
+w4a8_gemm_group       _w4a8_group_kernel               csrc/w4a8_group.cu
+w4a8_glu_group        _w4a8_group_glu_kernel           csrc/w4a8_group.cu
+w4a8_gemm_requant     _w4a8_requant_group_kernel       csrc/w4a8_requant.cu
+w4a8_glu_requant      _w4a8_requant_group_glu_kernel   csrc/w4a8_requant.cu
+====================  ===============================  =====================
+
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
+it runs its plain version.  :func:`w4a8_gemm` and :func:`w4a8_glu_gemm`
+choose the route as the JAX package does: per channel, or g128 exact, or
+g128 requant (``requant`` if given, else ``M >= 512``).
+
+Numerics.  Per channel and requant are exact in int32 up to two f32
+multiplies in the JAX order: kernel and plain version are bit-identical.
+The exact g128 route sums the groups' f32 terms in group order, each
+product and sum rounded on its own, on both sides: bit-identical too.  The
+GLU epilogue ``g·σ(g)·u`` (f32, one rounding to the output dtype) may
+differ where the kernel's ``expf`` and PyTorch's ``sigmoid`` do.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from qqq_tpu_torch.core.packing import PACK_BLOCK, unpack_int4
 from qqq_tpu_torch.core.quant import (
-    quantize_activations_per_token, w4a8_matmul_reference,
+    int_dot, quantize_activations_per_token, requant_scales,
+    requantize_group_weights_int8, w4a8_matmul_reference,
 )
 from qqq_tpu_torch.kernels import build
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+_SG_DTYPES = (torch.bfloat16, torch.float32)
+
+GLU_INTERLEAVE = 256  # gate/up column-tile width baked into the fused layout
+
+#: rows (M) from which the g128 GEMM takes the requant route by default
+REQUANT_MIN_M = 512
 
 
-def w4a8_gemm_plain(
-    a_q: torch.Tensor, s_token: torch.Tensor, w_packed: torch.Tensor,
-    s_channel: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the exact ``(A·W4)_s32`` (which
-    equals the kernel's ``(A·U) − 8·rowsum(A)``), times ``s_channel`` then
-    ``s_token`` in the JAX kernel's order."""
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def glu_epilogue_plain(y: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``silu(gate)·up`` of scaled f32 values ``y`` (M, 2I) in the fused
+    column layout → (M, I) ``out_dtype``."""
+    M, n2 = y.shape
+    t = y.reshape(M, n2 // (2 * GLU_INTERLEAVE), 2, GLU_INTERLEAVE)
+    g, u = t[:, :, 0], t[:, :, 1]
+    return (g * torch.sigmoid(g) * u).reshape(M, n2 // 2).to(out_dtype)
+
+
+def w4a8_gemm_channel_plain(a_q, s_token, w_packed, s_channel,
+                            out_dtype=torch.bfloat16):
+    """The exact ``(A·W4)_s32`` (which equals the kernel's ``(A·U) −
+    8·rowsum(A)``), times ``s_channel`` then ``s_token``."""
     return w4a8_matmul_reference(a_q, s_token.reshape(-1, 1),
                                  unpack_int4(w_packed), s_channel,
                                  out_dtype=out_dtype)
+
+
+def w4a8_gemm_group_plain(a_q, s_token, w_packed, s_group,
+                          out_dtype=torch.bfloat16):
+    """Per-group f32 sum in group order, then ``· s_token``."""
+    return w4a8_matmul_reference(a_q, s_token.reshape(-1, 1),
+                                 unpack_int4(w_packed), None, s_group,
+                                 group_size=PACK_BLOCK, out_dtype=out_dtype)
+
+
+def w4a8_gemm_requant_plain(a_q, s_token, w_packed, s_group,
+                            out_dtype=torch.bfloat16):
+    """INT4 → INT8 through ``s_frac``, one exact int32 dot, then
+    ``· s_extra · s_token``."""
+    s_frac, s_extra = requant_scales(s_group)
+    w8 = requantize_group_weights_int8(unpack_int4(w_packed), s_frac,
+                                       PACK_BLOCK)
+    out = int_dot(a_q, w8).to(torch.float32) * s_extra[None, :]
+    return (out * s_token.reshape(-1, 1).to(torch.float32)).to(out_dtype)
+
+
+def w4a8_glu_channel_plain(a_q, s_token, w_glu, s_channel,
+                           out_dtype=torch.bfloat16):
+    return glu_epilogue_plain(w4a8_gemm_channel_plain(
+        a_q, s_token, w_glu, s_channel, torch.float32), out_dtype)
+
+
+def w4a8_glu_group_plain(a_q, s_token, w_glu, s_group,
+                         out_dtype=torch.bfloat16):
+    return glu_epilogue_plain(w4a8_gemm_group_plain(
+        a_q, s_token, w_glu, s_group, torch.float32), out_dtype)
+
+
+def w4a8_glu_requant_plain(a_q, s_token, w_glu, s_group,
+                           out_dtype=torch.bfloat16):
+    return glu_epilogue_plain(w4a8_gemm_requant_plain(
+        a_q, s_token, w_glu, s_group, torch.float32), out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _shapes(a_q, w_packed, out_dtype, glu: bool):
+    """(M, K, N, device kind) after the checks every route shares; N is the
+    weight's width (2I with ``glu``)."""
+    M, K = a_q.shape
+    N = w_packed.shape[1]
+    if K % PACK_BLOCK or tuple(w_packed.shape) != (K // 8, N):
+        raise ValueError(f"a_q {tuple(a_q.shape)} / w_packed "
+                         f"{tuple(w_packed.shape)}: K must be a multiple of "
+                         f"{PACK_BLOCK} and w_packed (K//8, N)")
+    if glu and N % (2 * GLU_INTERLEAVE):
+        raise ValueError(f"GLU weight width {N} is not a multiple of "
+                         f"{2 * GLU_INTERLEAVE}")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype {out_dtype} not in {_OUT_DTYPES}")
+    if a_q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"w4a8 GEMM: unsupported device {a_q.device}")
+    return M, K, N, a_q.device.type
+
+
+def _common_cuda(a_q, s_token, w_packed, M, K, N, out_dtype, glu):
+    """Checks the operands every kernel reads and allocates the output."""
+    s_tok = s_token.reshape(M)
+    dev = a_q.device
+    build.require(a_q, torch.int8, (M, K), "a_q", dev)
+    build.require(s_tok, torch.float32, (M,), "s_token", dev)
+    build.require(w_packed, torch.int32, (K // 8, N), "w_packed", dev)
+    if a_q.data_ptr() % 16:
+        raise ValueError("a_q must be 16-byte aligned (read as int4 vectors)")
+    out = torch.empty((M, N // 2 if glu else N), dtype=out_dtype, device=dev)
+    return s_tok, out
+
+
+def _channel(counter, a_q, s_token, w_packed, s_channel, out_dtype, glu):
+    M, K, N, kind = _shapes(a_q, w_packed, out_dtype, glu)
+    if kind == "cpu":
+        plain = w4a8_glu_channel_plain if glu else w4a8_gemm_channel_plain
+        return plain(a_q, s_token, w_packed, s_channel, out_dtype)
+    s_tok, out = _common_cuda(a_q, s_token, w_packed, M, K, N, out_dtype, glu)
+    build.require(s_channel, torch.float32, (N,), "s_channel", a_q.device)
+    fn = build.bind("w4a8_gemm", "w4a8_gemm_channel", "pppppiiiiip")
+    build.check(fn(a_q.data_ptr(), s_tok.data_ptr(), w_packed.data_ptr(),
+                   s_channel.data_ptr(), out.data_ptr(), M, K, N, int(glu),
+                   int(out_dtype == torch.bfloat16), build.stream_of(a_q)),
+                counter.__name__)
+    counter.launches += 1
+    return out
+
+
+def _group(counter, a_q, s_token, w_packed, s_group, out_dtype, glu):
+    M, K, N, kind = _shapes(a_q, w_packed, out_dtype, glu)
+    if kind == "cpu":
+        plain = w4a8_glu_group_plain if glu else w4a8_gemm_group_plain
+        return plain(a_q, s_token, w_packed, s_group, out_dtype)
+    s_tok, out = _common_cuda(a_q, s_token, w_packed, M, K, N, out_dtype, glu)
+    if s_group.dtype not in _SG_DTYPES:
+        raise TypeError(f"s_group dtype {s_group.dtype} not in {_SG_DTYPES}")
+    build.require(s_group, s_group.dtype, (K // PACK_BLOCK, N), "s_group",
+                  a_q.device)
+    fn = build.bind("w4a8_group", "w4a8_gemm_group", "pppppiiiiiip")
+    build.check(fn(a_q.data_ptr(), s_tok.data_ptr(), w_packed.data_ptr(),
+                   s_group.data_ptr(), out.data_ptr(), M, K, N, int(glu),
+                   int(s_group.dtype == torch.bfloat16),
+                   int(out_dtype == torch.bfloat16), build.stream_of(a_q)),
+                counter.__name__)
+    counter.launches += 1
+    return out
+
+
+def _requant(counter, a_q, s_token, w_packed, s_group, out_dtype, glu):
+    M, K, N, kind = _shapes(a_q, w_packed, out_dtype, glu)
+    if kind == "cpu":
+        plain = w4a8_glu_requant_plain if glu else w4a8_gemm_requant_plain
+        return plain(a_q, s_token, w_packed, s_group, out_dtype)
+    s_tok, out = _common_cuda(a_q, s_token, w_packed, M, K, N, out_dtype, glu)
+    if tuple(s_group.shape) != (K // PACK_BLOCK, N):
+        raise ValueError(f"s_group: shape {tuple(s_group.shape)}, expected "
+                         f"{(K // PACK_BLOCK, N)}")
+    s_frac, s_extra = requant_scales(s_group)
+    build.require(s_frac, torch.float32, (K // PACK_BLOCK, N), "s_frac",
+                  a_q.device)
+    fn = build.bind("w4a8_requant", "w4a8_gemm_requant", "ppppppiiiiip")
+    build.check(fn(a_q.data_ptr(), s_tok.data_ptr(), w_packed.data_ptr(),
+                   s_frac.data_ptr(), s_extra.data_ptr(), out.data_ptr(),
+                   M, K, N, int(glu), int(out_dtype == torch.bfloat16),
+                   build.stream_of(a_q)),
+                counter.__name__)
+    counter.launches += 1
+    return out
+
+
+def _counted(route, glu: bool, name: str, doc: str):
+    """The public wrapper of one kernel.  ``route`` adds one to the
+    wrapper's own ``launches`` right after it launches the kernel."""
+
+    def wrapper(a_q, s_token, w_packed, scales, out_dtype=torch.bfloat16):
+        return route(wrapper, a_q, s_token, w_packed, scales, out_dtype, glu)
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc
+    wrapper.launches = 0  # kernel launches; only the CUDA branch counts
+    return wrapper
+
+
+w4a8_gemm_channel = _counted(
+    _channel, False, "w4a8_gemm_channel",
+    "Per-channel GEMM (_w4a8_channel_kernel): a_q (M, K) int8, s_token "
+    "(M, 1) f32, w_packed (K//8, N) int32, s_channel (N,) f32 → (M, N).")
+w4a8_glu_channel = _counted(
+    _channel, True, "w4a8_glu_channel",
+    "Per-channel GEMM with the GLU epilogue (_w4a8_channel_glu_kernel): "
+    "w_glu (K//8, 2I) in the fused layout, s_channel (2I,) → (M, I).")
+w4a8_gemm_group = _counted(
+    _group, False, "w4a8_gemm_group",
+    "Exact g128 GEMM (_w4a8_group_kernel): s_group (K//128, N) bf16 or f32 "
+    "→ (M, N).")
+w4a8_glu_group = _counted(
+    _group, True, "w4a8_glu_group",
+    "Exact g128 GEMM with the GLU epilogue (_w4a8_group_glu_kernel): "
+    "s_group (K//128, 2I) → (M, I).")
+w4a8_gemm_requant = _counted(
+    _requant, False, "w4a8_gemm_requant",
+    "g128 requant GEMM (_w4a8_requant_group_kernel): s_group (K//128, N) "
+    "→ (M, N); s_frac and s_extra are derived from s_group.")
+w4a8_glu_requant = _counted(
+    _requant, True, "w4a8_glu_requant",
+    "g128 requant GEMM with the GLU epilogue "
+    "(_w4a8_requant_group_glu_kernel) → (M, I).")
+
+#: every kernel wrapper of this module, by name
+KERNEL_WRAPPERS = {f.__name__: f for f in (
+    w4a8_gemm_channel, w4a8_glu_channel, w4a8_gemm_group, w4a8_glu_group,
+    w4a8_gemm_requant, w4a8_glu_requant)}
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+
+
+def _route(M: int, s_channel, s_group, group_size: int,
+           requant: Optional[bool]):
+    """``(route name, scales)``: "channel", "group" or "requant"."""
+    if group_size == -1:
+        if s_channel is None:
+            raise ValueError("per-channel W4A8 GEMM needs s_channel")
+        return "channel", s_channel
+    if group_size != PACK_BLOCK:
+        raise ValueError(f"group_size {group_size}: only -1 and "
+                         f"{PACK_BLOCK}")
+    if s_group is None:
+        raise ValueError("g128 W4A8 GEMM needs s_group")
+    do_requant = requant if requant is not None else M >= REQUANT_MIN_M
+    return ("requant" if do_requant else "group"), s_group
+
+
+_GEMM = {"channel": w4a8_gemm_channel, "group": w4a8_gemm_group,
+         "requant": w4a8_gemm_requant}
+_GLU = {"channel": w4a8_glu_channel, "group": w4a8_glu_group,
+        "requant": w4a8_glu_requant}
 
 
 def w4a8_gemm(
@@ -46,48 +284,35 @@ def w4a8_gemm(
     *,
     group_size: int = -1,
     out_dtype: torch.dtype = torch.bfloat16,
+    requant: Optional[bool] = None,
 ) -> torch.Tensor:
     """W4A8 GEMM.  ``a_q`` (M, K) int8, ``s_token`` (M, 1) or (M,) f32,
-    ``w_packed`` (K//8, N) int32, ``s_channel`` (N,) f32 → (M, N)
-    ``out_dtype`` (bf16 or f32)."""
-    if group_size != -1 or s_group is not None:
-        raise NotImplementedError(
-            "the g128 W4A8 GEMM (_w4a8_group_kernel, "
-            "_w4a8_requant_group_kernel) arrives in the next slice"
-        )
-    if s_channel is None:
-        raise ValueError("per-channel W4A8 GEMM needs s_channel")
-    M, K = a_q.shape
-    N = w_packed.shape[1]
-    if K % PACK_BLOCK or tuple(w_packed.shape) != (K // 8, N):
-        raise ValueError(f"a_q {tuple(a_q.shape)} / w_packed "
-                         f"{tuple(w_packed.shape)}: K must be a multiple of "
-                         f"{PACK_BLOCK} and w_packed (K//8, N)")
-    if out_dtype not in _OUT_DTYPES:
-        raise TypeError(f"out_dtype {out_dtype} not in {_OUT_DTYPES}")
-    if a_q.device.type == "cpu":
-        return w4a8_gemm_plain(a_q, s_token, w_packed, s_channel, out_dtype)
-    if a_q.device.type != "cuda":
-        raise ValueError(f"w4a8_gemm: unsupported device {a_q.device}")
-    s_tok = s_token.reshape(M)
-    dev = a_q.device
-    build.require(a_q, torch.int8, (M, K), "a_q", dev)
-    build.require(s_tok, torch.float32, (M,), "s_token", dev)
-    build.require(w_packed, torch.int32, (K // 8, N), "w_packed", dev)
-    build.require(s_channel, torch.float32, (N,), "s_channel", dev)
-    if a_q.data_ptr() % 16:
-        raise ValueError("a_q must be 16-byte aligned (read as int4 vectors)")
-    out = torch.empty((M, N), dtype=out_dtype, device=a_q.device)
-    fn = build.bind("w4a8_gemm", "w4a8_gemm_channel", "pppppiiiip")
-    build.check(fn(a_q.data_ptr(), s_tok.data_ptr(), w_packed.data_ptr(),
-                   s_channel.data_ptr(), out.data_ptr(), M, K, N,
-                   int(out_dtype == torch.bfloat16), build.stream_of(a_q)),
-                "w4a8_gemm")
-    w4a8_gemm.launches += 1
-    return out
+    ``w_packed`` (K//8, N) int32, and ``s_channel`` (N,) f32
+    (``group_size=-1``) or ``s_group`` (K//128, N) bf16/f32
+    (``group_size=128``) → (M, N) ``out_dtype`` (bf16 or f32).  ``requant``
+    (g128 only): None = requant when M ≥ 512, else exact; True/False force
+    the route."""
+    name, scales = _route(a_q.shape[0], s_channel, s_group, group_size,
+                          requant)
+    return _GEMM[name](a_q, s_token, w_packed, scales, out_dtype)
 
 
-w4a8_gemm.launches = 0  # kernel launches; only the CUDA branch counts
+def w4a8_glu_gemm(
+    a_q: torch.Tensor,
+    s_token: torch.Tensor,
+    w_glu: torch.Tensor,
+    s_channel: Optional[torch.Tensor] = None,
+    s_group: Optional[torch.Tensor] = None,
+    *,
+    group_size: int = -1,
+    out_dtype: torch.dtype = torch.bfloat16,
+    requant: Optional[bool] = None,
+) -> torch.Tensor:
+    """GLU-fused W4A8 GEMM: ``silu(a·W_gate)·(a·W_up)`` (M, I) from the
+    fused weight of :func:`fuse_glu_layout`, routed as :func:`w4a8_gemm`."""
+    name, scales = _route(a_q.shape[0], s_channel, s_group, group_size,
+                          requant)
+    return _GLU[name](a_q, s_token, w_glu, scales, out_dtype)
 
 
 def w4a8_linear(
@@ -99,6 +324,7 @@ def w4a8_linear(
     *,
     group_size: int = -1,
     out_dtype: torch.dtype = torch.bfloat16,
+    requant: Optional[bool] = None,
 ) -> torch.Tensor:
     """Quantized linear layer: per-token INT8 activation quantization (plain
     PyTorch, in front of the kernel as in JAX) + W4A8 GEMM + bias.
@@ -107,7 +333,65 @@ def w4a8_linear(
     x2 = x.reshape(-1, x.shape[-1])
     a_q, s_tok = quantize_activations_per_token(x2)
     out = w4a8_gemm(a_q, s_tok, w_packed, s_channel, s_group,
-                    group_size=group_size, out_dtype=out_dtype)
+                    group_size=group_size, out_dtype=out_dtype,
+                    requant=requant)
     if bias is not None:
         out = out + bias.to(out.dtype)
+    return out.reshape(*lead, -1)
+
+
+def _interleave_cols(a: torch.Tensor, b: torch.Tensor, bn: int) -> torch.Tensor:
+    """(R, I) + (R, I) → (R, 2I) as [a_0 b_0 a_1 b_1 ...] tiles of bn cols."""
+    R, I = a.shape
+    t = I // bn
+    return torch.stack([a.reshape(R, t, bn), b.reshape(R, t, bn)],
+                       dim=2).reshape(R, 2 * I)
+
+
+def fuse_glu_layout(gate: Dict[str, Any],
+                    up: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """Fuse packed gate/up linears into one GLU weight for
+    :func:`w4a8_glu_linear`: columns tile-interleaved as
+    ``[gate_j(256) | up_j(256)]``, bit for bit the JAX layout.  Returns None
+    when not fusible (dense, biased, unequal shapes or schemes, or I not a
+    multiple of 256)."""
+    if "w_packed" not in gate or "w_packed" not in up:
+        return None
+    if "b" in gate or "b" in up:
+        return None
+    if gate["w_packed"].shape != up["w_packed"].shape:
+        return None
+    if ("s_group" in gate) != ("s_group" in up):
+        return None
+    I = gate["w_packed"].shape[1]
+    if I % GLU_INTERLEAVE != 0:
+        return None
+    bn = GLU_INTERLEAVE
+    fused = {"w_packed": _interleave_cols(gate["w_packed"], up["w_packed"],
+                                          bn)}
+    if "s_group" in gate:
+        fused["s_group"] = _interleave_cols(gate["s_group"], up["s_group"], bn)
+    else:
+        fused["s_channel"] = _interleave_cols(
+            gate["s_channel"].reshape(1, I), up["s_channel"].reshape(1, I), bn
+        ).reshape(2 * I)
+    return fused
+
+
+def w4a8_glu_linear(
+    x: torch.Tensor,
+    glu: Dict[str, torch.Tensor],
+    *,
+    out_dtype: torch.dtype = torch.bfloat16,
+    requant: Optional[bool] = None,
+) -> torch.Tensor:
+    """``silu(x·W_gate)·(x·W_up)`` through the GLU-fused kernel; ``glu``
+    comes from :func:`fuse_glu_layout`."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    a_q, s_tok = quantize_activations_per_token(x2)
+    group_size = PACK_BLOCK if "s_group" in glu else -1
+    out = w4a8_glu_gemm(a_q, s_tok, glu["w_packed"], glu.get("s_channel"),
+                        glu.get("s_group"), group_size=group_size,
+                        out_dtype=out_dtype, requant=requant)
     return out.reshape(*lead, -1)

@@ -3,6 +3,7 @@ from qqq_tpu_torch.models.convert import params_from_numpy
 from qqq_tpu_torch.models.llama import (
     decode_step,
     forward,
+    fuse_inference_params,
     init_params,
     linear_apply,
 )

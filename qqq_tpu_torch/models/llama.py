@@ -15,8 +15,12 @@ Params keep the JAX package's layout (weights are (in, out)):
 
     Linear := {"w": (K, N) [, "b": (N,)]}                         (dense)
              | {"w_packed": (K//8, N) int32, "s_channel": (N,) [, "b"]}  (W4A8)
+             | {"w_packed", "s_group": (K//128, N) bf16/f32 [, "b"]}  (W4A8 g128)
 
-A packed linear runs through the W4A8 GEMM kernel; attention over an INT8
+:func:`fuse_inference_params` may replace gate/up by one ``gate_up_glu``
+linear (the GLU-fused kernel) and q/k/v by one ``qkv_proj``.
+
+A packed linear runs through the W4A8 GEMM kernels; attention over an INT8
 cache runs through the slot-write, decode and flash kernels.  Caches are
 updated in place.
 """
@@ -32,7 +36,9 @@ import torch.nn.functional as F
 from qqq_tpu_torch.kernels.attention import (
     decode_attention_auto, flash_attention_int8,
 )
-from qqq_tpu_torch.kernels.w4a8_gemm import w4a8_linear
+from qqq_tpu_torch.kernels.w4a8_gemm import (
+    fuse_glu_layout, w4a8_glu_linear, w4a8_linear,
+)
 from qqq_tpu_torch.models.config import ModelConfig
 from qqq_tpu_torch.serve import kv_cache as kvc
 from qqq_tpu_torch.utils.device import resolve_device
@@ -52,15 +58,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * weight.to(torch.float32)).to(dtype)
 
 
+def _requant_policy(x: torch.Tensor) -> Optional[bool]:
+    """g128 GEMM route for activations ``x``: a decode-like call (a sequence
+    dim shorter than 64, however large the batch) stays on the exact route;
+    otherwise the kernel's own rule (requant when M ≥ 512) decides."""
+    return False if x.ndim >= 3 and x.shape[-2] < 64 else None
+
+
 def linear_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Dense or W4A8 linear, dispatched on the param structure."""
     if "w_packed" in p:
-        if "s_group" in p:
-            raise NotImplementedError(
-                "g128 packed linears arrive in the next slice"
-            )
-        return w4a8_linear(x, p["w_packed"], p["s_channel"], bias=p.get("b"),
-                           out_dtype=x.dtype)
+        return w4a8_linear(
+            x, p["w_packed"], p.get("s_channel"), p.get("s_group"),
+            bias=p.get("b"), group_size=128 if "s_group" in p else -1,
+            out_dtype=x.dtype, requant=_requant_policy(x),
+        )
     out = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         out = out + p["b"].to(out.dtype)
@@ -151,11 +163,16 @@ def attention(
     B, T = x.shape[:2]
     nh, nkv = config.num_attention_heads, config.num_key_value_heads
     hd = config.head_dim
-    if "qkv_proj" in layer:
-        raise NotImplementedError("fused qkv params arrive in a later slice")
-    q = linear_apply(layer["q_proj"], x).reshape(B, T, nh, hd)
-    k = linear_apply(layer["k_proj"], x).reshape(B, T, nkv, hd)
-    v = linear_apply(layer["v_proj"], x).reshape(B, T, nkv, hd)
+    if "qkv_proj" in layer:  # one GEMM over the concatenated columns
+        qkv = linear_apply(layer["qkv_proj"], x)
+        qd, kvd = nh * hd, nkv * hd
+        q = qkv[..., :qd].reshape(B, T, nh, hd)
+        k = qkv[..., qd:qd + kvd].reshape(B, T, nkv, hd)
+        v = qkv[..., qd + kvd:].reshape(B, T, nkv, hd)
+    else:
+        q = linear_apply(layer["q_proj"], x).reshape(B, T, nh, hd)
+        k = linear_apply(layer["k_proj"], x).reshape(B, T, nkv, hd)
+        v = linear_apply(layer["v_proj"], x).reshape(B, T, nkv, hd)
     q, k = apply_rope(q, k, positions, inv_freq)
 
     if cache is None:
@@ -191,14 +208,14 @@ def attention(
 
 
 def mlp(layer: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    if "gate_up_glu" in layer:
-        raise NotImplementedError(
-            "the GLU-fused gate/up kernel (_w4a8_channel_glu_kernel) arrives "
-            "in the next slice"
-        )
-    gate = linear_apply(layer["gate_proj"], x)
-    up = linear_apply(layer["up_proj"], x)
-    return linear_apply(layer["down_proj"], F.silu(gate) * up)
+    if "gate_up_glu" in layer:  # silu(gate)·up in the GEMM's f32 epilogue
+        h = w4a8_glu_linear(x, layer["gate_up_glu"], out_dtype=x.dtype,
+                            requant=_requant_policy(x))
+    else:
+        gate = linear_apply(layer["gate_proj"], x)
+        up = linear_apply(layer["up_proj"], x)
+        h = F.silu(gate) * up
+    return linear_apply(layer["down_proj"], h)
 
 
 def decoder_layer(
@@ -216,6 +233,56 @@ def decoder_layer(
     x = x + attn_out
     h = rms_norm(x, layer["post_attention_layernorm"], config.rms_norm_eps)
     return x + mlp(layer, h), cache
+
+
+def fuse_inference_params(
+    params: Dict[str, Any], config: ModelConfig,
+    *, qkv: bool = False, glu: bool = True,
+) -> Dict[str, Any]:
+    """Inference-time GEMM fusion over packed W4A8 params (single device):
+
+    * ``glu``: gate/up → ``gate_up_glu`` (:func:`fuse_glu_layout`), the
+      kernel whose epilogue writes silu(gate)·up, so that the (M, I) gate and
+      up intermediates never reach device memory;
+    * ``qkv``: q/k/v → one ``qkv_proj`` whose columns are q, k, v
+      concatenated (off by default, as in JAX).
+
+    Dense layers and shapes that do not fuse pass through unchanged.  The
+    fused tensors are new; the unfused ones stay in ``params``."""
+    del config  # the layouts carry every shape
+
+    def fuse_qkv(q, k, v):
+        parts = (q, k, v)
+        if not all("w_packed" in p for p in parts):
+            return None
+        if len({"s_group" in p for p in parts}) != 1:
+            return None
+        if len({"b" in p for p in parts}) != 1:
+            return None
+        fused = {"w_packed": torch.cat([p["w_packed"] for p in parts], dim=1)}
+        if "s_group" in q:
+            fused["s_group"] = torch.cat([p["s_group"] for p in parts], dim=1)
+        else:
+            fused["s_channel"] = torch.cat([p["s_channel"] for p in parts])
+        if "b" in q:
+            fused["b"] = torch.cat([p["b"] for p in parts])
+        return fused
+
+    layers = []
+    for layer in params["layers"]:
+        nl = dict(layer)
+        fq = (fuse_qkv(layer["q_proj"], layer["k_proj"], layer["v_proj"])
+              if qkv else None)
+        if fq is not None:
+            nl["qkv_proj"] = fq
+            del nl["q_proj"], nl["k_proj"], nl["v_proj"]
+        fg = fuse_glu_layout(layer["gate_proj"], layer["up_proj"]) if glu \
+            else None
+        if fg is not None:
+            nl["gate_up_glu"] = fg
+            del nl["gate_proj"], nl["up_proj"]
+        layers.append(nl)
+    return {**params, "layers": layers}
 
 
 # ---------------------------------------------------------------------------

@@ -10,11 +10,12 @@ split (port of qqq_tpu/serve/engine.py, slot mode).
   admits the next pending request at the next scheduling round;
 * the KV cache is INT8 by default and is updated in place.
 
-This slice ports the slot-mode engine and nothing around it.  Chunked
-prefill, the prefix cache, speculative decoding, the paged pool, meshes, the
-multi-step decode scan and the GLU-fused params (``fuse=True``) keep the JAX
-engine's argument names and raise ``NotImplementedError``; so do requests
-that ask for penalties, logit bias, guided choice, seeds or top-N logprobs.
+This port has the slot-mode engine, with the JAX engine's default GEMM
+fusion (``fuse=True``: gate/up through the GLU-fused kernel), and nothing
+around it.  Chunked prefill, the prefix cache, speculative decoding, the
+paged pool, meshes and the multi-step decode scan keep the JAX engine's
+argument names and raise ``NotImplementedError``; so do requests that ask
+for penalties, logit bias, guided choice, seeds or top-N logprobs.
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ class Engine:
         steps_per_tick: int = 1,
         dtype: torch.dtype = torch.bfloat16,
         mesh=None,
-        fuse: bool = False,
+        fuse: bool = True,
         prefill_batch: Optional[int] = None,
         prefill_chunk: int = 0,
         spec_ngram: int = 0,
@@ -105,12 +106,13 @@ class Engine:
     ):
         """Arguments keep the JAX engine's names and meaning.  ``device``
         defaults to the CUDA card (``"cpu"`` runs the plain versions);
-        ``params`` must already live there.  ``fuse`` defaults to False
-        here: the GLU-fused kernel is the next slice's."""
+        ``params`` must already live there.  ``fuse`` applies
+        :func:`~qqq_tpu_torch.models.llama.fuse_inference_params` (gate/up
+        → the GLU-fused kernel; a no-op for dense params), as JAX does
+        without a mesh."""
         del spec_k, block_size  # meaningful only with the features below
         for on, name in ((steps_per_tick != 1, "steps_per_tick > 1"),
                          (mesh is not None, "mesh"),
-                         (fuse, "fuse=True (GLU-fused gate/up)"),
                          (prefill_chunk, "chunked prefill (prefill_chunk)"),
                          (spec_ngram, "speculative decoding (spec_ngram)"),
                          (prefix_cache, "prefix_cache"),
@@ -121,6 +123,8 @@ class Engine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
+        if fuse:
+            params = M.fuse_inference_params(params, config)
         self.params = params
         self.config = config
         self.max_batch = max_batch
@@ -156,6 +160,8 @@ class Engine:
             "prefills": 0, "prefill_tokens": 0, "prefill_dispatches": 0,
             "generated_tokens": 0, "decode_ticks": 0,
             "prefill_s": 0.0, "decode_s": 0.0,
+            # (rows, bucket) of each prefill dispatch, in order
+            "prefill_shapes": [],
         }
 
     # -- device work -------------------------------------------------------
@@ -216,6 +222,7 @@ class Engine:
             for name, buf in big.items():
                 buf[slot_idx, :, :bucket] = small[name]
         self.stats["prefill_dispatches"] += 1
+        self.stats["prefill_shapes"].append((pb, bucket))
         self.stats["prefill_s"] += time.perf_counter() - t0
         now = time.monotonic()
         for i, (req, slot) in enumerate(zip(reqs, slots)):

@@ -2,9 +2,12 @@
 """Where the time goes in the port's serving path on one NVIDIA GPU.
 
     python3 scripts/profile_torch_serve.py [--layers 32] [--ticks 8]
+                                           [--group-size 128]
 
 Builds the Llama-2-7B-geometry port model (random weights from a seeded
-generator, RTN per channel, INT8 slot KV cache, fuse=False), admits 4
+generator, RTN-packed in groups of 128, or per channel with
+``--group-size -1``; INT8 slot KV cache; the Engine's default gate/up GLU
+fusion), admits 4
 prompts of 500 tokens in one prefill dispatch (bucket 512, M = 2048 rows
 per GEMM), then decodes.  It profiles that prefill dispatch and ``--ticks``
 steady decode ticks with ``torch.profiler`` (CPU + CUDA activities) and
@@ -52,6 +55,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--ticks", type=int, default=8)
+    ap.add_argument("--group-size", type=int, default=128, choices=(128, -1))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -67,12 +71,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
+    print(f"group_size {args.group_size}, {args.layers} layers, gate/up "
+          "GLU-fused")
     build.build_all()
     dev = torch.device("cuda")
     cfg = ModelConfig(num_hidden_layers=args.layers)  # Llama-2-7B geometry
     params = quantize_params_rtn(
         init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                    device=dev), cfg)
+                    device=dev), cfg, args.group_size)
     rng = np.random.default_rng(0)
 
     def requests():

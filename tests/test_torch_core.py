@@ -124,10 +124,30 @@ def test_w4a8_gemm_int32_core_and_output_bit_exact(M, K, N):
 
 
 def test_w4a8_gemm_g128_waits_for_next_slice():
-    a = torch.zeros((1, 128), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        w4a8_linear(a.float(), torch.zeros((16, 8), dtype=torch.int32),
-                    torch.ones(8), group_size=128)
+    """g128 ``w4a8_linear`` on a (B, T, K) input with a bias against JAX's
+    (exact route, bf16 s_group, f32 out; the JAX kernel's tolerance, see
+    tests/test_torch_g128.py).  What still raises: a g128 call without
+    s_group, and group sizes other than -1 and 128."""
+    from qqq_tpu.kernels.w4a8_gemm import w4a8_linear as jax_linear
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 3, 256)).astype(np.float32)
+    wp = np.asarray(jpack.pack_int4(jnp.asarray(_codes(rng, 256, 64))))
+    sg = jnp.asarray(rng.random((2, 64)) * 0.01 + 1e-3, jnp.bfloat16)
+    bias = rng.standard_normal(64).astype(np.float32)
+    ref = np.asarray(jax_linear(jnp.asarray(x), jnp.asarray(wp), None, sg,
+                                bias=jnp.asarray(bias), group_size=128,
+                                out_dtype=jnp.float32))
+    t_sg = _t(np.asarray(sg).view(np.uint16)).view(torch.bfloat16)
+    out = w4a8_linear(_t(x), _t(wp), None, t_sg, bias=_t(bias),
+                      group_size=128, out_dtype=torch.float32)
+    assert out.shape == (2, 3, 64)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=5e-6,
+                               atol=5e-5 * np.abs(ref).max())
+    with pytest.raises(ValueError, match="needs s_group"):
+        w4a8_linear(_t(x), _t(wp), torch.ones(64), group_size=128)
+    with pytest.raises(ValueError, match="group_size 64"):
+        w4a8_linear(_t(x), _t(wp), None, t_sg, group_size=64)
 
 
 _KV_CFG = dict(vocab_size=16, hidden_size=256, intermediate_size=256,

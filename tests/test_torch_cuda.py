@@ -5,7 +5,9 @@ at small and odd shapes the Llama-2-7B checks of chip_smoke.py do not reach
 Needs an NVIDIA GPU with nvcc; skips without one.  Run on the card with
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` (the suite's
 conftest imports JAX, which the GPU machine need not have).
-Tolerances as in chip_smoke.py: GEMM and KV write bit-exact; attention
+Tolerances as in chip_smoke.py: the GEMMs (per channel, exact g128 and
+requant) and the KV write bit-exact, the GLU-fused GEMMs within two bf16
+ulps of their largest output (another exp in the epilogue); attention
 within two ulps of the output dtype at the largest output (bf16: 2^-6,
 f32: 2^-22 relative to max |ref|, plus the flash kernel's bf16
 probabilities: 2^-7 relative in f32).
@@ -28,22 +30,97 @@ def _gen(dev):
     return torch.Generator(device=dev).manual_seed(0)
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 128, 32), (3, 384, 96), (70, 256, 200)])
-@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_w4a8_gemm_kernel_bit_exact(dev, M, K, N, out_dtype):
-    from qqq_tpu_torch.kernels.w4a8_gemm import w4a8_gemm, w4a8_gemm_plain
-
+def _gemm_operands(dev, M, K, N, n_scales):
+    """Random int8 activations, any int32 packed words (every nibble
+    pattern) and positive scales: ``n_scales`` rows of N (0: per channel)."""
     g = _gen(dev)
     a = torch.randint(-128, 128, (M, K), generator=g, device=dev,
                       dtype=torch.int8)
     s_tok = torch.rand((M, 1), generator=g, device=dev) + 1e-3
     w = torch.randint(-2**31, 2**31 - 1, (K // 8, N), generator=g,
                       device=dev, dtype=torch.int32)
-    s_ch = torch.rand((N,), generator=g, device=dev) * 0.01
-    n0 = w4a8_gemm.launches
-    out = w4a8_gemm(a, s_tok, w, s_ch, out_dtype=out_dtype)
-    assert w4a8_gemm.launches == n0 + 1
-    assert torch.equal(out, w4a8_gemm_plain(a, s_tok, w, s_ch, out_dtype))
+    shape = (n_scales, N) if n_scales else (N,)
+    s = torch.rand(shape, generator=g, device=dev) * 0.01 + 1e-4
+    return a, s_tok, w, s
+
+
+def _launch_once(fn, *args):
+    n0 = fn.launches
+    out = fn(*args)
+    assert fn.launches == n0 + 1
+    return out
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 128, 32), (3, 384, 96), (70, 256, 200)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w4a8_gemm_kernel_bit_exact(dev, M, K, N, out_dtype):
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    a, s_tok, w, s_ch = _gemm_operands(dev, M, K, N, 0)
+    out = _launch_once(k.w4a8_gemm_channel, a, s_tok, w, s_ch, out_dtype)
+    assert torch.equal(out, k.w4a8_gemm_channel_plain(a, s_tok, w, s_ch,
+                                                      out_dtype))
+
+
+# K = 1152: nine groups, more than the exact kernel's eight warps take at once
+_G128_SHAPES = [(1, 128, 32), (3, 384, 96), (70, 1152, 200), (17, 256, 64)]
+
+
+@pytest.mark.parametrize("M,K,N", _G128_SHAPES)
+@pytest.mark.parametrize("sg_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("route", ["group", "requant"])
+def test_w4a8_g128_kernels_bit_exact(dev, route, M, K, N, sg_dtype,
+                                     out_dtype):
+    """Exact g128: the groups' f32 terms summed in group order on both
+    sides; requant: one exact int32 dot.  Both bit-exact."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    a, s_tok, w, sg = _gemm_operands(dev, M, K, N, K // 128)
+    sg = sg.to(sg_dtype)
+    sg[:, 5] = 0  # an all-zero channel: s_extra 1
+    fn = getattr(k, f"w4a8_gemm_{route}")
+    plain = getattr(k, f"w4a8_gemm_{route}_plain")
+    out = _launch_once(fn, a, s_tok, w, sg, out_dtype)
+    assert torch.equal(out, plain(a, s_tok, w, sg, out_dtype))
+
+
+@pytest.mark.parametrize("M,K,I", [(1, 128, 256), (5, 384, 512),
+                                   (70, 1152, 256)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("route", ["channel", "group", "requant"])
+def test_w4a8_glu_kernels(dev, route, M, K, I, out_dtype):
+    """GLU epilogue g·σ(g)·u: the kernel's expf and PyTorch's sigmoid may
+    differ in the last bit.  bf16: two ulps at the largest output; f32:
+    2^-20 of it (σ's own error and three roundings)."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    a, s_tok, w, s = _gemm_operands(dev, M, K, 2 * I,
+                                    0 if route == "channel" else K // 128)
+    if route != "channel":
+        s = s.to(torch.bfloat16)
+    fn = getattr(k, f"w4a8_glu_{route}")
+    plain = getattr(k, f"w4a8_glu_{route}_plain")
+    out = _launch_once(fn, a, s_tok, w, s, out_dtype)
+    ref = plain(a, s_tok, w, s, out_dtype)
+    assert out.shape == (M, I) and out.dtype == out_dtype
+    tol = (2 * _ULP[torch.bfloat16] if out_dtype == torch.bfloat16
+           else 2.0 ** -20) * float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def test_w4a8_g128_route_follows_m(dev):
+    """requant=None: M >= 512 launches the requant kernel, fewer rows the
+    exact one; each launch counts on its own wrapper only."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    a, s_tok, w, sg = _gemm_operands(dev, 512, 256, 64, 2)
+    for rows, route in ((512, "requant"), (511, "group")):
+        before = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+        k.w4a8_gemm(a[:rows], s_tok[:rows], w, None, sg, group_size=128)
+        after = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+        assert {n: after[n] - before[n] for n in after} == {
+            n: int(n == f"w4a8_gemm_{route}") for n in after}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -75,13 +75,12 @@ def _engine_kw():
 def jax_greedy(models, prompts):
     jparams = models[0]
     out = jax_generate(jparams, JCFG, prompts, JSampling(max_new_tokens=5),
-                       fuse=False, kv_quantized=True, dtype=jnp.float32,
-                       **_engine_kw())
+                       kv_quantized=True, dtype=jnp.float32, **_engine_kw())
     eos = out[1][2]
     out_eos = jax_generate(
         jparams, JCFG, prompts,
         JSampling(max_new_tokens=5, eos_token_id=eos),
-        fuse=False, kv_quantized=True, dtype=jnp.float32, **_engine_kw())
+        kv_quantized=True, dtype=jnp.float32, **_engine_kw())
     return out, eos, out_eos
 
 
@@ -169,7 +168,8 @@ def test_forward_prefill_and_decode_logits_match_jax(models, quantized):
 
 
 def test_generate_greedy_matches_jax(models, prompts, jax_greedy):
-    """3 requests over 2 slots (continuous admission), two buckets."""
+    """3 requests over 2 slots (continuous admission), two buckets; both
+    engines with their default arguments, so gate/up run GLU-fused."""
     out = generate(models[1], TCFG, prompts, SamplingParams(max_new_tokens=5),
                    dtype=torch.float32, device="cpu", **_engine_kw())
     assert out == jax_greedy[0]
