@@ -6,19 +6,24 @@
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. build the CUDA kernels from the sources in this checkout;
-2. check each of the nine kernels against its plain PyTorch version on the
-   card at the Llama-2-7B shapes of the served paths (the GEMMs and the KV
-   write bit-exact; the GLU-fused GEMMs and the two attention kernels
-   within two bf16 ulps of the largest output), and time it beside its
-   bound, its plain version and a one-call PyTorch yardstick that the port
-   never calls;
+2. check each of the thirteen kernels against its plain PyTorch version on
+   the card at the Llama-2-7B shapes of the served paths (the GEMMs and the
+   KV writes bit-exact, the paged writes outside the null block; the
+   GLU-fused GEMMs and the four attention kernels within two bf16 ulps of
+   the largest output; the paged ones over scrambled block tables), and
+   time it beside its bound, its plain version and a one-call PyTorch
+   yardstick that the port never calls;
 3. serve 4 requests through the port's Engine, with its default arguments
    (gate/up GLU-fused), on full-width, full-depth Llama-2-7B (random weights
-   from a seeded generator, INT8 slot KV cache): (a) RTN-packed in groups of
-   128, the JAX package's headline quantization, then (b) per channel; each
-   run checks every kernel's launch count against what its dispatches imply;
+   from a seeded generator): RTN-packed in groups of 128, the JAX package's
+   headline quantization, (a) over the INT8 slot cache, (c) paged over the
+   INT8 block pool (chunked prefill) and (d) paged over a pool too small
+   for the traffic, which must preempt; then (b) per channel over the slot
+   cache.  Each run checks every kernel's launch count against what its
+   dispatches imply;
 4. teacher-force a 2-layer cut of the g128 weights on the card and on the
-   CPU (plain versions) and compare the logits step by step.
+   CPU (plain versions), over the slot cache and over the paged pool, and
+   compare the logits step by step.
 
 The last lines are a ``{"kernels": [...]}`` report, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -44,6 +49,9 @@ HERE = pathlib.Path(__file__).resolve().parent
 # Llama-2-7B geometry (the repo's headline configuration)
 V, H, I, L, NH, NKV, HD = 32000, 4096, 11008, 32, 32, 32, 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
+# the paged pool of the served runs: 128-token blocks, 16 per slot
+# (max_len 2048), 65 blocks = max_batch 4 × 16 + the null block
+BS, NBMAX, NB_POOL = 128, 16, 65
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor cores
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor cores
 ATTN_ULPS = 2                  # attention kernels vs plain: bf16 ulps
@@ -116,15 +124,16 @@ GEMM_KERNELS = {
 PLAIN_SHAPES = [(H, H), (H, I), (I, H)]  # q/k/v/o, (unfused) gate/up, down
 GLU_SHAPES = [(H, 2 * I)]                # fused gate/up
 #: per kernel: the rows M it is checked at (those the served runs give it:
-#: decode at batch 1 and 4, one row of bucket 128, one of bucket 512, two of
-#: bucket 2048), its (K, N) shapes, and the (M, K, N) its report row shows
+#: decode at batch 1 and 4, one row of slot bucket 128, one of bucket 512,
+#: two of bucket 2048, and the paged runs' (2, 512) chunk dispatches, M =
+#: 1024), its (K, N) shapes, and the (M, K, N) its report row shows
 GEMM_CHECKS = {
     "w4a8_gemm_channel": ((1, 4, 128, 512, 4096), PLAIN_SHAPES, (4, I, H)),
     "w4a8_glu_channel": ((4, 128, 512, 4096), GLU_SHAPES, (4, H, 2 * I)),
     "w4a8_gemm_group": ((1, 4, 128), PLAIN_SHAPES, (4, I, H)),
     "w4a8_glu_group": ((1, 4, 128), GLU_SHAPES, (4, H, 2 * I)),
-    "w4a8_gemm_requant": ((512, 4096), PLAIN_SHAPES, (512, I, H)),
-    "w4a8_glu_requant": ((512, 4096), GLU_SHAPES, (512, H, 2 * I)),
+    "w4a8_gemm_requant": ((512, 1024, 4096), PLAIN_SHAPES, (512, I, H)),
+    "w4a8_glu_requant": ((512, 1024, 4096), GLU_SHAPES, (512, H, 2 * I)),
 }
 
 
@@ -380,13 +389,195 @@ def check_flash(dev, gen, timer):
     return report
 
 
+def _scrambled_tables(dev, rows: int, seed: int):
+    """``rows`` tables of NBMAX distinct pool blocks in a shuffled,
+    non-monotone order, as a busy allocator leaves them."""
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(NB_POOL - 1, generator=g)[:rows * NBMAX] + 1
+    return perm.reshape(rows, NBMAX).to(torch.int32).to(dev)
+
+
+def _rand_pool(dev, gen):
+    """A Llama-2-7B layer's pool: 65 blocks × 32 kv heads × 128 × 128."""
+    kp = torch.randint(-128, 128, (NB_POOL, NKV, BS, HD), generator=gen,
+                       device=dev, dtype=torch.int8)
+    vp = torch.randint(-128, 128, (NB_POOL, NKV, BS, HD), generator=gen,
+                       device=dev, dtype=torch.int8)
+    ks = torch.rand((NB_POOL, NKV, BS), generator=gen, device=dev) * 0.02 \
+        + 1e-3
+    vs = torch.rand((NB_POOL, NKV, BS), generator=gen, device=dev) * 0.02 \
+        + 1e-3
+    return [kp, ks, vp, vs]
+
+
+def check_paged_writes(dev, gen, timer):
+    """Both paged writes against their plain versions, bit-exact on every
+    block but the null one: decode at B = 4 with cache lengths near 2000
+    that end mid-block; a chunk of T = 512 at R = 2 rows, one straddling
+    five blocks after 300 cached keys, one running past its table (its
+    tail lands in the null block)."""
+    from qqq_tpu_torch.kernels import kv_write as kw
+
+    rows = {}
+    for name, B, T, clen in (
+        ("paged_decode_write_int8", 4, 1, (1990, 2001, 1937, 2040)),
+        ("paged_chunk_write_int8", 2, 512, (300, 1800)),
+    ):
+        fn, plain = getattr(kw, name), getattr(kw, name + "_plain")
+        pool = _rand_pool(dev, gen)
+        tables = _scrambled_tables(dev, B, seed=B)
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        kn = torch.randn((B, T, NKV, HD), generator=gen, device=dev).to(
+            torch.bfloat16)
+        vn = torch.randn((B, T, NKV, HD), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kn[0, 0, 3] = 0  # all-zero head row: the tiny-scale guard
+        mine = [t.clone() for t in pool]
+        ref = [t.clone() for t in pool]
+        fn(*mine, kn, vn, tables, cl)
+        plain(*ref, kn, vn, tables, cl)
+        torch.cuda.synchronize()
+        err = 0.0
+        for buf, x, y in zip(("k", "k_scale", "v", "v_scale"), mine, ref):
+            err = max(err, (x[1:].float() - y[1:].float()).abs().max().item())
+            if not torch.equal(x[1:], y[1:]):
+                raise AssertionError(f"{name}: {buf} not bit-exact outside "
+                                     "the null block")
+        ms = timer.ms(lambda: fn(*mine, kn, vn, tables, cl))
+        plain_ms = timer.ms(lambda: plain(*ref, kn, vn, tables, cl))
+        # bf16 rows in, one table entry per touched block, codes + scales out
+        touched = sum(-(-(c % BS + T) // BS) for c in clen)
+        nbytes = 2 * B * T * NKV * HD * 2 + B * 4 + touched * 4 \
+            + 2 * B * T * NKV * (HD + 4)
+        b, by = bound_ms(nbytes)
+        log(f"  {name} B={B} T={T} cache_len {clen}: bit-exact outside the "
+            f"null block; {ms:.4f} ms (bound {b:.6f} by {by}, plain "
+            f"{plain_ms:.4f})")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=b, bound_by=by, max_abs_err=err,
+                          shape=f"B={B} T={T} cache_len {list(clen)}, "
+                                "scrambled tables")
+        del pool, mine, ref
+    return rows
+
+
+def _gathered_bf16(pool, tables):
+    """The pool's K/V through the tables, dequantized to bf16: the library
+    yardstick's operands (B, nkv, NBMAX·BS, hd)."""
+    from qqq_tpu_torch.serve.paged_kv import gather
+
+    kp, ks, vp, vs = pool
+    return (_dequant(gather(kp, tables), gather(ks, tables)),
+            _dequant(gather(vp, tables), gather(vs, tables)))
+
+
+def check_paged_flash(dev, gen, timer):
+    """Paged flash at the served chunk (R = 2 rows of T = 512) over
+    scrambled tables, after 300 and 1400 cached keys (the chunk attends to
+    earlier blocks), and one row of a fresh prompt; two bf16 ulps.
+    Yardstick: SDPA with the causal offset mask on the gathered K/V."""
+    import torch.nn.functional as F
+
+    from qqq_tpu_torch.kernels.attention import (
+        paged_flash_attention_int8, paged_flash_attention_int8_plain,
+    )
+
+    report, err = None, 0.0
+    T = 512
+    for clen in ((300, 1400), (0,)):
+        R = len(clen)
+        pool = _rand_pool(dev, gen)
+        tables = _scrambled_tables(dev, R, seed=10 + R)
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        q = torch.randn((R, NH, T, HD), generator=gen, device=dev).to(
+            torch.bfloat16)
+        args = (q, *pool, tables, cl)
+        out = paged_flash_attention_int8(*args)
+        ref = paged_flash_attention_int8_plain(*args)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float()).abs().max().item()
+        if not e <= ulp_tol(ref):
+            raise AssertionError(f"paged_flash_attention_int8 cache_len "
+                                 f"{clen}: max |diff| {e} > {ulp_tol(ref)}")
+        err = max(err, e)
+        kd, vd = _gathered_bf16(pool, tables)
+        key = torch.arange(NBMAX * BS, device=dev)
+        qpos = cl[:, None] + torch.arange(T, device=dev)[None, :]  # (R, T)
+        mask = (key[None, None, :] <= qpos[:, :, None])[:, None]
+        ms = timer.ms(lambda: paged_flash_attention_int8(*args))
+        plain = timer.ms(lambda: paged_flash_attention_int8_plain(*args))
+        lib = timer.ms(lambda: F.scaled_dot_product_attention(
+            q, kd, vd, attn_mask=mask))
+        pairs = NH * sum(T * c + T * (T + 1) // 2 for c in clen)
+        keys = sum(c + T for c in clen)
+        nbytes = (2 * R * NH * T * HD * 2 + keys * NKV * (HD + 4) * 2
+                  + R * 4 + sum(-(-(c + T) // BS) for c in clen) * 4)
+        b, by = bound_ms(nbytes, 4.0 * HD * pairs)
+        log(f"  paged_flash_attention_int8 R={R} T={T} cache_len {clen}: "
+            f"max |diff| {e:.3g}; {ms:.4f} ms (bound {b:.4f} by {by}, plain "
+            f"{plain:.4f}, sdpa {lib:.4f})")
+        if report is None:
+            report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                          bound_by=by, shape=f"R={R} T={T} causal, cache_len "
+                          f"{list(clen)}, scrambled tables")
+        del pool, kd, vd
+    report["max_abs_err"] = err
+    return report
+
+
+def check_paged_decode(dev, gen, timer):
+    """Paged decode at B = 4, cache lengths near 2000 ending mid-block,
+    scrambled tables over all 64 blocks; two bf16 ulps.  Yardstick: SDPA on
+    the gathered K/V."""
+    import torch.nn.functional as F
+
+    from qqq_tpu_torch.kernels.attention import (
+        paged_decode_attention_int8, paged_decode_attention_int8_plain,
+    )
+
+    B, clen = 4, (1990, 2001, 1937, 2040)
+    pool = _rand_pool(dev, gen)
+    tables = _scrambled_tables(dev, B, seed=20)
+    cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+    q = torch.randn((B, NH, HD), generator=gen, device=dev).to(torch.bfloat16)
+    args = (q, *pool, tables, cl)
+    out = paged_decode_attention_int8(*args)
+    ref = paged_decode_attention_int8_plain(*args)
+    torch.cuda.synchronize()
+    e = (out.float() - ref.float()).abs().max().item()
+    if not e <= ulp_tol(ref):
+        raise AssertionError(f"paged_decode_attention_int8: max |diff| {e} "
+                             f"> {ulp_tol(ref)}")
+    kd, vd = _gathered_bf16(pool, tables)
+    mask = (torch.arange(NBMAX * BS, device=dev)[None, :]
+            < cl[:, None])[:, None, None, :]
+    ms = timer.ms(lambda: paged_decode_attention_int8(*args))
+    plain = timer.ms(lambda: paged_decode_attention_int8_plain(*args))
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask))
+    n_pos = sum(clen)
+    nbytes = (n_pos * NKV * (HD + 4) * 2 + 2 * B * NH * HD * 2 + B * 4
+              + sum(-(-c // BS) for c in clen) * 4)
+    b, by = bound_ms(nbytes, 4.0 * NH * HD * n_pos)
+    log(f"  paged_decode_attention_int8 B={B} cache_len {clen}: max |diff| "
+        f"{e:.3g}; {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain:.4f}, "
+        f"sdpa {lib:.4f})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                bound_by=by, max_abs_err=e,
+                shape=f"B={B} cache_len {list(clen)}, scrambled tables")
+
+
 def kernel_fns():
     """Every kernel wrapper of the served paths → (wrapper, CUDA source, TPU
     kernel replaced)."""
     from qqq_tpu_torch.kernels.attention import (
         decode_attention_int8, flash_attention_int8,
+        paged_decode_attention_int8, paged_flash_attention_int8,
     )
-    from qqq_tpu_torch.kernels.kv_write import slot_decode_write_int8
+    from qqq_tpu_torch.kernels.kv_write import (
+        paged_chunk_write_int8, paged_decode_write_int8,
+        slot_decode_write_int8,
+    )
     from qqq_tpu_torch.kernels.w4a8_gemm import KERNEL_WRAPPERS
 
     fns = {name: (KERNEL_WRAPPERS[name], src, rep)
@@ -401,6 +592,20 @@ def kernel_fns():
         "flash_attention_int8": (flash_attention_int8,
                                  "qqq_tpu_torch/csrc/flash_attention.cu",
                                  "qqq_tpu/kernels/attention.py:89"),
+        "paged_decode_write_int8": (paged_decode_write_int8,
+                                    "qqq_tpu_torch/csrc/kv_write.cu",
+                                    "qqq_tpu/kernels/kv_write.py:158"),
+        "paged_chunk_write_int8": (paged_chunk_write_int8,
+                                   "qqq_tpu_torch/csrc/kv_write.cu",
+                                   "qqq_tpu/kernels/kv_write.py:183"),
+        "paged_flash_attention_int8": (
+            paged_flash_attention_int8,
+            "qqq_tpu_torch/csrc/flash_attention.cu",
+            "qqq_tpu/kernels/attention.py:404"),
+        "paged_decode_attention_int8": (
+            paged_decode_attention_int8,
+            "qqq_tpu_torch/csrc/paged_decode_attention.cu",
+            "qqq_tpu/kernels/attention.py:543"),
     })
     return fns
 
@@ -410,26 +615,31 @@ BUCKETS = (128, 512, 2048)
 MAX_BATCH = 4
 
 
-#: the kernels each served run must launch at least once
+SLOT_KERNELS = ("slot_decode_write_int8", "decode_attention_int8",
+                "flash_attention_int8")
+PAGED_KERNELS = ("paged_decode_write_int8", "paged_chunk_write_int8",
+                 "paged_flash_attention_int8", "paged_decode_attention_int8")
+_G128_GEMMS = ("w4a8_gemm_group", "w4a8_glu_group", "w4a8_gemm_requant",
+               "w4a8_glu_requant")
+#: the GEMM kernels each served run must launch at least once, by scheme;
+#: the KV kernels it must launch are SLOT_KERNELS or PAGED_KERNELS
 SCHEME_KERNELS = {
-    "g128": ("w4a8_gemm_group", "w4a8_glu_group", "w4a8_gemm_requant",
-             "w4a8_glu_requant", "slot_decode_write_int8",
-             "decode_attention_int8", "flash_attention_int8"),
-    "per-channel": ("w4a8_gemm_channel", "w4a8_glu_channel",
-                    "slot_decode_write_int8", "decode_attention_int8",
-                    "flash_attention_int8"),
+    "g128": _G128_GEMMS,
+    "per-channel": ("w4a8_gemm_channel", "w4a8_glu_channel"),
 }
 
 
-def expected_launches(scheme, n_layers, dispatches, ticks):
+def expected_launches(scheme, n_layers, dispatches, ticks, paged=False):
     """Launches per kernel that a served run implies.  Per layer and
     forward pass: four linears (q/k/v/o) and down_proj on the plain GEMM,
-    gate/up on the GLU GEMM.  g128: the requant route for prefill
-    dispatches of M ≥ 512 rows (T ≥ 64 always holds for the buckets here),
-    the exact route for the rest and for decode."""
+    gate/up on the GLU GEMM, one KV write and one attention (slot or
+    paged; decode or prefill).  g128: the requant route for prefill
+    dispatches of M ≥ 512 rows (T ≥ 64 always holds for the buckets and
+    chunks here), the exact route for the rest and for decode."""
     n_big = sum(1 for m, t in dispatches if m >= 512 and t >= 64)
     small = len(dispatches) - n_big + ticks
     exp = dict.fromkeys(GEMM_KERNELS, 0)
+    exp.update(dict.fromkeys(SLOT_KERNELS + PAGED_KERNELS, 0))
     if scheme == "g128":
         exp.update(w4a8_gemm_group=5 * n_layers * small,
                    w4a8_glu_group=n_layers * small,
@@ -439,24 +649,37 @@ def expected_launches(scheme, n_layers, dispatches, ticks):
         passes = len(dispatches) + ticks
         exp.update(w4a8_gemm_channel=5 * n_layers * passes,
                    w4a8_glu_channel=n_layers * passes)
-    exp.update(slot_decode_write_int8=n_layers * ticks,
-               decode_attention_int8=n_layers * ticks,
-               flash_attention_int8=n_layers * len(dispatches))
+    if paged:
+        exp.update(paged_decode_write_int8=n_layers * ticks,
+                   paged_decode_attention_int8=n_layers * ticks,
+                   paged_chunk_write_int8=n_layers * len(dispatches),
+                   paged_flash_attention_int8=n_layers * len(dispatches))
+    else:
+        exp.update(slot_decode_write_int8=n_layers * ticks,
+                   decode_attention_int8=n_layers * ticks,
+                   flash_attention_int8=n_layers * len(dispatches))
     return exp
 
 
-def serve(dev, params, config, scheme):
+def serve(dev, params, config, scheme, paged=False, num_blocks=None):
     """Serve 4 requests through ``Engine`` with default arguments (gate/up
-    GLU-fused).  Every kernel count is set to 0 just before the run and
-    read just after; each must equal what the run's dispatches imply."""
+    GLU-fused; ``paged`` over the block pool, of ``num_blocks`` blocks or
+    the Engine's default).
+    Every kernel count is set to 0 just before the run and read just after;
+    each must equal what the run's dispatches imply.  Returns the counts,
+    the first prompt, the output tokens and the engine."""
     from qqq_tpu_torch.serve.engine import Engine, Request
     from qqq_tpu_torch.serve.sampling import SamplingParams
 
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, V, size=n)]
                for n in PROMPT_LENS]
-    eng = Engine(params, config, max_batch=MAX_BATCH, max_len=2048,
-                 prefill_buckets=BUCKETS, device=dev)
+    if paged:
+        eng = Engine(params, config, max_batch=MAX_BATCH, max_len=2048,
+                     paged=True, num_blocks=num_blocks, device=dev)
+    else:
+        eng = Engine(params, config, max_batch=MAX_BATCH, max_len=2048,
+                     prefill_buckets=BUCKETS, device=dev)
     if not all("gate_up_glu" in layer for layer in eng.params["layers"]):
         raise AssertionError("Engine() did not fuse gate/up")
     reqs = [Request(prompt_tokens=p,
@@ -479,26 +702,33 @@ def serve(dev, params, config, scheme):
     # (M, T) of each prefill dispatch, as the engine's scheduler chose them
     dispatches = [(rows * t, t) for rows, t in st["prefill_shapes"]]
     expect = expected_launches(scheme, config.num_hidden_layers, dispatches,
-                               st["decode_ticks"])
+                               st["decode_ticks"], paged=paged)
+    must_run = SCHEME_KERNELS[scheme] + (PAGED_KERNELS if paged
+                                         else SLOT_KERNELS)
+    label = f"{scheme}{' paged' if paged else ''}"
     for name, n in launches.items():
         if n != expect[name]:
-            raise AssertionError(f"{scheme}: {name}: {n} launches on the "
+            raise AssertionError(f"{label}: {name}: {n} launches on the "
                                  f"served path, expected {expect[name]}")
-        if n == 0 and name in SCHEME_KERNELS[scheme]:
-            raise AssertionError(f"{scheme}: {name} never launched on the "
+        if n == 0 and name in must_run:
+            raise AssertionError(f"{label}: {name} never launched on the "
                                  f"served path (M, T) = {dispatches}")
     decode_tokens = st["generated_tokens"] - len(reqs)
     log(f"  served {len(reqs)} requests (prompts {PROMPT_LENS}, 64 new "
-        f"tokens, depth {config.num_hidden_layers}, {scheme}, fuse=True) in "
-        f"{wall:.3f} s: {st['prefill_dispatches']} prefill dispatches "
-        f"(M, T) = {dispatches} in {st['prefill_s']:.3f} s, "
-        f"{st['decode_ticks']} decode ticks in {st['decode_s']:.3f} s")
+        f"tokens, depth {config.num_hidden_layers}, {label}, fuse=True"
+        + (f", block_size {eng.block_size}, chunk {eng.prefill_chunk}, "
+           f"num_blocks {eng.num_blocks}, prefill_batch "
+           f"{eng.prefill_batch}" if paged else "")
+        + f") in {wall:.3f} s: {st['prefill_dispatches']} prefill "
+        f"dispatches (M, T) = {dispatches} in {st['prefill_s']:.3f} s, "
+        f"{st['decode_ticks']} decode ticks in {st['decode_s']:.3f} s"
+        + (f", {st['preemptions']} preemptions" if paged else ""))
     log(f"  TTFT per request (s): "
         + ", ".join(f"{r.ttft:.3f}" for r in reqs))
     log(f"  decode: {decode_tokens / st['decode_s']:.1f} tok/s over all "
         f"slots, {1e3 * st['decode_s'] / st['decode_ticks']:.2f} ms per tick")
     log(f"  launches on the served path: {json.dumps(launches)}")
-    return launches, prompts[0]
+    return launches, prompts[0], [r.output_tokens for r in reqs], eng
 
 
 def _tree_map(fn, x):
@@ -638,6 +868,94 @@ def card_vs_cpu(dev, params, config, prompt):
                                  f"{CARD_VS_CPU_TOL:.0%}")
 
 
+def card_vs_cpu_paged(dev, params, config, prompt):
+    """Phase 4 over the paged pool: teacher-force the same 2-layer cut
+    through one paged chunk prefill (one row of the 512-token chunk, M =
+    512: the requant kernels, paged chunk write and paged flash) and 4
+    paged decode steps (the exact kernels, paged decode write and paged
+    decode attention), over scrambled tables, on the card and on the CPU,
+    and hold each step to the same 10% relative RMS as the slot path, the
+    nudged CPU beside it (see :func:`card_vs_cpu`)."""
+    from qqq_tpu_torch.models import forward, fuse_inference_params
+    from qqq_tpu_torch.serve import paged_kv
+
+    cfg2 = dataclasses.replace(config, num_hidden_layers=2)
+    cut = fuse_inference_params({**params, "layers": params["layers"][:2]},
+                                cfg2)
+    cpu = _tree_map(lambda t: t.cpu(), cut)
+    emb = cpu["embed"]
+    nudge = torch.rand(emb.shape, generator=torch.Generator().manual_seed(1))
+    bits = emb.view(torch.int16) + (nudge < 0.01).to(torch.int16)
+    nudged = {**cpu, "embed": bits.view(emb.dtype)}
+    del nudge, bits
+    n, chunk, steps = len(prompt), 512, 4
+    toks = torch.zeros((1, chunk), dtype=torch.int64)
+    toks[0, :n] = torch.tensor(prompt)
+    tables = _scrambled_tables(torch.device("cpu"), 1, seed=30)
+    host = torch.device("cpu")
+    fns = kernel_fns()
+    sides = {}
+    for name, d, p in (("card", dev, cut), ("cpu", host, cpu),
+                       ("nudged", host, nudged)):
+        for fn, _, _ in fns.values():
+            fn.launches = 0
+        pool = paged_kv.init(cfg2, NB_POOL, BS, quantized=True, device=d)
+        tab = tables.to(d)
+        lg, _ = forward(p, cfg2, toks.to(d), caches=pool,
+                        cache_len=torch.zeros((1,), dtype=torch.int32,
+                                              device=d),
+                        logits_at=torch.tensor([n - 1], device=d),
+                        block_tables=tab)
+        sides[name] = (p, d, pool, tab, [lg[0, -1].cpu()])
+        if name == "card":
+            ran = {k for k, (fn, _, _) in fns.items() if fn.launches}
+            if not {"paged_chunk_write_int8", "paged_flash_attention_int8",
+                    "w4a8_gemm_requant", "w4a8_glu_requant"} <= ran:
+                raise AssertionError(f"paged chunk prefill ran {ran}")
+    fed = []
+    for step in range(steps):
+        tok = int(sides["card"][4][-1].argmax())
+        fed.append(tok)
+        for name, (p, d, pool, tab, out) in sides.items():
+            if name == "card":
+                for fn, _, _ in fns.values():
+                    fn.launches = 0
+            lg, _ = forward(p, cfg2, torch.tensor([[tok]], device=d),
+                            caches=pool,
+                            cache_len=torch.tensor([n + step],
+                                                   dtype=torch.int32,
+                                                   device=d),
+                            block_tables=tab)
+            out.append(lg[0, -1].cpu())
+            if name == "card":
+                ran = {k for k, (fn, _, _) in fns.items() if fn.launches}
+                if not {"paged_decode_write_int8",
+                        "paged_decode_attention_int8"} <= ran:
+                    raise AssertionError(f"paged decode step ran {ran}")
+    agree, worst = 0, 0.0
+    for i, (a, b, c) in enumerate(zip(*(sides[k][4] for k in
+                                        ("card", "cpu", "nudged")))):
+        if not (torch.isfinite(a).all() and a.shape == (V,)):
+            raise AssertionError(f"paged step {i}: card logits not finite "
+                                 "or of the wrong shape")
+        rel = _rel_rms(a, b)
+        worst = max(worst, rel)
+        same = bool(a.argmax() == b.argmax())
+        agree += same
+        log(f"  paged step {i} ({'chunk prefill' if i == 0 else 'decode'}):"
+            f" card vs CPU {rel:.3%} RMS (max |diff| "
+            f"{float((a - b).abs().max()):.4g}, max |logit| "
+            f"{float(b.abs().max()):.4g}); CPU vs nudged CPU "
+            f"{_rel_rms(c, b):.3%} RMS; argmax "
+            f"{'agrees' if same else 'differs'}")
+        if rel > CARD_VS_CPU_TOL:
+            raise AssertionError(f"paged step {i}: card vs CPU logits differ "
+                                 f"by {rel:.3%} RMS > {CARD_VS_CPU_TOL:.0%}")
+    log(f"  paged token agreement card vs CPU: {agree}/{steps + 1} "
+        f"(teacher-forced tokens {fed}); worst {worst:.3%} RMS, bound "
+        f"{CARD_VS_CPU_TOL:.0%}")
+
+
 def random_packed_params(dev, config, group_size):
     """Random weights from a seeded generator, RTN-packed on the card."""
     from qqq_tpu_torch.models import init_params, quantize_params_rtn
@@ -689,6 +1007,9 @@ def main() -> int:
         "slot_decode_write_int8": check_kv_write(dev, gen, timer),
         "decode_attention_int8": check_decode(dev, gen, timer),
         "flash_attention_int8": check_flash(dev, gen, timer),
+        **check_paged_writes(dev, gen, timer),
+        "paged_flash_attention_int8": check_paged_flash(dev, gen, timer),
+        "paged_decode_attention_int8": check_paged_decode(dev, gen, timer),
     }
     del timer
     torch.cuda.empty_cache()
@@ -697,20 +1018,47 @@ def main() -> int:
                          num_hidden_layers=L, num_attention_heads=NH,
                          num_key_value_heads=NKV)
     runs = {}
-    for scheme, group_size in (("g128", 128), ("per-channel", -1)):
-        log(f"phase 3{'a' if scheme == 'g128' else 'b'}: serve Llama-2-7B "
-            f"({scheme} W4A8, gate/up GLU-fused, INT8 slot KV cache)")
-        params = random_packed_params(dev, config, group_size)
-        runs[scheme], prompt0 = serve(dev, params, config, scheme)
-        if scheme == "g128":
-            log("phase 4: card against CPU, 2-layer cut of the g128 weights")
-            card_vs_cpu(dev, params, config, prompt0)
-        del params
-        torch.cuda.empty_cache()
+    log("phase 3a: serve Llama-2-7B (g128 W4A8, gate/up GLU-fused, INT8 "
+        "slot KV cache)")
+    params = random_packed_params(dev, config, 128)
+    runs["g128"], prompt0, _, _ = serve(dev, params, config, "g128")
+    log("phase 3c: serve Llama-2-7B (g128 W4A8, gate/up GLU-fused, paged "
+        "INT8 KV pool, chunked prefill, Engine defaults)")
+    runs["paged"], _, roomy, _ = serve(dev, params, config, "g128",
+                                       paged=True)
+    tight = 13
+    log(f"phase 3d: the same traffic over a pool of {tight} blocks "
+        f"({tight - 1} usable; the requests end up holding 2 + 3 + 6 + 8): "
+        "recompute preemption")
+    _, _, toks, eng = serve(dev, params, config, "g128", paged=True,
+                            num_blocks=tight)
+    if not eng.stats["preemptions"] > 0:
+        raise AssertionError("the tight pool preempted nothing")
+    if eng.allocators[0].available != tight - 1:
+        raise AssertionError(f"{eng.allocators[0].available} blocks free "
+                             f"after the run, expected {tight - 1}")
+    same = sum(a == b for x, y in zip(toks, roomy) for a, b in zip(x, y))
+    log(f"  {eng.stats['preemptions']} preemptions, pool fully returned; "
+        f"tokens equal to phase 3c's at {same}/{sum(map(len, roomy))} "
+        "positions (not asserted: a re-prefill of generated tokens takes "
+        "the requant GEMMs where decode took the exact ones)")
+    del eng
+    log("phase 4: card against CPU, 2-layer cut of the g128 weights")
+    card_vs_cpu(dev, params, config, prompt0)
+    card_vs_cpu_paged(dev, params, config, prompt0)
+    del params
+    torch.cuda.empty_cache()
+    log("phase 3b: serve Llama-2-7B (per-channel W4A8, gate/up GLU-fused, "
+        "INT8 slot KV cache)")
+    params = random_packed_params(dev, config, -1)
+    runs["per-channel"], _, _, _ = serve(dev, params, config, "per-channel")
+    del params
+    torch.cuda.empty_cache()
 
     # each kernel's launches from the run whose path it is on: the g128
-    # (main) run, else the per-channel one
-    launches = {k: n or runs["per-channel"][k] for k, n in runs["g128"].items()}
+    # slot run, the paged one, else the per-channel one
+    launches = {k: runs["g128"][k] or runs["paged"][k]
+                or runs["per-channel"][k] for k in runs["g128"]}
     report = []
     for kname, (fn, source, replaces) in kernel_fns().items():
         r = rows[kname]

@@ -1,8 +1,11 @@
-// Causal chunk (prefill) attention over the INT8 slot cache, for Hopper
-// (sm_90a), CUDA cores.
+// Causal chunk (prefill) attention over the INT8 slot cache and over the
+// paged block pool, for Hopper (sm_90a), CUDA cores.
 //
 // Replaces: qqq_tpu/kernels/attention.py:_flash_attn_kernel (:89), reached
-// through flash_attention_int8 (:249, call :384) with qk_int8 = False.
+// through flash_attention_int8 (:249, call :384) with qk_int8 = False; and
+// _paged_flash_kernel (:404), reached through paged_flash_attention_int8
+// (:422), whose body is the same kernel over K/V blocks fetched through the
+// block table.
 //
 // Computes, for the (g * T) query rows of each (b, kv head): query row t sits
 // at position clen + t (clen excludes the chunk, whose K/V are already in the
@@ -12,6 +15,10 @@
 // bf16(scale) rounded to bf16 (:149-151); scores summed in f32; an online
 // softmax whose probabilities are rounded to bf16 before P.V (:198-203)
 // while the denominator sums them unrounded; out = acc / max(l, 1e-30).
+// Over the pool, key s of row b lies at row (tab[b][s / bs] * nkv + h) * bs
+// + s % bs of the (nb, nkv, bs, hd) pool, S = nbmax * bs; keys past the
+// visible span are never read, so table entries past a row's live blocks
+// are never looked up.
 //
 // What bounds it on the H100: operations, 4 * hd FLOPs (Q.K and P.V) per
 // visible (query, key) pair, 4 * B * nh * hd * sum_t (clen + t + 1) in all,
@@ -22,7 +29,9 @@
 // Design: a block of 128 threads takes 64 query rows of one (b, kv head)
 // (rows flattened as (g, T), so the g heads of a group share every K/V tile)
 // and walks the keys in tiles of 32 up to the causal limit of its last row,
-// skipping the dead upper triangle.  Q, K and V tiles sit in shared memory
+// skipping the dead upper triangle.  At the start of a tile the first 32
+// threads look up the pool (or cache) row of its 32 keys, the one place the
+// two layouts differ.  Q, K and V tiles sit in shared memory
 // as bf16, rows padded by one 4-byte word so that the 8 threads of a row
 // group hit 8 different banks.  Thread (ty, tx) computes a 4 x 4 block of
 // scores (rows 4ty.., keys 4tx..); the row max and sum reduce over the 8 tx
@@ -53,20 +62,24 @@ __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <int HD, typename T>
+// kPaged: kc/ks/vc/vs are the (nb, nkv, bs, hd) pool and its scales, tab
+// the (B, nbmax) tables, S = nbmax * bs; else the (B, nkv, S, hd) cache.
+template <int HD, typename T, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                   const float* __restrict__ ks,
                   const int8_t* __restrict__ vc,
                   const float* __restrict__ vs,
+                  const int* __restrict__ tab,
                   const int* __restrict__ cache_len, T* __restrict__ out,
-                  int nh, int nkv, int Tq, int S, int causal) {
+                  int nh, int nkv, int Tq, int S, int bs, int causal) {
   constexpr int LD = HD + 2;       // padded bf16 row stride (odd word count)
   constexpr int NP = HD / 16;      // output dim pairs per thread
   __shared__ __nv_bfloat16 Qs[BQ * LD];
   __shared__ __nv_bfloat16 Ks[BK * LD];
   __shared__ __nv_bfloat16 Vs[BK * LD];
   __shared__ float Ps[BQ][BK + 1];
+  __shared__ long long krow[BK];  // cache / pool row of each key, -1: none
 
   const int tid = threadIdx.x;
   const int tx = tid & 7;
@@ -108,12 +121,21 @@ flash_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
 
   for (int s0 = 0; s0 < kend; s0 += BK) {
     __syncthreads();  // the previous tile's readers are done
+    if (tid < BK) {
+      const int s = s0 + tid;
+      long long row = -1;
+      if (s < kend)
+        row = kPaged ? ((long long)tab[(size_t)b * (S / bs) + s / bs] * nkv
+                        + h) * bs + s % bs
+                     : (long long)(bh * S + s);
+      krow[tid] = row;
+    }
+    __syncthreads();
     for (int i = tid; i < BK * HD; i += kThreads) {
       const int kk = i / HD, d = i % HD;
-      const int s = s0 + kk;
+      const long long row = krow[kk];
       float kv = 0.f, vv = 0.f;
-      if (s < S) {
-        const size_t row = bh * S + s;
+      if (row >= 0) {
         kv = (float)kc[row * HD + d] * bf16r(ks[row]);
         vv = (float)vc[row * HD + d] * bf16r(vs[row]);
       }
@@ -217,16 +239,45 @@ flash_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   }
 }
 
-template <int HD, typename T>
-void launch(const void* q, const int8_t* kc, const float* ks,
-            const int8_t* vc, const float* vs, const int* cl, void* out,
-            int B, int nh, int nkv, int Tq, int S, int causal,
+template <int HD, typename T, bool kPaged>
+void launch(const void* q, const void* kc, const void* ks, const void* vc,
+            const void* vs, const void* tab, const void* cl, void* out,
+            int B, int nh, int nkv, int Tq, int S, int bs, int causal,
             cudaStream_t st) {
   const int M = (nh / nkv) * Tq;
   const dim3 grid((M + BQ - 1) / BQ, nkv, B);
-  flash_attn_kernel<HD, T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), kc, ks, vc, vs, cl, static_cast<T*>(out), nh,
-      nkv, Tq, S, causal);
+  flash_attn_kernel<HD, T, kPaged><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
+      static_cast<const float*>(vs), static_cast<const int*>(tab),
+      static_cast<const int*>(cl), static_cast<T*>(out), nh, nkv, Tq, S, bs,
+      causal);
+}
+
+template <bool kPaged>
+int dispatch(const void* q, const void* kc, const void* ks, const void* vc,
+             const void* vs, const void* tab, const void* cl, void* out,
+             int B, int nh, int nkv, int Tq, int S, int bs, int hd,
+             int causal, int bf16_io, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (hd == 128) {
+    if (bf16_io)
+      launch<128, __nv_bfloat16, kPaged>(q, kc, ks, vc, vs, tab, cl, out, B,
+                                         nh, nkv, Tq, S, bs, causal, st);
+    else
+      launch<128, float, kPaged>(q, kc, ks, vc, vs, tab, cl, out, B, nh, nkv,
+                                 Tq, S, bs, causal, st);
+  } else if (hd == 64) {
+    if (bf16_io)
+      launch<64, __nv_bfloat16, kPaged>(q, kc, ks, vc, vs, tab, cl, out, B,
+                                        nh, nkv, Tq, S, bs, causal, st);
+    else
+      launch<64, float, kPaged>(q, kc, ks, vc, vs, tab, cl, out, B, nh, nkv,
+                                Tq, S, bs, causal, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -240,28 +291,21 @@ extern "C" int flash_attention_int8(const void* q, const void* k_cache,
                                     void* out, int B, int nh, int nkv, int T,
                                     int S, int hd, int causal, int bf16_io,
                                     void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto kc = static_cast<const int8_t*>(k_cache);
-  auto vc = static_cast<const int8_t*>(v_cache);
-  auto ks = static_cast<const float*>(k_scale);
-  auto vs = static_cast<const float*>(v_scale);
-  auto cl = static_cast<const int*>(cache_len);
-  if (hd == 128) {
-    if (bf16_io)
-      launch<128, __nv_bfloat16>(q, kc, ks, vc, vs, cl, out, B, nh, nkv, T, S,
-                                 causal, st);
-    else
-      launch<128, float>(q, kc, ks, vc, vs, cl, out, B, nh, nkv, T, S,
-                         causal, st);
-  } else if (hd == 64) {
-    if (bf16_io)
-      launch<64, __nv_bfloat16>(q, kc, ks, vc, vs, cl, out, B, nh, nkv, T, S,
-                                causal, st);
-    else
-      launch<64, float>(q, kc, ks, vc, vs, cl, out, B, nh, nkv, T, S, causal,
-                        st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return dispatch<false>(q, k_cache, k_scale, v_cache, v_scale, nullptr,
+                         cache_len, out, B, nh, nkv, T, S, S, hd, causal,
+                         bf16_io, stream);
+}
+
+// q (B, nh, T, hd) bf16 (bf16_io = 1) or f32; pools (nb, nkv, bs, hd) int8
+// and scales (nb, nkv, bs) f32 holding the chunk at positions [cache_len,
+// cache_len + T) of each row's table; tables (B, nbmax) int32; cache_len
+// (B,) int32; out (B, nh, T, hd) like q.  hd in {64, 128}.
+extern "C" int paged_flash_attention_int8(
+    const void* q, const void* k_pool, const void* k_scale,
+    const void* v_pool, const void* v_scale, const void* tables,
+    const void* cache_len, void* out, int B, int nh, int nkv, int T, int bs,
+    int nbmax, int hd, int causal, int bf16_io, void* stream) {
+  return dispatch<true>(q, k_pool, k_scale, v_pool, v_scale, tables,
+                        cache_len, out, B, nh, nkv, T, nbmax * bs, bs, hd,
+                        causal, bf16_io, stream);
 }

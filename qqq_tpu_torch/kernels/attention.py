@@ -1,18 +1,22 @@
-"""Attention over the INT8 slot cache (port of qqq_tpu/kernels/attention.py:
-decode_attention_int8, decode_attention_auto and flash_attention_int8 with
-``qk_int8=False``).
+"""Attention over the INT8 slot cache and the paged INT8 block pool (port
+of qqq_tpu/kernels/attention.py: decode_attention_int8,
+decode_attention_auto, flash_attention_int8, paged_flash_attention_int8
+and paged_decode_attention_int8, with ``qk_int8=False``).
 
-On CUDA tensors the wrappers launch csrc/decode_attention.cu and
-csrc/flash_attention.cu; on CPU tensors they run the plain PyTorch versions
-below.  The decode version is the JAX kernel's one-pass f32 softmax; the
-kernel takes it online over 128-key tiles, which only reassociates f32 sums.
-The flash version repeats the CUDA kernel's online softmax over 32-key
-tiles, because there the order matters beyond f32: probabilities are
-rounded to bf16 against the running row maximum, so the tiling changes
-which bf16 values feed P·V (the JAX kernel tiles by 1024 keys).  The tests
-state the tolerances that follow.  The S-tiled decode kernel
-(_flash_decode_kernel, S > 8192) and the paged kernels arrive in later
-slices.
+On CUDA tensors the wrappers launch csrc/decode_attention.cu,
+csrc/flash_attention.cu and csrc/paged_decode_attention.cu; on CPU tensors
+they run the plain PyTorch versions below.  The slot decode version is the
+JAX kernel's one-pass f32 softmax; the kernel takes it online over 128-key
+tiles, which only reassociates f32 sums.  The flash version repeats the
+CUDA kernel's online softmax over 32-key tiles, because there the order
+matters beyond f32: probabilities are rounded to bf16 against the running
+row maximum, so the tiling changes which bf16 values feed P·V (the JAX
+kernel tiles by 1024 keys, or by the block size over the pool).  The
+paged flash version gathers the pool through the tables and is then the
+flash version.  Paged decode has numerics of its own (bf16 q, bf16
+probabilities times v_scale) and walks JAX's own tile, which its kernel
+walks too.  The tests state the tolerances that follow.  The S-tiled decode
+kernel (_flash_decode_kernel, S > 8192) arrives in a later slice.
 """
 
 from __future__ import annotations
@@ -221,3 +225,174 @@ def flash_attention_int8(
 
 
 flash_attention_int8.launches = 0  # kernel launches; only CUDA counts
+
+
+# ---------------------------------------------------------------------------
+# over the paged pool (serve/paged_kv.py)
+
+
+def _check_paged(q, k_pool, k_scale, v_pool, v_scale, tables, cache_len):
+    nb, nkv, bs, hd = k_pool.shape
+    B = q.shape[0]
+    for t, dt, shape, name in (
+        (q, q.dtype, tuple(q.shape), "q"),
+        (k_pool, torch.int8, (nb, nkv, bs, hd), "k_pool"),
+        (v_pool, torch.int8, (nb, nkv, bs, hd), "v_pool"),
+        (k_scale, torch.float32, (nb, nkv, bs), "k_scale"),
+        (v_scale, torch.float32, (nb, nkv, bs), "v_scale"),
+        (tables, torch.int32, (B, tables.shape[1]), "tables"),
+        (cache_len, torch.int32, (B,), "cache_len"),
+    ):
+        build.require(t, dt, shape, name, q.device)
+
+
+def paged_flash_attention_int8_plain(q, k_pool, k_scale, v_pool, v_scale,
+                                     tables, cache_len, causal: bool = True):
+    """The pool gathered through the tables into the slot cache's
+    contiguous (B, nkv, nbmax·bs, hd) layout (codes and scales, not
+    dequantized), then :func:`flash_attention_int8_plain`: the kernel's
+    arithmetic tile for tile."""
+    from qqq_tpu_torch.serve.paged_kv import gather
+
+    return flash_attention_int8_plain(
+        q, gather(k_pool, tables), gather(k_scale, tables),
+        gather(v_pool, tables), gather(v_scale, tables), cache_len, causal)
+
+
+def paged_flash_attention_int8(
+    q: torch.Tensor,        # (B, n_heads, T, hd) RoPE'd queries
+    k_pool: torch.Tensor,   # (nb, n_kv, bs, hd) int8, chunk keys written
+    k_scale: torch.Tensor,  # (nb, n_kv, bs) f32
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    tables: torch.Tensor,   # (B, nbmax) int32: pool block per virtual block
+    cache_len: torch.Tensor,  # (B,) int32: valid keys BEFORE this chunk
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """:func:`flash_attention_int8` over the block pool: key ``s`` of row
+    b lives in block ``tables[b, s // bs]``.  Returns (B, n_heads, T, hd)
+    in q.dtype."""
+    B, nh, T, hd = q.shape
+    nkv, bs = k_pool.shape[1], k_pool.shape[2]
+    nbmax = tables.shape[1]
+    if q.device.type == "cpu":
+        return paged_flash_attention_int8_plain(
+            q, k_pool, k_scale, v_pool, v_scale, tables, cache_len, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_attention_int8: device {q.device}")
+    if q.dtype not in _IO_DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
+    if nh % nkv or hd not in (64, 128):
+        raise ValueError(f"flash kernel takes hd in (64, 128) and nh % nkv "
+                         f"== 0 (nh={nh}, nkv={nkv}, hd={hd})")
+    _check_paged(q, k_pool, k_scale, v_pool, v_scale, tables, cache_len)
+    out = torch.empty_like(q)
+    fn = build.bind("flash_attention", "paged_flash_attention_int8",
+                    "ppppppppiiiiiiiiip")
+    build.check(fn(q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
+                   v_pool.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+                   cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, T, bs,
+                   nbmax, hd, int(causal), int(q.dtype == torch.bfloat16),
+                   build.stream_of(q)),
+                "paged_flash_attention_int8")
+    paged_flash_attention_int8.launches += 1
+    return out
+
+
+paged_flash_attention_int8.launches = 0  # kernel launches; only CUDA counts
+
+
+def paged_decode_tile(bs: int) -> int:
+    """Keys per online-softmax step of paged decode: JAX's in-block
+    sub-tile (qqq_tpu/kernels/attention.py:593), which the kernel and the
+    plain version both walk."""
+    return 256 if bs % 256 == 0 else bs
+
+
+def paged_decode_attention_int8_plain(q, k_pool, k_scale, v_pool, v_scale,
+                                      tables, cache_len):
+    """The JAX paged decode kernel's arithmetic, tile for tile: q scaled in
+    f32 and rounded to bf16; per tile of :func:`paged_decode_tile` keys,
+    f32 scores ``(q·K_i8)·k_scale`` masked at ``s ≥ cache_len``, an online
+    softmax whose ``e·v_scale`` is rounded to bf16 before P·V while the
+    denominator sums the unrounded ``e``; ``acc / max(l, 1e-30)``.  A tile
+    past a row's last key changes nothing for that row (its ``e`` is 0 and
+    its ``alpha`` 1)."""
+    from qqq_tpu_torch.serve.paged_kv import gather
+
+    B, nh, hd = q.shape
+    nkv, bs = k_pool.shape[1], k_pool.shape[2]
+    g = nh // nkv
+    sub = paged_decode_tile(bs)
+    f32 = torch.float32
+    qg = (q.reshape(B, nkv, g, hd).to(f32)
+          / _sqrt_hd(hd).to(q.device)).to(torch.bfloat16).to(f32)
+    kc, ks = gather(k_pool, tables), gather(k_scale, tables)
+    vc, vs = gather(v_pool, tables), gather(v_scale, tables)
+    S = kc.shape[2]
+    clen = cache_len.to(torch.int64)
+    m = torch.full((B, nkv, g, 1), _NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, nkv, g, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((B, nkv, g, hd), dtype=f32, device=q.device)
+    for t0 in range(0, min(S, int(clen.max())), sub):
+        t1 = t0 + sub
+        key = torch.arange(t0, t1, device=q.device)
+        valid = (key[None, :] < clen[:, None])[:, None, None, :]
+        sc = (qg @ kc[:, :, t0:t1].to(f32).transpose(-1, -2)) \
+            * ks[:, :, None, t0:t1]
+        sc = torch.where(valid, sc, _NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        e = torch.where(valid, torch.exp(sc - m_new), 0.0)
+        ev = (e * vs[:, :, None, t0:t1]).to(torch.bfloat16).to(f32)
+        l = l * alpha + e.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + ev @ vc[:, :, t0:t1].to(f32)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(B, nh, hd).to(q.dtype)
+
+
+def paged_decode_attention_int8(
+    q: torch.Tensor,        # (B, n_heads, hd), RoPE'd current-step queries
+    k_pool: torch.Tensor,   # (nb, n_kv, bs, hd) int8 (current k written)
+    k_scale: torch.Tensor,  # (nb, n_kv, bs) f32
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    tables: torch.Tensor,   # (B, nbmax) int32
+    cache_len: torch.Tensor,  # (B,) int32: valid keys INCLUDING the current
+) -> torch.Tensor:
+    """Decode attention over the block pool.  Returns (B, n_heads, hd) in
+    q.dtype."""
+    B, nh, hd = q.shape
+    nkv, bs = k_pool.shape[1], k_pool.shape[2]
+    nbmax = tables.shape[1]
+    if q.device.type == "cpu":
+        return paged_decode_attention_int8_plain(
+            q, k_pool, k_scale, v_pool, v_scale, tables, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention_int8: device {q.device}")
+    if q.dtype not in _IO_DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
+    sub = paged_decode_tile(bs)
+    if (nh % nkv or nh // nkv > _DECODE_MAX_G or hd > 128 or hd % 16
+            or sub > 512):
+        raise ValueError(f"paged decode kernel takes nh/nkv ≤ "
+                         f"{_DECODE_MAX_G}, hd ≤ 128, hd % 16 == 0 and a "
+                         f"key tile ≤ 512 (nh={nh}, nkv={nkv}, hd={hd}, "
+                         f"bs={bs})")
+    _check_paged(q, k_pool, k_scale, v_pool, v_scale, tables, cache_len)
+    out = torch.empty_like(q)
+    fn = build.bind("paged_decode_attention", "paged_decode_attention_int8",
+                    "ppppppppiiiiiiiip")
+    build.check(fn(q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
+                   v_pool.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+                   cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, bs,
+                   nbmax, hd, sub, int(q.dtype == torch.bfloat16),
+                   build.stream_of(q)),
+                "paged_decode_attention_int8")
+    paged_decode_attention_int8.launches += 1
+    return out
+
+
+paged_decode_attention_int8.launches = 0  # kernel launches; only CUDA counts

@@ -24,11 +24,12 @@ from typing import Dict, List, Optional
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "qqq_tpu_torch"
 
-#: the sources of the W4A8 slot-cache serving path: the GEMM routes
-#: (per channel, g128 requant, g128 exact; each plain and GLU-fused), the
-#: decode KV write, decode attention and prefill flash attention
+#: the sources of the W4A8 serving paths: the GEMM routes (per channel,
+#: g128 requant, g128 exact; each plain and GLU-fused), the KV writes (slot
+#: and paged), slot decode attention, prefill flash attention (slot and
+#: paged) and paged decode attention
 KERNELS = ("w4a8_gemm", "w4a8_requant", "w4a8_group", "kv_write",
-           "decode_attention", "flash_attention")
+           "decode_attention", "flash_attention", "paged_decode_attention")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,13 +1,17 @@
-"""Decode-time INT8 KV write into the fixed-slot cache (port of
-qqq_tpu/kernels/kv_write.py:slot_decode_write_int8).
+"""INT8 KV writes into the fixed-slot cache and into the paged block pool
+(port of qqq_tpu/kernels/kv_write.py: slot_decode_write_int8,
+paged_decode_write_int8 and paged_chunk_write_int8).
 
-Per (b, kv head), the new token's K and V rows are quantized by
-serve/kv_cache._quant's numerics and written **in place** at position
-``min(cache_len[b], S - 1)``.  On CUDA tensors this is one launch of
-csrc/kv_write.cu (quantization and store fused); on CPU tensors the plain
-PyTorch version runs.  Codes and scales are bit-identical between the two.
-The paged writes (_write_kernel, _chunk_write_kernel) come with the paged
-pool in a later slice.
+Per token row and kv head, the new K and V rows are quantized by
+serve/kv_cache._quant's numerics and written **in place**:
+* slot: at position ``min(cache_len[b], S - 1)`` of row b;
+* paged: token t of row b at position ``p = cache_len[b] + t``, in pool
+  block ``tables[b, p // bs]`` at ``p % bs``, or in the null block 0 when
+  ``p // bs`` is past the table (serve/paged_kv.py).
+On CUDA tensors each is one launch of csrc/kv_write.cu (quantization and
+store fused); on CPU tensors the plain PyTorch versions run.  Codes and
+scales are bit-identical between the two, outside the null block, whose
+content the pool leaves unspecified (rows that land there may collide).
 """
 
 from __future__ import annotations
@@ -77,3 +81,112 @@ def slot_decode_write_int8(
 
 
 slot_decode_write_int8.launches = 0  # kernel launches; only CUDA counts
+
+
+# ---------------------------------------------------------------------------
+# paged pool
+
+
+def paged_chunk_write_int8_plain(k_pool, k_scale, v_pool, v_scale, k_new,
+                                 v_new, tables, cache_len):
+    """Both paged writes' plain version: ``_quant`` per token row and head,
+    then one indexed store per buffer (rows that route to the null block
+    may collide there, in any order)."""
+    from qqq_tpu_torch.serve.paged_kv import _phys_or_null
+
+    bs = k_pool.shape[2]
+    T = k_new.shape[1]
+    pos = (cache_len.to(torch.int64)[:, None]
+           + torch.arange(T, device=k_pool.device)[None, :])  # (B, T)
+    phys = _phys_or_null(tables, pos // bs)
+    off = pos % bs
+    for pool, scale, new in ((k_pool, k_scale, k_new),
+                             (v_pool, v_scale, v_new)):
+        q, s = _quant(new)  # (B, T, nkv, hd), (B, T, nkv)
+        pool[phys, :, off] = q
+        scale[phys, :, off] = s
+    return k_pool, k_scale, v_pool, v_scale
+
+
+paged_decode_write_int8_plain = paged_chunk_write_int8_plain
+
+
+def _paged_write(fn, plain, k_pool, k_scale, v_pool, v_scale, k_new, v_new,
+                 tables, cache_len):
+    """The two paged writes' wrapper body: CPU tensors → ``plain``; CUDA
+    tensors → check every operand and launch the C entry named like
+    ``fn``."""
+    name = fn.__name__
+    nb, nkv, bs, hd = k_pool.shape
+    B, T = k_new.shape[:2]
+    nbmax = tables.shape[1]
+    if tuple(k_new.shape) != (B, T, nkv, hd) or (
+            fn is paged_decode_write_int8 and T != 1):
+        raise ValueError(f"{name}: k_new {tuple(k_new.shape)} against pool "
+                         f"{tuple(k_pool.shape)}")
+    if k_pool.device.type == "cpu":
+        return plain(k_pool, k_scale, v_pool, v_scale, k_new, v_new, tables,
+                     cache_len)
+    if k_pool.device.type != "cuda":
+        raise ValueError(f"{name}: device {k_pool.device}")
+    if k_new.dtype not in _IN_DTYPES:
+        raise TypeError(f"k_new dtype {k_new.dtype} not in {_IN_DTYPES}")
+    for t, dt, shape, arg in (
+        (k_pool, torch.int8, (nb, nkv, bs, hd), "k_pool"),
+        (v_pool, torch.int8, (nb, nkv, bs, hd), "v_pool"),
+        (k_scale, torch.float32, (nb, nkv, bs), "k_scale"),
+        (v_scale, torch.float32, (nb, nkv, bs), "v_scale"),
+        (k_new, k_new.dtype, (B, T, nkv, hd), "k_new"),
+        (v_new, k_new.dtype, (B, T, nkv, hd), "v_new"),
+        (tables, torch.int32, (B, nbmax), "tables"),
+        (cache_len, torch.int32, (B,), "cache_len"),
+    ):
+        build.require(t, dt, shape, arg, k_pool.device)
+    if B * T == 0:
+        return k_pool, k_scale, v_pool, v_scale
+    c = build.bind("kv_write", name, "ppppppppiiiiiiip")
+    build.check(c(k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+                  k_scale.data_ptr(), v_pool.data_ptr(), v_scale.data_ptr(),
+                  tables.data_ptr(), cache_len.data_ptr(), B, T, nkv, bs,
+                  nbmax, hd, int(k_new.dtype == torch.bfloat16),
+                  build.stream_of(k_pool)), name)
+    fn.launches += 1
+    return k_pool, k_scale, v_pool, v_scale
+
+
+def paged_decode_write_int8(
+    k_pool: torch.Tensor,    # (nb, nkv, bs, hd) int8, updated in place
+    k_scale: torch.Tensor,   # (nb, nkv, bs) f32, updated in place
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    k_new: torch.Tensor,     # (B, 1, nkv, hd) bf16 or f32
+    v_new: torch.Tensor,
+    tables: torch.Tensor,    # (B, nbmax) int32
+    cache_len: torch.Tensor,  # (B,) int32: the position being written
+):
+    """Quantize and write one decode token per row into the pool, in place;
+    returns the four (same) pool buffers."""
+    return _paged_write(paged_decode_write_int8,
+                        paged_decode_write_int8_plain, k_pool, k_scale,
+                        v_pool, v_scale, k_new, v_new, tables, cache_len)
+
+
+def paged_chunk_write_int8(
+    k_pool: torch.Tensor,    # (nb, nkv, bs, hd) int8, updated in place
+    k_scale: torch.Tensor,   # (nb, nkv, bs) f32, updated in place
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    k_new: torch.Tensor,     # (B, T, nkv, hd) bf16 or f32: chunk tokens
+    v_new: torch.Tensor,
+    tables: torch.Tensor,    # (B, nbmax) int32
+    cache_len: torch.Tensor,  # (B,) int32: position of the chunk's token 0
+):
+    """Quantize and write T chunk tokens per row into the pool, in place;
+    returns the four (same) pool buffers."""
+    return _paged_write(paged_chunk_write_int8,
+                        paged_chunk_write_int8_plain, k_pool, k_scale,
+                        v_pool, v_scale, k_new, v_new, tables, cache_len)
+
+
+paged_decode_write_int8.launches = 0  # kernel launches; only CUDA counts
+paged_chunk_write_int8.launches = 0

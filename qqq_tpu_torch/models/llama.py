@@ -1,5 +1,5 @@
 """Functional Llama / Qwen2 forward pass (port of qqq_tpu/models/llama.py,
-single device: no tensor-parallel, ring or paged branches).
+single device: no tensor-parallel or ring branches).
 
 Params keep the JAX package's layout (weights are (in, out)):
 
@@ -21,8 +21,10 @@ Params keep the JAX package's layout (weights are (in, out)):
 linear (the GLU-fused kernel) and q/k/v by one ``qkv_proj``.
 
 A packed linear runs through the W4A8 GEMM kernels; attention over an INT8
-cache runs through the slot-write, decode and flash kernels.  Caches are
-updated in place.
+slot cache runs through the slot-write, decode and flash kernels, and over
+an INT8 block pool (``block_tables`` given, serve/paged_kv.py) through the
+paged write, paged decode and paged flash kernels.  Caches are updated in
+place.
 """
 
 from __future__ import annotations
@@ -34,13 +36,15 @@ import torch
 import torch.nn.functional as F
 
 from qqq_tpu_torch.kernels.attention import (
-    decode_attention_auto, flash_attention_int8,
+    decode_attention_auto, flash_attention_int8, paged_decode_attention_int8,
+    paged_flash_attention_int8,
 )
 from qqq_tpu_torch.kernels.w4a8_gemm import (
     fuse_glu_layout, w4a8_glu_linear, w4a8_linear,
 )
 from qqq_tpu_torch.models.config import ModelConfig
 from qqq_tpu_torch.serve import kv_cache as kvc
+from qqq_tpu_torch.serve import paged_kv as pkv
 from qqq_tpu_torch.utils.device import resolve_device
 
 _NEG_INF = -1e30
@@ -157,9 +161,11 @@ def attention(
     config: ModelConfig,
     cache: Optional[Dict[str, Any]] = None,
     cache_len: Optional[torch.Tensor] = None,
+    block_tables: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Self-attention; with a slot cache the new K/V are written in place
-    first (``cache_len`` = tokens already in the cache, per row)."""
+    """Self-attention; with a cache the new K/V are written in place first
+    (``cache_len`` = tokens already in the cache, per row).  With
+    ``block_tables`` (B, max_blocks) the cache is a paged block pool."""
     B, T = x.shape[:2]
     nh, nkv = config.num_attention_heads, config.num_key_value_heads
     hd = config.head_dim
@@ -178,6 +184,27 @@ def attention(
     if cache is None:
         kf, vf = k, v
         mask = positions[:, None, :] <= positions[:, :, None]
+    elif block_tables is not None:
+        cache = pkv.write(cache, k, v, cache_len, block_tables)
+        if "k_scale" in cache:
+            pool = (cache["k"], cache["k_scale"], cache["v"],
+                    cache["v_scale"], block_tables)
+            if T == 1:
+                out = paged_decode_attention_int8(
+                    q[:, 0].contiguous(), *pool, cache_len + 1,
+                ).reshape(B, 1, nh * hd)
+            else:
+                out = paged_flash_attention_int8(
+                    q.transpose(1, 2).contiguous(), *pool, cache_len,
+                    causal=True,
+                ).transpose(1, 2).reshape(B, T, nh * hd)
+            return linear_apply(layer["o_proj"], out), cache
+        # fp pool: the dense gather, masked as the slot cache is
+        S = block_tables.shape[1] * cache["k"].shape[2]
+        kf, vf = pkv.read(cache, block_tables, S, x.dtype)
+        key_idx = torch.arange(S, device=x.device)[None, :]
+        valid = key_idx < (cache_len.to(torch.int64) + T)[:, None]
+        mask = valid[:, None, :] & (key_idx[:, None, :] <= positions[:, :, None])
     else:
         cache = kvc.write(cache, k, v, cache_len)
         if "k_scale" in cache:
@@ -226,10 +253,11 @@ def decoder_layer(
     config: ModelConfig,
     cache: Optional[Dict[str, Any]] = None,
     cache_len: Optional[torch.Tensor] = None,
+    block_tables: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     h = rms_norm(x, layer["input_layernorm"], config.rms_norm_eps)
     attn_out, cache = attention(layer, h, positions, inv_freq, config, cache,
-                                cache_len)
+                                cache_len, block_tables)
     x = x + attn_out
     h = rms_norm(x, layer["post_attention_layernorm"], config.rms_norm_eps)
     return x + mlp(layer, h), cache
@@ -299,11 +327,14 @@ def forward(
     cache_len: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
     logits_at: Optional[torch.Tensor] = None,
+    block_tables: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]]]:
     """Returns (logits (B, T, V) f32, caches).  ``caches=None`` scores the
     full sequence; with caches this is prefill (T > 1) or decode (T = 1),
-    and the caches are updated in place.  ``logits_at`` (B,) computes the
-    lm_head at that one position per row → (B, 1, V)."""
+    and the caches are updated in place.  With ``block_tables`` (B,
+    max_blocks) int32 the caches are paged block pools
+    (serve/paged_kv.py) instead of fixed slots.  ``logits_at`` (B,)
+    computes the lm_head at that one position per row → (B, 1, V)."""
     B, T = tokens.shape
     dev = tokens.device
     if cache_len is not None:
@@ -320,6 +351,7 @@ def forward(
         x, _ = decoder_layer(
             layer, x, positions, inv_freq, config,
             caches[i] if caches is not None else None, cache_len,
+            block_tables,
         )
     x = rms_norm(x, params["norm"], config.rms_norm_eps)
     if return_hidden:

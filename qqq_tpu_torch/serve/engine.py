@@ -1,21 +1,34 @@
-"""Inference engine: slot-based continuous batching with a prefill/decode
-split (port of qqq_tpu/serve/engine.py, slot mode).
+"""Inference engine: continuous batching with a prefill/decode split
+(port of qqq_tpu/serve/engine.py, single device).
 
-* ``max_batch`` fixed decode slots; every tick decodes one token for all
-  slots at once (inactive rows compute and are ignored, as in JAX);
-* prompts prefill whole, padded to a bucket; same-bucket pending requests
-  prefill together in power-of-two sub-batches into a bucket-sized scratch
-  cache, whose rows are then copied into their slots;
+* ``max_batch`` decode slots; every tick decodes one token for all slots at
+  once (inactive rows compute and are ignored, as in JAX);
 * continuous batching is the host loop of :meth:`Engine.run`: a freed slot
   admits the next pending request at the next scheduling round;
 * the KV cache is INT8 by default and is updated in place.
 
-This port has the slot-mode engine, with the JAX engine's default GEMM
-fusion (``fuse=True``: gate/up through the GLU-fused kernel), and nothing
-around it.  Chunked prefill, the prefix cache, speculative decoding, the
-paged pool, meshes and the multi-step decode scan keep the JAX engine's
-argument names and raise ``NotImplementedError``; so do requests that ask
-for penalties, logit bias, guided choice, seeds or top-N logprobs.
+Two KV layouts, as in JAX:
+
+* **slot mode** (default): a fixed (max_batch, max_len) cache; prompts
+  prefill whole, padded to a bucket; same-bucket pending requests prefill
+  together in power-of-two sub-batches into a bucket-sized scratch cache,
+  whose rows are then copied into their slots;
+* **paged mode** (``paged=True``): a pool of ``num_blocks`` blocks of
+  ``block_size`` tokens shared by all slots (serve/paged_kv.py), with
+  per-slot block tables grown on demand, so KV memory follows the tokens
+  in flight.  A request claims a slot at once and prefills
+  ``prefill_chunk`` tokens per scheduling round, up to ``prefill_batch``
+  slots per (R, C) dispatch, straight into its blocks; when the pool runs
+  dry the latest-admitted request is preempted (its blocks free, and it
+  re-enters the queue to re-prefill prompt + generated tokens: the vLLM
+  recompute policy).
+
+Both run the JAX engine's default GEMM fusion (``fuse=True``: gate/up
+through the GLU-fused kernel).  Chunked prefill in slot mode, the prefix
+cache, speculative decoding, meshes and the multi-step decode scan keep
+the JAX engine's argument names and raise ``NotImplementedError``; so do
+requests that ask for penalties, logit bias, guided choice, seeds or top-N
+logprobs.
 """
 
 from __future__ import annotations
@@ -29,7 +42,7 @@ import torch
 
 from qqq_tpu_torch.models import llama as M
 from qqq_tpu_torch.models.config import ModelConfig
-from qqq_tpu_torch.serve import kv_cache
+from qqq_tpu_torch.serve import kv_cache, paged_kv
 from qqq_tpu_torch.serve.sampling import (
     SamplingParams, chosen_logprob, sample_batched,
 )
@@ -48,6 +61,10 @@ class Request:
     #: "stop" (EOS / stop token), "length" (max_new_tokens or out of cache
     #: room) or "error" (prompt too long or empty) once ``done``
     finish_reason: Optional[str] = None
+    #: set when the engine preempts the request (paged mode, pool dry): the
+    #: token stream to re-prefill on re-admission (prompt + generated so
+    #: far), so that generation continues where it left off
+    _resume: Optional[List[int]] = None
     # latency bookkeeping (monotonic seconds, filled by the engine)
     t_enqueue: Optional[float] = None
     t_first_token: Optional[float] = None
@@ -75,9 +92,7 @@ def _bucket(n: int, buckets) -> int:
 
 
 def _later_slice(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported yet; this slice serves slot mode only"
-    )
+    return NotImplementedError(f"{name} is not ported yet")
 
 
 class Engine:
@@ -109,14 +124,22 @@ class Engine:
         ``params`` must already live there.  ``fuse`` applies
         :func:`~qqq_tpu_torch.models.llama.fuse_inference_params` (gate/up
         → the GLU-fused kernel; a no-op for dense params), as JAX does
-        without a mesh."""
-        del spec_k, block_size  # meaningful only with the features below
+        without a mesh.
+
+        ``paged=True`` serves from a block pool (see the module docstring).
+        ``max_len`` must be a multiple of ``block_size``; ``prefill_chunk``
+        defaults to the widest chunk ≤ 512 that divides ``max_len`` and is
+        a whole number of blocks; ``num_blocks`` (null block included)
+        defaults to ``1 + max_batch · max_len / block_size``, which never
+        preempts — size it down to oversubscribe."""
+        del spec_k  # meaningful only with speculative decoding
         for on, name in ((steps_per_tick != 1, "steps_per_tick > 1"),
                          (mesh is not None, "mesh"),
-                         (prefill_chunk, "chunked prefill (prefill_chunk)"),
+                         (prefill_chunk and not paged,
+                          "chunked prefill in slot mode (prefill_chunk "
+                          "without paged)"),
                          (spec_ngram, "speculative decoding (spec_ngram)"),
-                         (prefix_cache, "prefix_cache"),
-                         (paged or num_blocks is not None, "the paged pool")):
+                         (prefix_cache, "prefix_cache")):
             if on:
                 raise _later_slice(name)
         self.device = resolve_device(device)
@@ -134,14 +157,49 @@ class Engine:
         self.prefill_buckets = tuple(
             b for b in prefill_buckets if b <= max_len
         ) or (max_len,)
-        self.caches = kv_cache.init(config, max_batch, max_len,
-                                    quantized=kv_quantized, dtype=dtype,
-                                    device=self.device)
+        self.paged = paged
+        if paged:
+            if max_len % block_size:
+                raise ValueError(f"max_len {max_len} must be a multiple of "
+                                 f"block_size {block_size}")
+            if not prefill_chunk:
+                # the widest chunk ≤ 512 that divides max_len and is a whole
+                # number of blocks (JAX: chunk width is dispatch width)
+                c = min(512, max_len)
+                while c > block_size and (max_len % c or c % block_size):
+                    c -= block_size
+                prefill_chunk = max(c, block_size)
+            if max_len % prefill_chunk:
+                raise ValueError(f"max_len {max_len} must be a multiple of "
+                                 f"prefill_chunk {prefill_chunk}")
+            self.block_size = block_size
+            #: per-slot virtual-block capacity (max_len tokens)
+            self._nbmax = max_len // block_size
+            if num_blocks is None:
+                num_blocks = 1 + max_batch * self._nbmax
+            self.num_blocks = num_blocks
+            self.allocators = [paged_kv.BlockAllocator(num_blocks)]
+            #: (max_batch, nbmax) pool block per (slot, virtual block); 0 =
+            #: the null block
+            self.tables = np.zeros((max_batch, self._nbmax), np.int32)
+            #: device copy of ``tables``, uploaded again only when dirty
+            self._tables_dev: Optional[torch.Tensor] = None
+            self._tables_dirty = True
+            self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
+            self.caches = paged_kv.init(config, num_blocks, block_size,
+                                        quantized=kv_quantized, dtype=dtype,
+                                        device=self.device)
+        else:
+            self.caches = kv_cache.init(config, max_batch, max_len,
+                                        quantized=kv_quantized, dtype=dtype,
+                                        device=self.device)
+        self.prefill_chunk = prefill_chunk
         if prefill_batch is None:
             # each admitted row costs a bucket-sized KV scratch across every
             # layer; cap the group so the scratch stays under the budget.
-            # Sized by the largest bucket the engine can actually use.
-            bucket = self.prefill_buckets[-1]
+            # Sized by the largest bucket the engine can actually use, or
+            # the chunk (JAX: engine.py:325).
+            bucket = max(self.prefill_buckets[-1], prefill_chunk)
             scale_bytes = 4 if kv_quantized else 0
             store_bytes = 1 if kv_quantized else dtype.itemsize
             per_row = (config.num_hidden_layers * config.num_key_value_heads
@@ -154,13 +212,20 @@ class Engine:
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_len = np.zeros(max_batch, np.int32)
         self.slot_last_tok = np.zeros(max_batch, np.int32)
+        #: slot → prompt tokens not yet prefilled (paged mode); a slot
+        #: present here is mid-prefill and excluded from decode
+        self.slot_prefill: Dict[int, List[int]] = {}
+        #: admission order per slot: preemption evicts the latest admitted
+        self._admit_seq = 0
+        self.slot_seq = [0] * max_batch
         self.generator = torch.Generator(device=self.device).manual_seed(0)
         self._pending: List[Request] = []
         self.stats = {
-            "prefills": 0, "prefill_tokens": 0, "prefill_dispatches": 0,
-            "generated_tokens": 0, "decode_ticks": 0,
+            "prefills": 0, "prefill_tokens": 0, "prefill_chunks": 0,
+            "prefill_dispatches": 0,
+            "generated_tokens": 0, "decode_ticks": 0, "preemptions": 0,
             "prefill_s": 0.0, "decode_s": 0.0,
-            # (rows, bucket) of each prefill dispatch, in order
+            # (rows, bucket or chunk) of each prefill dispatch, in order
             "prefill_shapes": [],
         }
 
@@ -239,14 +304,91 @@ class Engine:
             self._maybe_finish(slot)
 
     @torch.inference_mode()
+    def _prefill_chunk_paged(self, rows: List[Optional[int]]) -> None:
+        """One (R, C) chunked-prefill dispatch, R = len(rows): each slot's
+        next ``prefill_chunk`` prompt tokens at its ``slot_len``, written
+        straight into its blocks through its table row; ``None`` rows ride
+        along on a null table.  The padded tail of a chunk is written too:
+        positions past the allocated blocks land in the null block, the
+        rest are rewritten by the next chunk or decode step before anything
+        attends to them.  A slot whose prompt this chunk completes samples
+        its first token (JAX: _prefill_chunk_paged :835 and the dispatch
+        half of _progress_chunk_prefills_paged :1693)."""
+        t0 = time.perf_counter()
+        C, R = self.prefill_chunk, len(rows)
+        toks = np.zeros((R, C), np.int64)
+        ks = np.zeros((R,), np.int32)
+        tns = np.ones((R,), np.int64)
+        tabs = np.zeros((R, self._nbmax), np.int32)
+        reqs: List[Optional[Request]] = [None] * R
+        finals = [False] * R
+        for i, slot in enumerate(rows):
+            if slot is None:
+                continue
+            part = self.slot_prefill[slot][:C]
+            toks[i, :len(part)] = part
+            ks[i] = self.slot_len[slot]
+            tns[i] = len(part)
+            tabs[i] = self.tables[slot]
+            reqs[i] = self.slot_req[slot]
+            finals[i] = len(self.slot_prefill[slot]) <= C
+        dev = self.device
+        logits, _ = M.forward(
+            self.params, self.config, torch.from_numpy(toks).to(dev),
+            caches=self.caches, cache_len=torch.from_numpy(ks).to(dev),
+            logits_at=torch.from_numpy(tns - 1).to(dev),
+            block_tables=torch.from_numpy(tabs).to(dev),
+        )
+        if any(finals):  # only a final chunk's token is ever read
+            firsts, lps = self._sample(
+                logits[:, 0, :],
+                [r if f else None for r, f in zip(reqs, finals)])
+        elif dev.type == "cuda":
+            # no token to fetch: wait here so that the chunk's device time
+            # lands in prefill_s, not in the next decode tick's decode_s
+            torch.cuda.synchronize(dev)
+        self.stats["prefill_dispatches"] += 1
+        self.stats["prefill_shapes"].append((R, C))
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        for i, slot in enumerate(rows):
+            if slot is None:
+                continue
+            self.slot_len[slot] = ks[i] + tns[i]
+            self.slot_prefill[slot] = self.slot_prefill[slot][C:]
+            self.stats["prefill_chunks"] += 1
+            self.stats["prefill_tokens"] += int(tns[i])
+            if finals[i]:
+                del self.slot_prefill[slot]
+                self._finish_chunk_prefill(slot, reqs[i], int(firsts[i]),
+                                           float(lps[i]))
+
+    def _finish_chunk_prefill(self, slot: int, req: Request, first: int,
+                              lp: float) -> None:
+        """Final-chunk bookkeeping (JAX :1555, without penalties): install
+        the sampled token and hand the slot to decode."""
+        req._resume = None
+        req.output_tokens.append(first)
+        req.token_logprobs.append(lp)
+        if req.t_first_token is None:  # a resumed request keeps its TTFT
+            req.t_first_token = time.monotonic()
+        self.slot_last_tok[slot] = first
+        self.stats["prefills"] += 1
+        self.stats["generated_tokens"] += 1
+        self._maybe_finish(slot)
+
+    @torch.inference_mode()
     def _decode_tick(self, active: np.ndarray) -> None:
-        """One decode step across all slots (inactive rows are masked)."""
+        """One decode step across all slots (inactive rows are masked).  In
+        paged mode the masked rows still write their K/V at ``slot_len``
+        through their table row: an empty slot's table is all null, and a
+        mid-prefill slot's position is rewritten by its next chunk."""
         t0 = time.perf_counter()
         tokens = torch.from_numpy(self.slot_last_tok.astype(np.int64))
         cache_len = torch.from_numpy(self.slot_len.copy())
         logits, _ = M.forward(
             self.params, self.config, tokens.to(self.device)[:, None],
             caches=self.caches, cache_len=cache_len.to(self.device),
+            block_tables=self._tables_arg(),
         )
         rows = [r if active[i] else None for i, r in enumerate(self.slot_req)]
         toks, lps = self._sample(logits[:, -1, :], rows)
@@ -279,48 +421,192 @@ class Engine:
         for r in requests:
             self.add_request(r)
         while self._pending or any(r is not None for r in self.slot_req):
-            keep = []
-            for r in self._pending:
-                if r.sampling.max_new_tokens <= 0:
-                    # prefill always samples one token, which would leak out
-                    r.done, r.finish_reason = True, "length"
-                elif (not r.prompt_tokens
-                      or len(r.prompt_tokens) + 1 > self.max_len
-                      or len(r.prompt_tokens) > self.prefill_buckets[-1]):
-                    r.done, r.finish_reason = True, "error"
-                else:
-                    keep.append(r)
-            self._pending = keep
-            # admit pending requests into free slots; same-bucket requests
-            # prefill together (the group may jump an earlier request of
-            # another bucket within one admission round)
-            while self._pending and None in self.slot_req:
-                free = [i for i, r in enumerate(self.slot_req) if r is None]
-                bucket = _bucket(len(self._pending[0].prompt_tokens),
-                                 self.prefill_buckets)
-                group, rest = [], []
-                for r in self._pending:
-                    if (len(group) < len(free)
-                            and _bucket(len(r.prompt_tokens),
-                                        self.prefill_buckets) == bucket):
-                        group.append(r)
-                    else:
-                        rest.append(r)
-                self._pending = rest
-                while group:
-                    pb = min(self.prefill_batch,
-                             1 << (len(group).bit_length() - 1))
-                    self._admit_batch(group[:pb], free[:pb], bucket)
-                    group, free = group[pb:], free[pb:]
-            active = np.array([r is not None for r in self.slot_req], bool)
+            self._reject_unservable()
+            if self.paged:
+                self._admit_chunked()
+                self._progress_chunk_prefills_paged()
+                self._grow_for_decode()
+            else:
+                self._admit_whole()
+            active = np.array(
+                [r is not None and i not in self.slot_prefill
+                 for i, r in enumerate(self.slot_req)], bool)
             if active.any():
                 self._decode_tick(active)
         return requests
+
+    def _reject_unservable(self) -> None:
+        """Finish the pending requests that can never run: no tokens asked
+        ("length"), an empty prompt, one too long for ``max_len`` or the
+        largest bucket, or in paged mode one whose KV cannot fit the pool
+        even with every other request preempted ("error"; a preempted
+        request that grew past that has run out of room: "length")."""
+        keep = []
+        for r in self._pending:
+            stream = r._resume or r.prompt_tokens
+            if r.sampling.max_new_tokens <= 0:
+                # prefill always samples one token, which would leak out
+                r.done, r.finish_reason = True, "length"
+            elif (not stream or len(stream) + 1 > self.max_len
+                  or (not self.paged
+                      and len(stream) > self.prefill_buckets[-1])
+                  or (self.paged
+                      and -(-(len(stream) + 1) // self.block_size)
+                      > self.num_blocks - 1)):
+                r.done = True
+                r.finish_reason = "length" if r._resume else "error"
+            else:
+                keep.append(r)
+        self._pending = keep
+
+    def _admit_whole(self) -> None:
+        """Slot mode: admit pending requests into free slots; same-bucket
+        requests prefill together (the group may jump an earlier request of
+        another bucket within one admission round)."""
+        while self._pending and None in self.slot_req:
+            free = [i for i, r in enumerate(self.slot_req) if r is None]
+            bucket = _bucket(len(self._pending[0].prompt_tokens),
+                             self.prefill_buckets)
+            group, rest = [], []
+            for r in self._pending:
+                if (len(group) < len(free)
+                        and _bucket(len(r.prompt_tokens),
+                                    self.prefill_buckets) == bucket):
+                    group.append(r)
+                else:
+                    rest.append(r)
+            self._pending = rest
+            while group:
+                pb = min(self.prefill_batch,
+                         1 << (len(group).bit_length() - 1))
+                self._admit_batch(group[:pb], free[:pb], bucket)
+                group, free = group[pb:], free[pb:]
+
+    def _admit_chunked(self) -> None:
+        """Paged mode: each pending request claims the first free slot at
+        once; :meth:`_progress_chunk_prefills_paged` then prefills its
+        prompt (a preempted one's prompt + generated tokens) chunk by
+        chunk."""
+        while self._pending and None in self.slot_req:
+            req = self._pending.pop(0)
+            slot = self.slot_req.index(None)
+            self.slot_req[slot] = req
+            self._admit_seq += 1
+            self.slot_seq[slot] = self._admit_seq
+            self.slot_len[slot] = 0
+            self.slot_prefill[slot] = list(req._resume or req.prompt_tokens)
+
+    def _progress_chunk_prefills_paged(self) -> None:
+        """Advance every mid-prefill slot by one chunk: up to
+        ``prefill_batch`` slots per dispatch, rows rounded up to a power of
+        two (padding rows ride on a null table), rounds repeating until each
+        slot advanced once.  Growing a slot's blocks may preempt another
+        slot of the same round, which then drops out of it (JAX :1693)."""
+        C = self.prefill_chunk
+        progressed: set = set()
+        while True:
+            picks = [s for s in sorted(self.slot_prefill)
+                     if s not in progressed][:self.prefill_batch]
+            if not picks:
+                break
+            g = min(1 << max(0, len(picks) - 1).bit_length(),
+                    self.prefill_batch)
+            rows: List[Optional[int]] = picks + [None] * (g - len(picks))
+            progressed.update(picks)
+            for i, slot in enumerate(rows):
+                if slot is None or slot not in self.slot_prefill:
+                    rows[i] = None  # empty, or preempted by an earlier row
+                    continue
+                part = self.slot_prefill[slot][:C]
+                if not self._ensure_blocks(
+                        slot, int(self.slot_len[slot]) + len(part)):
+                    self._finish_out_of_room(slot)
+                    rows[i] = None
+            # a later row's growth may have preempted an earlier row
+            rows = [s if s in self.slot_prefill else None for s in rows]
+            if any(s is not None for s in rows):
+                self._prefill_chunk_paged(rows)
+
+    def _grow_for_decode(self) -> None:
+        """Grow every decoding slot's table to cover this tick's write, up
+        front; a preemption frees some other slot, which then drops out of
+        the tick."""
+        for slot, r in enumerate(self.slot_req):
+            if r is not None and slot not in self.slot_prefill:
+                if not self._ensure_blocks(
+                        slot, min(int(self.slot_len[slot]) + 1,
+                                  self.max_len)):
+                    self._finish_out_of_room(slot)
+
+    # -- paged block management (host side) --------------------------------
+
+    def _tables_arg(self) -> Optional[torch.Tensor]:
+        """The block tables on the device (None in slot mode), uploaded
+        again only after a host-side change."""
+        if not self.paged:
+            return None
+        if self._tables_dirty or self._tables_dev is None:
+            self._tables_dev = torch.from_numpy(self.tables).to(self.device)
+            self._tables_dirty = False
+        return self._tables_dev
+
+    def _release_blocks(self, slot: int) -> None:
+        self.allocators[0].free(self.slot_blocks[slot])
+        self.slot_blocks[slot] = []
+        self.tables[slot, :] = 0
+        self._tables_dirty = True
+
+    def _preempt(self, protect: int) -> bool:
+        """Free the latest-admitted request other than ``protect`` and
+        requeue it at the front with its resume stream (prompt +
+        generated): the oldest requests keep their blocks, and greedy
+        streams are unchanged, since re-prefill rebuilds the same KV."""
+        cands = [i for i, r in enumerate(self.slot_req)
+                 if r is not None and i != protect]
+        if not cands:
+            return False
+        victim = max(cands, key=lambda i: self.slot_seq[i])
+        req = self.slot_req[victim]
+        self.slot_prefill.pop(victim, None)
+        req._resume = list(req.prompt_tokens) + list(req.output_tokens)
+        self._pending.insert(0, req)
+        self._release_blocks(victim)
+        self.slot_req[victim] = None
+        self.slot_len[victim] = 0
+        self.stats["preemptions"] += 1
+        return True
+
+    def _ensure_blocks(self, slot: int, upto: int) -> bool:
+        """Grow ``slot``'s table to cover positions [0, upto), preempting
+        other requests while the pool is dry.  False when even that cannot
+        make room; the caller then finishes the request with "length"."""
+        have = len(self.slot_blocks[slot])
+        need = min(-(-upto // self.block_size), self._nbmax) - have
+        if need <= 0:
+            return True
+        while self.allocators[0].available < need:
+            if not self._preempt(protect=slot):
+                return False
+        got = self.allocators[0].alloc(need)
+        self.slot_blocks[slot].extend(got)
+        self.tables[slot, have:have + need] = got
+        self._tables_dirty = True
+        return True
+
+    def _finish_out_of_room(self, slot: int) -> None:
+        """Close ``slot``'s request when the pool cannot grow its KV any
+        further: reason "length", keeping the output generated so far."""
+        req = self.slot_req[slot]
+        self.slot_prefill.pop(slot, None)
+        req.done, req.finish_reason = True, "length"
+        self._free_slot(slot)
 
     def _free_slot(self, slot: int) -> None:
         self.slot_req[slot].t_done = time.monotonic()
         self.slot_len[slot] = 0
         self.slot_req[slot] = None
+        if self.paged:
+            self._release_blocks(slot)
 
     def _maybe_finish(self, slot: int) -> None:
         req = self.slot_req[slot]

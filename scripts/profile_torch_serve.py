@@ -2,18 +2,21 @@
 """Where the time goes in the port's serving path on one NVIDIA GPU.
 
     python3 scripts/profile_torch_serve.py [--layers 32] [--ticks 8]
-                                           [--group-size 128]
+                                           [--group-size 128] [--paged]
 
 Builds the Llama-2-7B-geometry port model (random weights from a seeded
 generator, RTN-packed in groups of 128, or per channel with
-``--group-size -1``; INT8 slot KV cache; the Engine's default gate/up GLU
-fusion), admits 4
-prompts of 500 tokens in one prefill dispatch (bucket 512, M = 2048 rows
-per GEMM), then decodes.  It profiles that prefill dispatch and ``--ticks``
+``--group-size -1``; the Engine's default gate/up GLU fusion), admits 4
+prompts of 500 tokens and decodes.  Over the INT8 slot cache the prompts
+prefill in one dispatch (bucket 512, M = 2048 rows per GEMM); with
+``--paged``, over the paged INT8 pool with the Engine's paged defaults
+(blocks of 128, chunks of 512, two rows per dispatch), in two chunk
+dispatches (M = 1024 each).  It profiles the prefill and ``--ticks``
 steady decode ticks with ``torch.profiler`` (CPU + CUDA activities) and
 prints, for each: the host wall time (ending in a synchronize), the summed
 device time of all CUDA kernels, the device idle share, and the kernels
-ranked by device time.  The card's name and power limit come first.
+ranked by device time, per dispatch and per tick.  The card's name and
+power limit come first.
 """
 
 from __future__ import annotations
@@ -42,11 +45,12 @@ def kernel_table(prof, top: int = 12):
     return sum(r[0] for r in rows), rows[:top]
 
 
-def report(label: str, wall_ms: float, prof, per: int = 1) -> None:
+def report(label: str, wall_ms: float, prof, per: int = 1,
+           unit: str = "dispatch") -> None:
     busy, rows = kernel_table(prof)
     print(f"{label}: wall {wall_ms / per:.3f} ms, device kernels "
           f"{busy / per:.3f} ms, idle share {1 - busy / wall_ms:.3f}"
-          f" (per {'tick' if per > 1 else 'dispatch'})")
+          f" (per {unit})")
     for ms, n, name in rows:
         print(f"    {ms / per:9.4f} ms  {n // per:6d}x  {name[:90]}")
 
@@ -56,6 +60,8 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--ticks", type=int, default=8)
     ap.add_argument("--group-size", type=int, default=128, choices=(128, -1))
+    ap.add_argument("--paged", action="store_true",
+                    help="serve over the paged INT8 pool (Engine defaults)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -72,7 +78,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
     print(f"group_size {args.group_size}, {args.layers} layers, gate/up "
-          "GLU-fused")
+          f"GLU-fused, {'paged' if args.paged else 'slot'} KV cache")
     build.build_all()
     dev = torch.device("cuda")
     cfg = ModelConfig(num_hidden_layers=args.layers)  # Llama-2-7B geometry
@@ -86,34 +92,54 @@ def main() -> int:
                         SamplingParams(max_new_tokens=1000))
                 for _ in range(4)]
 
-    eng = Engine(params, cfg, max_batch=4, max_len=2048, device=dev)
+    eng = Engine(params, cfg, max_batch=4, max_len=2048, paged=args.paged,
+                 device=dev)
     active = np.ones(4, bool)
-    eng._admit_batch(requests(), [0, 1, 2, 3], 512)  # warm-up
-    for _ in range(3):
+
+    def prefill():
+        """Admit 4 prompts into slots 0-3 the way Engine.run does."""
+        if args.paged:
+            eng._pending = requests()
+            eng._admit_chunked()
+            eng._progress_chunk_prefills_paged()
+        else:
+            eng._admit_batch(requests(), [0, 1, 2, 3], 512)
+
+    def tick():
+        if args.paged:
+            eng._grow_for_decode()
         eng._decode_tick(active)
+
+    prefill()  # warm-up
+    for _ in range(3):
+        tick()
     for s in range(4):
         eng._free_slot(s)
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    n0 = eng.stats["prefill_dispatches"]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng._admit_batch(requests(), [0, 1, 2, 3], 512)
+        prefill()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    report("prefill, 4 x 500 tokens in bucket 512", wall, prof)
+    n = eng.stats["prefill_dispatches"] - n0
+    report(f"prefill, 4 x 500 tokens in {n} dispatch(es) of "
+           f"{eng.stats['prefill_shapes'][-1]} (rows, tokens)", wall, prof,
+           per=n)
 
     for _ in range(2):
-        eng._decode_tick(active)
+        tick()
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.ticks):
-            eng._decode_tick(active)
+            tick()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report(f"decode, batch 4, cache ~{int(eng.slot_len[0])} tokens", wall,
-           prof, per=args.ticks)
+           prof, per=args.ticks, unit="tick")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
     return 0

@@ -204,6 +204,8 @@ def test_entry_points_refuse_silent_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(params, cfg, max_batch=1, max_len=128)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(params, cfg, max_batch=1, max_len=128, paged=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg)
 
 

@@ -1,16 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and odd shapes the Llama-2-7B checks of chip_smoke.py do not reach
-(hd = 64, GQA, f32 I/O, ragged M and N, chunks after cached keys).
+(hd = 64, GQA, f32 I/O, ragged M and N, chunks after cached keys; over the
+paged pool: block sizes 8, 16, 128 and 512, scrambled tables, chunks that
+straddle blocks, rows past their table and rows whose table is all null).
 
 Needs an NVIDIA GPU with nvcc; skips without one.  Run on the card with
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` (the suite's
 conftest imports JAX, which the GPU machine need not have).
 Tolerances as in chip_smoke.py: the GEMMs (per channel, exact g128 and
-requant) and the KV write bit-exact, the GLU-fused GEMMs within two bf16
+requant) and the KV writes bit-exact (the paged ones outside the null
+block, whose content is unspecified), the GLU-fused GEMMs within two bf16
 ulps of their largest output (another exp in the epilogue); attention
 within two ulps of the output dtype at the largest output (bf16: 2^-6,
-f32: 2^-22 relative to max |ref|, plus the flash kernel's bf16
-probabilities: 2^-7 relative in f32).
+f32: 2^-22 relative to max |ref|, plus the flash and paged decode
+kernels' bf16 probabilities: 2^-7 relative in f32).
 """
 
 import pytest
@@ -179,25 +182,39 @@ def test_decode_attention_kernel(dev, dtype, nh, nkv, hd):
     assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("kernel", ["kv_write", "decode", "flash"])
+@pytest.mark.parametrize("kernel", ["kv_write", "decode", "flash",
+                                    "paged_write", "paged_decode",
+                                    "paged_flash"])
 def test_cpu_cache_len_beside_cuda_tensors_raises(dev, kernel):
     """A host pointer must never reach a kernel."""
     from qqq_tpu_torch.kernels.attention import (
         decode_attention_int8, flash_attention_int8,
+        paged_decode_attention_int8, paged_flash_attention_int8,
     )
-    from qqq_tpu_torch.kernels.kv_write import slot_decode_write_int8
+    from qqq_tpu_torch.kernels.kv_write import (
+        paged_decode_write_int8, slot_decode_write_int8,
+    )
 
     B, nh, nkv, S, hd = 2, 4, 2, 128, 64
     cache = _cache(dev, B, nkv, S, hd)
+    pool = _cache(dev, 5, nkv, 16, hd)  # 5 blocks of 16 as a pool
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
     clen = torch.tensor([3, 7], dtype=torch.int32)  # on the CPU
     q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev)
+    new = torch.randn((B, 1, nkv, hd), generator=_gen(dev), device=dev)
     if kernel == "kv_write":
-        new = torch.randn((B, 1, nkv, hd), generator=_gen(dev), device=dev)
         fn, args = slot_decode_write_int8, (*cache, new, new, clen)
     elif kernel == "decode":
         fn, args = decode_attention_int8, (q, *cache, clen)
-    else:
+    elif kernel == "flash":
         fn, args = flash_attention_int8, (q[:, :, None], *cache, clen)
+    elif kernel == "paged_write":
+        fn, args = paged_decode_write_int8, (*pool, new, new, tables, clen)
+    elif kernel == "paged_decode":
+        fn, args = paged_decode_attention_int8, (q, *pool, tables, clen)
+    else:
+        fn, args = paged_flash_attention_int8, (q[:, :, None], *pool, tables,
+                                                clen)
     n0 = fn.launches
     with pytest.raises(ValueError, match="cache_len: on cpu"):
         fn(*args)
@@ -219,6 +236,106 @@ def test_flash_attention_kernel(dev, dtype, nh, nkv, hd, T, clen):
     out = flash_attention_int8(*args)
     ref = flash_attention_int8_plain(*args)
     # bf16 probabilities: a flipped rounding of one is 2^-8 of its term
+    ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
+    assert float((out.float() - ref.float()).abs().max()) \
+        <= ulps * float(ref.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the paged pool
+
+
+def _tables(dev, B, nbmax, null_row):
+    """Scrambled distinct pool blocks per row; ``null_row``'s table is all
+    null, as an empty slot's is."""
+    g = torch.Generator().manual_seed(1)
+    t = (torch.randperm(B * nbmax, generator=g) + 1).reshape(B, nbmax)
+    t[null_row] = 0
+    return t.to(torch.int32).to(dev)
+
+
+def _assert_equal_but_null(mine, ref):
+    for x, y in zip(mine, ref):
+        assert torch.equal(x[1:], y[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", [8, 16, 128])
+def test_paged_write_kernels_bit_exact(dev, dtype, bs):
+    """Decode: rows mid-block, past the table, and on a null table.  Chunk:
+    2·bs tokens from mid-block (three blocks), a row that runs past its
+    table, a null-table row."""
+    from qqq_tpu_torch.kernels.kv_write import (
+        paged_chunk_write_int8, paged_chunk_write_int8_plain,
+        paged_decode_write_int8, paged_decode_write_int8_plain,
+    )
+
+    B, nkv, hd, nbmax = 3, 2, 64, 6
+    g = _gen(dev)
+    pool = list(_cache(dev, 1 + B * nbmax, nkv, bs, hd))
+    tables = _tables(dev, B, nbmax, null_row=2)
+    for fn, plain, T, clen in (
+        (paged_decode_write_int8, paged_decode_write_int8_plain, 1,
+         (2 * bs + 3, nbmax * bs + 1, 5)),
+        (paged_chunk_write_int8, paged_chunk_write_int8_plain, 2 * bs,
+         (bs // 2, nbmax * bs - bs, 5)),
+    ):
+        kn = torch.randn((B, T, nkv, hd), generator=g, device=dev).to(dtype)
+        vn = torch.randn((B, T, nkv, hd), generator=g, device=dev).to(dtype)
+        kn[0, 0, 1] = 0  # an all-zero head row: the tiny-scale guard
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        mine = [t.clone() for t in pool]
+        ref = [t.clone() for t in pool]
+        _launch_once(fn, *mine, kn, vn, tables, cl)
+        plain(*ref, kn, vn, tables, cl)
+        _assert_equal_but_null(mine, ref)
+        assert not torch.equal(mine[0][1:], pool[0][1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", [8, 16, 128])
+def test_paged_flash_kernel(dev, dtype, bs):
+    """GQA g = 4, a chunk of 2·bs + 5 keys (over three blocks or more) after
+    cached keys, one row on an all-null table."""
+    from qqq_tpu_torch.kernels.attention import (
+        paged_flash_attention_int8, paged_flash_attention_int8_plain,
+    )
+
+    B, nh, nkv, nbmax = 3, 8, 2, 6
+    hd = 128 if bs == 128 else 64
+    T = 2 * bs + 5
+    q = torch.randn((B, nh, T, hd), generator=_gen(dev), device=dev).to(dtype)
+    args = (q, *_cache(dev, 1 + B * nbmax, nkv, bs, hd),
+            _tables(dev, B, nbmax, null_row=2),
+            torch.tensor([bs // 2, 3 * bs - 7, 0], dtype=torch.int32,
+                         device=dev))
+    out = _launch_once(paged_flash_attention_int8, *args)
+    ref = paged_flash_attention_int8_plain(*args)
+    ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
+    assert float((out.float() - ref.float()).abs().max()) \
+        <= ulps * float(ref.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", [8, 16, 128, 512])
+def test_paged_decode_kernel(dev, dtype, bs):
+    """GQA g = 4; cache lengths of one key, mid-table and the whole table,
+    one row on an all-null table; bs = 512 walks two 256-key tiles per
+    block, as JAX does."""
+    from qqq_tpu_torch.kernels.attention import (
+        paged_decode_attention_int8, paged_decode_attention_int8_plain,
+    )
+
+    B, nh, nkv = 4, 8, 2
+    hd = 128 if bs >= 128 else 64
+    nbmax = max(2, 640 // bs)
+    q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev).to(dtype)
+    tables = _tables(dev, B, nbmax, null_row=3)
+    args = (q, *_cache(dev, 1 + B * nbmax, nkv, bs, hd), tables,
+            torch.tensor([1, nbmax * bs // 2 + 3, nbmax * bs, 9],
+                         dtype=torch.int32, device=dev))
+    out = _launch_once(paged_decode_attention_int8, *args)
+    ref = paged_decode_attention_int8_plain(*args)
     ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
     assert float((out.float() - ref.float()).abs().max()) \
         <= ulps * float(ref.float().abs().max())

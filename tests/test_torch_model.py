@@ -190,8 +190,12 @@ def test_generate_eos_stops_where_jax_stops(models, prompts, jax_greedy):
 
 
 def test_engine_later_slice_features_raise(models):
-    with pytest.raises(NotImplementedError, match="paged"):
-        Engine(models[1], TCFG, paged=True, device="cpu")
+    """The paged pool is ported; its prefix cache and chunked prefill in
+    slot mode are not."""
+    with pytest.raises(NotImplementedError, match="prefix_cache"):
+        Engine(models[1], TCFG, paged=True, prefix_cache=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="slot mode"):
+        Engine(models[1], TCFG, prefill_chunk=64, device="cpu")
     eng = Engine(models[1], TCFG, device="cpu", **_engine_kw())
     with pytest.raises(NotImplementedError, match="penalties"):
         eng.add_request(Request([1, 2], SamplingParams(
