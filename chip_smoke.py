@@ -6,23 +6,31 @@
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. build the CUDA kernels from the sources in this checkout;
-2. check each of the thirteen kernels against its plain PyTorch version on
-   the card at the Llama-2-7B shapes of the served paths (the GEMMs and the
-   KV writes bit-exact, the paged writes outside the null block; the
-   GLU-fused GEMMs and the four attention kernels within two bf16 ulps of
-   the largest output; the paged ones over scrambled block tables), and
-   time it beside its bound, its plain version and a one-call PyTorch
-   yardstick that the port never calls;
+2. check each of the sixteen kernels against its plain PyTorch version on
+   the card at the Llama-2-7B and Llama-3.1-8B shapes of the served paths
+   (the GEMMs, the activation-quant-fused ones included, and the KV writes
+   bit-exact, the paged writes outside the null block; the GLU-fused GEMMs
+   and the five attention kernels within two bf16 ulps of the largest
+   output; the paged ones over scrambled block tables), and time it beside
+   its bound, its plain version and a one-call PyTorch yardstick that the
+   port never calls;
 3. serve 4 requests through the port's Engine, with its default arguments
    (gate/up GLU-fused), on full-width, full-depth Llama-2-7B (random weights
    from a seeded generator): RTN-packed in groups of 128, the JAX package's
-   headline quantization, (a) over the INT8 slot cache, (c) paged over the
-   INT8 block pool (chunked prefill) and (d) paged over a pool too small
-   for the traffic, which must preempt; then (b) per channel over the slot
-   cache.  Each run checks every kernel's launch count against what its
-   dispatches imply;
+   headline quantization, (a) over the INT8 slot cache, (f) the same with
+   ``FUSE_ACT_QUANT`` set (the decode linears on the activation-quant-fused
+   kernel; tokens must equal (a)'s), (c) paged over the INT8 block pool
+   (chunked prefill) and (d) paged over a pool too small for the traffic,
+   which must preempt; then (b) per channel over the slot cache and (g) (b)
+   with ``FUSE_ACT_QUANT``; then (e) full Llama-3.1-8B (GQA, llama3 RoPE
+   scaling, built by ``ModelConfig.from_hf``), g128, over a 32768-token
+   slot cache, with a 12000-token prompt: every decode tick on the S-tiled
+   decode kernel.  Each run checks every kernel's launch count against what
+   its dispatches imply;
 4. teacher-force a 2-layer cut of the g128 weights on the card and on the
    CPU (plain versions), over the slot cache and over the paged pool, and
+   the same for a 2-layer cut of Llama-3.1-8B over a 16384-token slot cache
+   (the S-tiled decode on the card, its plain version on the CPU), and
    compare the logits step by step.
 
 The last lines are a ``{"kernels": [...]}`` report, the card's name and
@@ -57,6 +65,21 @@ BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor cores
 ATTN_ULPS = 2                  # attention kernels vs plain: bf16 ulps
 GLU_F32_TOL = 2.0 ** -20       # GLU kernels vs plain at f32 output, × max|ref|
 
+#: meta-llama/Llama-3.1-8B config.json (the fields ModelConfig.from_hf reads)
+LLAMA31_8B = {
+    "model_type": "llama", "vocab_size": 128256, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+    "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
+    "max_position_embeddings": 131072, "tie_word_embeddings": False,
+    "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+}
+H3, I3, NKV3 = 4096, 14336, 8
+L31_MAX_LEN = 32768            # the 3e slot cache: past the 8192 switch
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -73,25 +96,36 @@ def import_port():
 
 
 class Timer:
-    """Median CUDA-event time of single launches, L2 flushed before each."""
+    """Median CUDA-event time of single launches, L2 flushed before each,
+    after a warm-up call (first-use costs: module loads, library set-up).
+    A function whose first timed call takes over 50 ms is timed twice more
+    (over 500 ms: that call alone), so that the plain versions at the
+    long-context shapes stay inside the run's time."""
 
     def __init__(self, dev):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
+    def _once(self, fn) -> float:
+        self.flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
     def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
-        for _ in range(warmup):
+        fn()
+        first = self._once(fn)
+        if first > 500:
+            return first
+        if first > 50:
+            return statistics.median([first, self._once(fn),
+                                      self._once(fn)])
+        for _ in range(warmup - 2):
             fn()
-        times = []
-        for _ in range(iters):
-            self.flush.zero_()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return statistics.median(times)
+        return statistics.median([self._once(fn) for _ in range(iters)])
 
 
 def bound_ms(nbytes: float, ops: float = 0.0,
@@ -104,6 +138,17 @@ def bound_ms(nbytes: float, ops: float = 0.0,
 def ulp_tol(ref: torch.Tensor) -> float:
     """ATTN_ULPS bf16 ulps at the largest magnitude of ``ref``."""
     return ATTN_ULPS * 2.0 ** -7 * float(ref.float().abs().max())
+
+
+def ulp_rows(out: torch.Tensor, ref: torch.Tensor):
+    """Each row of the last dimension held to ATTN_ULPS bf16 ulps of its own
+    largest |ref|, so that a row of small outputs (a long cache) is not
+    judged at the scale of a large one.  Returns (max |diff|, the worst
+    row's |diff| over its bound); the rows agree when the ratio is ≤ 1."""
+    d = (out.float() - ref.float()).abs().amax(dim=-1)
+    tol = ATTN_ULPS * 2.0 ** -7 * ref.float().abs().amax(dim=-1)
+    ratio = torch.where(d > 0, d / tol, torch.zeros_like(d))
+    return float(d.max()), float(ratio.max())
 
 
 #: the W4A8 GEMM family: wrapper name → (CUDA source, TPU kernel replaced)
@@ -120,9 +165,16 @@ GEMM_KERNELS = {
                           "qqq_tpu/kernels/w4a8_gemm.py:81"),
     "w4a8_glu_requant": ("qqq_tpu_torch/csrc/w4a8_requant.cu",
                          "qqq_tpu/kernels/w4a8_gemm.py:326"),
+    "w4a8_gemm_fused_channel": ("qqq_tpu_torch/csrc/w4a8_fused.cu",
+                                "qqq_tpu/kernels/w4a8_gemm.py:207"),
+    "w4a8_gemm_fused_group": ("qqq_tpu_torch/csrc/w4a8_fused.cu",
+                              "qqq_tpu/kernels/w4a8_gemm.py:239"),
 }
 PLAIN_SHAPES = [(H, H), (H, I), (I, H)]  # q/k/v/o, (unfused) gate/up, down
 GLU_SHAPES = [(H, 2 * I)]                # fused gate/up
+# Llama-3.1-8B: q/o, k/v, down; fused gate/up
+L31_SHAPES = [(H3, H3), (H3, NKV3 * HD), (I3, H3)]
+L31_GLU_SHAPES = [(H3, 2 * I3)]
 #: per kernel: the rows M it is checked at (those the served runs give it:
 #: decode at batch 1 and 4, one row of slot bucket 128, one of bucket 512,
 #: two of bucket 2048, and the paged runs' (2, 512) chunk dispatches, M =
@@ -135,6 +187,21 @@ GEMM_CHECKS = {
     "w4a8_gemm_requant": ((512, 1024, 4096), PLAIN_SHAPES, (512, I, H)),
     "w4a8_glu_requant": ((512, 1024, 4096), GLU_SHAPES, (512, H, 2 * I)),
 }
+#: the same at the Llama-3.1-8B shapes of every dispatch of run 3e and of
+#: its phase-4 cut: the exact kernels at decode (M = 1 in phase 4, 4 in 3e)
+#: and at bucket 128 (M = 128), the requant ones at buckets 512, 2048 and
+#: 16384 (one row each); logged only
+L31_GEMM_CHECKS = {
+    "w4a8_gemm_group": ((1, 4, 128), L31_SHAPES, None),
+    "w4a8_glu_group": ((1, 4, 128), L31_GLU_SHAPES, None),
+    "w4a8_gemm_requant": ((512, 2048, 16384), L31_SHAPES, None),
+    "w4a8_glu_requant": ((512, 2048, 16384), L31_GLU_SHAPES, None),
+}
+#: run 3e's prefill dispatches of slot flash: one row of each bucket
+L31_FLASH_CASES = ((1, 128), (1, 512), (1, 2048), (1, 16384))
+#: (K, N) of the fused GEMMs: Llama-2-7B's q/k/v/o and down (runs 3f, 3g)
+#: and Llama-3.1-8B's k/v and down (its q/o are (4096, 4096) too)
+FUSED_SHAPES = [(H, H), (I, H), (H3, NKV3 * HD), (I3, H3)]
 
 
 def _dequant_weight(w, s):
@@ -160,20 +227,22 @@ def _glu_halves(wd):
             t[:, :, 1].reshape(K, n2 // 2).contiguous())
 
 
-def check_gemm_family(dev, gen, timer):
-    """Each W4A8 GEMM kernel against its plain version at the main path's
-    shapes: bit-exact, except that the GLU kernels' epilogue (another exp
-    than PyTorch's sigmoid) is held to two bf16 ulps of the largest output
-    at bf16 output and, so that an epilogue that rounded gate and up to bf16
-    before silu·mul would show, to GLU_F32_TOL·max|ref| at f32 output.
-    Timed beside its bound, its plain version and bf16 ``torch.matmul`` on
-    the dequantized weights (for GLU: two matmuls and ``silu·mul``)."""
+def check_gemm_family(dev, gen, timer, checks=GEMM_CHECKS):
+    """Each W4A8 GEMM kernel of ``checks`` against its plain version at the
+    main path's shapes: bit-exact, except that the GLU kernels' epilogue
+    (another exp than PyTorch's sigmoid) is held to two bf16 ulps of the
+    largest output at bf16 output and, so that an epilogue that rounded gate
+    and up to bf16 before silu·mul would show, to GLU_F32_TOL·max|ref| at
+    f32 output.  Timed beside its bound, its plain version and bf16
+    ``torch.matmul`` on the dequantized weights (for GLU: two matmuls and
+    ``silu·mul``).  Returns the report row of each kernel whose ``at``
+    shape is given."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels import w4a8_gemm as k
 
     rows = {}
-    for name, (m_list, shapes, at) in GEMM_CHECKS.items():
+    for name, (m_list, shapes, at) in checks.items():
         fn = k.KERNEL_WRAPPERS[name]
         plain_fn = getattr(k, name + "_plain")
         glu = "_glu_" in name
@@ -241,25 +310,77 @@ def check_gemm_family(dev, gen, timer):
                                bound_ms=b, bound_by=by,
                                shape=f"M={M} K={K} N={N}")
                 del a, w, x, out, ref, lib_fn
-        row["max_abs_err"] = err
-        rows[name] = row
+        if row is not None:
+            row["max_abs_err"] = err
+            rows[name] = row
         torch.cuda.empty_cache()
     return rows
 
 
-def check_kv_write(dev, gen, timer):
+def check_fused(dev, gen, timer):
+    """The activation-quant-fused GEMMs at M = 4 (decode at batch 4) and
+    every (K, N) the served runs give them: bit-exact against their plain
+    versions, from bf16 activations with a few outliers; timed beside the
+    bound (x, weights and scales read once, the output written once), the
+    plain version and bf16 ``torch.matmul`` on the dequantized weights."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    rows, M = {}, 4
+    for name in ("w4a8_gemm_fused_channel", "w4a8_gemm_fused_group"):
+        fn, plain_fn = k.KERNEL_WRAPPERS[name], getattr(k, name + "_plain")
+        row = None
+        for K, N in FUSED_SHAPES:
+            x = torch.randn((M, K), generator=gen, device=dev)
+            x[:, ::997] *= 20  # outlier channels, as LLM activations have
+            x = x.to(torch.bfloat16)
+            w = torch.randint(-2**31, 2**31 - 1, (K // 8, N), generator=gen,
+                              device=dev, dtype=torch.int32)
+            if name.endswith("_channel"):
+                s = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
+            else:
+                s = (torch.rand((K // 128, N), generator=gen, device=dev)
+                     * 0.01 + 1e-4).to(torch.bfloat16)
+            args = (x, w, s)
+            out, ref = fn(*args), plain_fn(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                d = (out.float() - ref.float()).abs().max().item()
+                raise AssertionError(f"{name} M={M} K={K} N={N}: not "
+                                     f"bit-exact (max |diff| {d:.3g})")
+            wd = _dequant_weight(w, s)
+            ms = timer.ms(lambda: fn(*args))
+            plain = timer.ms(lambda: plain_fn(*args))
+            lib = timer.ms(lambda: torch.matmul(x, wd))
+            nbytes = (M * K * 2 + K * N // 2 + s.numel() * s.element_size()
+                      + M * N * 2)
+            b, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
+            log(f"  {name} M={M} K={K:5d} N={N:5d}: bit-exact; {ms:.4f} ms "
+                f"(bound {b:.4f} by {by}, plain {plain:.4f}, bf16 matmul "
+                f"{lib:.4f})")
+            if (K, N) == (I, H):
+                row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                           bound_by=by, max_abs_err=0.0,
+                           shape=f"M={M} K={K} N={N} bf16 x")
+            del x, w, wd, out, ref
+        rows[name] = row
+    return rows
+
+
+def check_kv_write(dev, gen, timer, B=4, S=2048, nkv=NKV):
+    """The slot write at B rows over an (nkv, S) cache, bit-exact."""
     from qqq_tpu_torch.kernels.kv_write import (
         slot_decode_write_int8, slot_decode_write_int8_plain,
     )
 
-    B, S = 4, 2048
-    kc = torch.randint(-128, 128, (B, NKV, S, HD), generator=gen, device=dev,
+    kc = torch.randint(-128, 128, (B, nkv, S, HD), generator=gen, device=dev,
                        dtype=torch.int8)
     vc = kc.flip(0).contiguous()
-    ks = torch.rand((B, NKV, S), generator=gen, device=dev)
+    ks = torch.rand((B, nkv, S), generator=gen, device=dev)
     vs = ks.flip(0).contiguous()
-    kn = torch.randn((B, 1, NKV, HD), generator=gen, device=dev).to(torch.bfloat16)
-    vn = torch.randn((B, 1, NKV, HD), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((B, 1, nkv, HD), generator=gen, device=dev).to(
+        torch.bfloat16)
+    vn = torch.randn((B, 1, nkv, HD), generator=gen, device=dev).to(
+        torch.bfloat16)
     kn[0, 0, 3] = 0  # all-zero head row: the tiny-scale guard
     clen = torch.tensor([0, 700, S - 1, S + 5], dtype=torch.int32, device=dev)
     bufs = [kc, ks, vc, vs]
@@ -277,12 +398,13 @@ def check_kv_write(dev, gen, timer):
     ms = timer.ms(lambda: slot_decode_write_int8(*mine, kn, vn, clen))
     plain_ms = timer.ms(lambda: slot_decode_write_int8_plain(*plain, kn, vn,
                                                              clen))
-    nbytes = 2 * B * NKV * HD * 2 + B * 4 + 2 * B * NKV * (HD + 4)
+    nbytes = 2 * B * nkv * HD * 2 + B * 4 + 2 * B * nkv * (HD + 4)
     b, by = bound_ms(nbytes)
-    log(f"  slot_decode_write_int8 B={B} S={S}: bit-exact; {ms:.4f} ms "
-        f"(bound {b:.6f} by {by}, plain {plain_ms:.4f})")
+    log(f"  slot_decode_write_int8 B={B} nkv={nkv} S={S}: bit-exact; "
+        f"{ms:.4f} ms (bound {b:.6f} by {by}, plain {plain_ms:.4f})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
-                bound_by=by, max_abs_err=err, shape=f"B={B} S={S} bf16 K/V")
+                bound_by=by, max_abs_err=err,
+                shape=f"B={B} nkv={nkv} S={S} bf16 K/V")
 
 
 def _dequant(c, s):
@@ -343,7 +465,11 @@ def check_decode(dev, gen, timer):
     return report
 
 
-def check_flash(dev, gen, timer):
+def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
+                nkv=NKV, report_at=(2, 512)):
+    """Slot flash at each (B, T) of ``cases``, T = S (a fresh bucket-sized
+    prefill cache, cache_len 0), two bf16 ulps; yardstick: causal SDPA on
+    the dequantized bf16 K/V, kv heads repeated for GQA."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels.attention import (
@@ -351,41 +477,115 @@ def check_flash(dev, gen, timer):
     )
 
     report, err = None, 0.0
-    B = 2
-    for T in (128, 512, 2048):  # the prefill buckets of phase 3
+    for B, T in cases:
         S = T  # the prefill bucket: a fresh bucket-sized cache, clen = 0
         clen = torch.zeros((B,), dtype=torch.int32, device=dev)
-        q = torch.randn((B, NH, T, HD), generator=gen, device=dev).to(torch.bfloat16)
-        kc = torch.randint(-128, 128, (B, NKV, S, HD), generator=gen,
+        q = torch.randn((B, NH, T, HD), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kc = torch.randint(-128, 128, (B, nkv, S, HD), generator=gen,
                            device=dev, dtype=torch.int8)
-        vc = torch.randint(-128, 128, (B, NKV, S, HD), generator=gen,
+        vc = torch.randint(-128, 128, (B, nkv, S, HD), generator=gen,
                            device=dev, dtype=torch.int8)
-        ks = torch.rand((B, NKV, S), generator=gen, device=dev) * 0.02 + 1e-3
-        vs = torch.rand((B, NKV, S), generator=gen, device=dev) * 0.02 + 1e-3
+        ks = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
+        vs = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
         args = (q, kc, ks, vc, vs, clen)
         out = flash_attention_int8(*args)
         ref = flash_attention_int8_plain(*args)
         torch.cuda.synchronize()
         e = (out.float() - ref.float()).abs().max().item()
         if not e <= ulp_tol(ref):
-            raise AssertionError(f"flash_attention_int8 T={T}: max |diff| "
-                                 f"{e} > {ulp_tol(ref)}")
+            raise AssertionError(f"flash_attention_int8 B={B} T={T} "
+                                 f"nkv={nkv}: max |diff| {e} > "
+                                 f"{ulp_tol(ref)}")
         err = max(err, e)
-        kd, vd = _dequant(kc, ks), _dequant(vc, vs)
+        del out, ref
+        kd = _dequant(kc, ks).repeat_interleave(NH // nkv, dim=1)
+        vd = _dequant(vc, vs).repeat_interleave(NH // nkv, dim=1)
         ms = timer.ms(lambda: flash_attention_int8(*args))
         plain = timer.ms(lambda: flash_attention_int8_plain(*args))
         lib = timer.ms(lambda: F.scaled_dot_product_attention(
             q, kd, vd, is_causal=True))
         pairs = B * NH * T * (T + 1) // 2  # visible (query, key) pairs
-        nbytes = 2 * B * NH * T * HD * 2 + 2 * B * NKV * S * (HD + 4) + B * 4
+        nbytes = 2 * B * NH * T * HD * 2 + 2 * B * nkv * S * (HD + 4) + B * 4
         b, by = bound_ms(nbytes, 4.0 * HD * pairs)
-        log(f"  flash_attention_int8 B={B} T=S={T}: max |diff| {e:.3g}; "
-            f"{ms:.4f} ms (bound {b:.4f} by {by}, plain {plain:.4f}, "
-            f"sdpa {lib:.4f})")
-        if T == 512:
+        log(f"  flash_attention_int8 B={B} T=S={T} nkv={nkv}: max |diff| "
+            f"{e:.3g}; {ms:.4f} ms (bound {b:.4f} by {by}, plain "
+            f"{plain:.4f}, sdpa {lib:.4f})")
+        if (B, T) == report_at:
             report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                          bound_by=by, shape="B=2 T=S=512 causal, clen 0")
+                          bound_by=by, shape=f"B={B} T=S={T} causal, clen 0")
+        del kc, vc, kd, vd
+        torch.cuda.empty_cache()
+    if report is not None:
+        report["max_abs_err"] = err
+    return report
+
+
+def check_flash_decode(dev, gen, timer):
+    """The S-tiled decode at Llama-3.1-8B's shape over run 3e's 32768-token
+    slot cache (B = 4, 32 heads, 8 kv heads, bf16 q; JAX's tile, 2048
+    keys), each (row, head) within two bf16 ulps of its own largest output
+    (:func:`ulp_rows`): cache lengths of 1 key, on a tile boundary, past the
+    8192 switch mid-tile and the whole cache; then those of the served run's
+    last tick.  Yardstick: SDPA on the dequantized bf16 live K/V (kv heads
+    repeated), masked."""
+    import torch.nn.functional as F
+
+    from qqq_tpu_torch.kernels.attention import (
+        flash_decode_attention_int8, flash_decode_attention_int8_plain,
+        flash_decode_tile,
+    )
+
+    B, S = 4, L31_MAX_LEN
+    tile = flash_decode_tile(NKV3, S, HD, NH // NKV3)
+    kc = torch.randint(-128, 128, (B, NKV3, S, HD), generator=gen,
+                       device=dev, dtype=torch.int8)
+    vc = torch.randint(-128, 128, (B, NKV3, S, HD), generator=gen,
+                       device=dev, dtype=torch.int8)
+    ks = torch.rand((B, NKV3, S), generator=gen, device=dev) * 0.02 + 1e-3
+    vs = torch.rand((B, NKV3, S), generator=gen, device=dev) * 0.02 + 1e-3
+    report, err = None, 0.0
+    served = tuple(n + 63 for n in L31_PROMPT_LENS)  # its last tick
+    for clen in ((1, 3 * tile, 9001, S), served):
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        q = torch.randn((B, NH, HD), generator=gen, device=dev).to(
+            torch.bfloat16)
+        args = (q, kc, ks, vc, vs, cl)
+        out = flash_decode_attention_int8(*args)
+        ref = flash_decode_attention_int8_plain(*args)
+        torch.cuda.synchronize()
+        e, worst = ulp_rows(out, ref)
+        if not worst <= 1:
+            raise AssertionError(f"flash_decode_attention_int8 cache_len "
+                                 f"{clen}: a (row, head) differs by {worst:.3g}"
+                                 f" times its bound of {ATTN_ULPS} bf16 ulps")
+        err = max(err, e)
+        ms = timer.ms(lambda: flash_decode_attention_int8(*args))
+        plain = timer.ms(lambda: flash_decode_attention_int8_plain(*args))
+        live = max(clen)
+        kd = _dequant(kc[:, :, :live], ks[:, :, :live]).repeat_interleave(
+            NH // NKV3, dim=1)
+        vd = _dequant(vc[:, :, :live], vs[:, :, :live]).repeat_interleave(
+            NH // NKV3, dim=1)
+        mask = (torch.arange(live, device=dev)[None, :]
+                < cl[:, None])[:, None, None, :]
+        lib = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=mask))
+        del kd, vd
+        n_pos = sum(clen)
+        nbytes = n_pos * NKV3 * (HD + 4) * 2 + 2 * B * NH * HD * 2 + B * 4
+        b, by = bound_ms(nbytes, 4.0 * NH * HD * n_pos)
+        log(f"  flash_decode_attention_int8 B={B} S={S} nkv={NKV3} tile "
+            f"{tile} cache_len {clen}: max |diff| {e:.3g} (worst (row, head) "
+            f"{worst:.3g} of its bound); {ms:.4f} ms "
+            f"(bound {b:.4f} by {by}, plain {plain:.4f}, sdpa {lib:.4f})")
+        if clen == served:
+            report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                          bound_by=by, shape=f"B={B} nh={NH} nkv={NKV3} "
+                          f"S={S}, cache_len {list(clen)}")
     report["max_abs_err"] = err
+    del kc, vc
+    torch.cuda.empty_cache()
     return report
 
 
@@ -572,7 +772,8 @@ def kernel_fns():
     kernel replaced)."""
     from qqq_tpu_torch.kernels.attention import (
         decode_attention_int8, flash_attention_int8,
-        paged_decode_attention_int8, paged_flash_attention_int8,
+        flash_decode_attention_int8, paged_decode_attention_int8,
+        paged_flash_attention_int8,
     )
     from qqq_tpu_torch.kernels.kv_write import (
         paged_chunk_write_int8, paged_decode_write_int8,
@@ -589,6 +790,10 @@ def kernel_fns():
         "decode_attention_int8": (decode_attention_int8,
                                   "qqq_tpu_torch/csrc/decode_attention.cu",
                                   "qqq_tpu/kernels/attention.py:33"),
+        "flash_decode_attention_int8": (
+            flash_decode_attention_int8,
+            "qqq_tpu_torch/csrc/flash_decode_attention.cu",
+            "qqq_tpu/kernels/attention.py:757"),
         "flash_attention_int8": (flash_attention_int8,
                                  "qqq_tpu_torch/csrc/flash_attention.cu",
                                  "qqq_tpu/kernels/attention.py:89"),
@@ -613,73 +818,102 @@ def kernel_fns():
 PROMPT_LENS = (100, 300, 600, 900)
 BUCKETS = (128, 512, 2048)
 MAX_BATCH = 4
+#: run 3e: prompt lengths (one per bucket), buckets and slot-cache length
+L31_PROMPT_LENS = (100, 400, 1500, 12000)
+L31_BUCKETS = (128, 512, 2048, 16384)
+LLAMA2_TRAFFIC = (PROMPT_LENS, BUCKETS, 2048)
+L31_TRAFFIC = (L31_PROMPT_LENS, L31_BUCKETS, L31_MAX_LEN)
 
 
-SLOT_KERNELS = ("slot_decode_write_int8", "decode_attention_int8",
-                "flash_attention_int8")
 PAGED_KERNELS = ("paged_decode_write_int8", "paged_chunk_write_int8",
                  "paged_flash_attention_int8", "paged_decode_attention_int8")
 _G128_GEMMS = ("w4a8_gemm_group", "w4a8_glu_group", "w4a8_gemm_requant",
                "w4a8_glu_requant")
 #: the GEMM kernels each served run must launch at least once, by scheme;
-#: the KV kernels it must launch are SLOT_KERNELS or PAGED_KERNELS
+#: the KV kernels it must launch are slot_kernels() or PAGED_KERNELS, and
+#: with FUSE_ACT_QUANT the scheme's fused kernel too
 SCHEME_KERNELS = {
     "g128": _G128_GEMMS,
     "per-channel": ("w4a8_gemm_channel", "w4a8_glu_channel"),
 }
+FUSED_KERNEL = {"g128": "w4a8_gemm_fused_group",
+                "per-channel": "w4a8_gemm_fused_channel"}
 
 
-def expected_launches(scheme, n_layers, dispatches, ticks, paged=False):
+def slot_kernels(max_len: int):
+    """The slot path's KV kernels: write, decode attention (whole-cache up
+    to the JAX switch, S-tiled past it, at hd = 128) and prefill flash."""
+    long = max_len * (HD + 8) > 8192 * (128 + 8)
+    return ("slot_decode_write_int8",
+            "flash_decode_attention_int8" if long else "decode_attention_int8",
+            "flash_attention_int8")
+
+
+def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
+                      max_len=2048, fused=False):
     """Launches per kernel that a served run implies.  Per layer and
     forward pass: four linears (q/k/v/o) and down_proj on the plain GEMM,
     gate/up on the GLU GEMM, one KV write and one attention (slot or
     paged; decode or prefill).  g128: the requant route for prefill
     dispatches of M ≥ 512 rows (T ≥ 64 always holds for the buckets and
-    chunks here), the exact route for the rest and for decode."""
+    chunks here), the exact route for the rest and for decode.  With
+    ``fused`` (FUSE_ACT_QUANT), the five plain linears of each decode tick
+    (M = 4) take the scheme's fused kernel; the GLU and every prefill
+    dispatch (M ≥ 128) do not."""
     n_big = sum(1 for m, t in dispatches if m >= 512 and t >= 64)
     small = len(dispatches) - n_big + ticks
-    exp = dict.fromkeys(GEMM_KERNELS, 0)
-    exp.update(dict.fromkeys(SLOT_KERNELS + PAGED_KERNELS, 0))
+    plain_ticks = 0 if fused else ticks  # ticks on the two-step route
+    exp = dict.fromkeys(kernel_fns(), 0)
     if scheme == "g128":
-        exp.update(w4a8_gemm_group=5 * n_layers * small,
+        exp.update(w4a8_gemm_group=5 * n_layers
+                   * (small - ticks + plain_ticks),
                    w4a8_glu_group=n_layers * small,
                    w4a8_gemm_requant=5 * n_layers * n_big,
                    w4a8_glu_requant=n_layers * n_big)
     else:
         passes = len(dispatches) + ticks
-        exp.update(w4a8_gemm_channel=5 * n_layers * passes,
+        exp.update(w4a8_gemm_channel=5 * n_layers
+                   * (passes - ticks + plain_ticks),
                    w4a8_glu_channel=n_layers * passes)
+    if fused:
+        exp[FUSED_KERNEL[scheme]] = 5 * n_layers * ticks
     if paged:
         exp.update(paged_decode_write_int8=n_layers * ticks,
                    paged_decode_attention_int8=n_layers * ticks,
                    paged_chunk_write_int8=n_layers * len(dispatches),
                    paged_flash_attention_int8=n_layers * len(dispatches))
     else:
-        exp.update(slot_decode_write_int8=n_layers * ticks,
-                   decode_attention_int8=n_layers * ticks,
-                   flash_attention_int8=n_layers * len(dispatches))
+        write, decode, flash = slot_kernels(max_len)
+        exp.update({write: n_layers * ticks, decode: n_layers * ticks,
+                    flash: n_layers * len(dispatches)})
     return exp
 
 
-def serve(dev, params, config, scheme, paged=False, num_blocks=None):
+def serve(dev, params, config, scheme, paged=False, num_blocks=None,
+          traffic=LLAMA2_TRAFFIC, fused=False):
     """Serve 4 requests through ``Engine`` with default arguments (gate/up
     GLU-fused; ``paged`` over the block pool, of ``num_blocks`` blocks or
-    the Engine's default).
+    the Engine's default): ``traffic`` = (prompt lengths, buckets, max_len),
+    64 greedy new tokens each.  With ``fused``, ``FUSE_ACT_QUANT`` is set
+    for the run and restored after it.
     Every kernel count is set to 0 just before the run and read just after;
     each must equal what the run's dispatches imply.  Returns the counts,
     the first prompt, the output tokens and the engine."""
+    from qqq_tpu_torch.kernels import w4a8_gemm
     from qqq_tpu_torch.serve.engine import Engine, Request
     from qqq_tpu_torch.serve.sampling import SamplingParams
 
+    prompt_lens, buckets, max_len = traffic
+    vocab = config.vocab_size
     rng = np.random.default_rng(0)
-    prompts = [[int(t) for t in rng.integers(0, V, size=n)]
-               for n in PROMPT_LENS]
+    prompts = [[int(t) for t in rng.integers(0, vocab, size=n)]
+               for n in prompt_lens]
     if paged:
-        eng = Engine(params, config, max_batch=MAX_BATCH, max_len=2048,
+        eng = Engine(params, config, max_batch=MAX_BATCH, max_len=max_len,
                      paged=True, num_blocks=num_blocks, device=dev)
     else:
-        eng = Engine(params, config, max_batch=MAX_BATCH, max_len=2048,
-                     prefill_buckets=BUCKETS, device=dev)
+        eng = Engine(params, config, max_batch=MAX_BATCH, max_len=max_len,
+                     prefill_buckets=buckets, device=dev)
     if not all("gate_up_glu" in layer for layer in eng.params["layers"]):
         raise AssertionError("Engine() did not fuse gate/up")
     reqs = [Request(prompt_tokens=p,
@@ -688,24 +922,31 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None):
     fns = kernel_fns()
     for fn, _, _ in fns.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    w4a8_gemm.FUSE_ACT_QUANT = fused
+    try:
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        w4a8_gemm.FUSE_ACT_QUANT = False
     launches = {name: fn.launches for name, (fn, _, _) in fns.items()}
     st = eng.stats
     for r in reqs:
         if len(r.output_tokens) != 64 or not all(
-                0 <= t < V for t in r.output_tokens):
+                0 <= t < vocab for t in r.output_tokens):
             raise AssertionError(f"request of {len(r.prompt_tokens)} tokens "
                                  f"returned {len(r.output_tokens)} tokens")
     # (M, T) of each prefill dispatch, as the engine's scheduler chose them
     dispatches = [(rows * t, t) for rows, t in st["prefill_shapes"]]
     expect = expected_launches(scheme, config.num_hidden_layers, dispatches,
-                               st["decode_ticks"], paged=paged)
-    must_run = SCHEME_KERNELS[scheme] + (PAGED_KERNELS if paged
-                                         else SLOT_KERNELS)
-    label = f"{scheme}{' paged' if paged else ''}"
+                               st["decode_ticks"], paged=paged,
+                               max_len=max_len, fused=fused)
+    must_run = (SCHEME_KERNELS[scheme]
+                + (PAGED_KERNELS if paged else slot_kernels(max_len))
+                + ((FUSED_KERNEL[scheme],) if fused else ()))
+    label = (f"{scheme}{' paged' if paged else ''}"
+             f"{' FUSE_ACT_QUANT' if fused else ''}")
     for name, n in launches.items():
         if n != expect[name]:
             raise AssertionError(f"{label}: {name}: {n} launches on the "
@@ -714,8 +955,9 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None):
             raise AssertionError(f"{label}: {name} never launched on the "
                                  f"served path (M, T) = {dispatches}")
     decode_tokens = st["generated_tokens"] - len(reqs)
-    log(f"  served {len(reqs)} requests (prompts {PROMPT_LENS}, 64 new "
-        f"tokens, depth {config.num_hidden_layers}, {label}, fuse=True"
+    log(f"  served {len(reqs)} requests (prompts {prompt_lens}, 64 new "
+        f"tokens, depth {config.num_hidden_layers}, {label}, fuse=True, "
+        f"max_len {max_len}"
         + (f", block_size {eng.block_size}, chunk {eng.prefill_chunk}, "
            f"num_blocks {eng.num_blocks}, prefill_batch "
            f"{eng.prefill_batch}" if paged else "")
@@ -748,13 +990,15 @@ def _rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def card_vs_cpu(dev, params, config, prompt):
+def card_vs_cpu(dev, params, config, prompt, max_len=256, batched=True):
     """Teacher-force the card's greedy tokens through a 2-layer cut of the
     same weights, GLU-fused as the engine fuses them, on the card (kernels)
-    and on the CPU (plain versions), and compare the logits of the prefill
-    (1 row of bucket 128: M = 128, the exact g128 kernels) and of 4 decode
-    steps (the exact kernels at M = 1); then of a batched prefill of 4 rows
-    of bucket 128 (M = 512, T = 128: the requant kernels).
+    and on the CPU (plain versions), over a slot cache of ``max_len``, and
+    compare the logits of the prefill (1 row of bucket 128: M = 128, the
+    exact g128 kernels) and of 4 decode steps (the exact kernels at M = 1,
+    and the whole-cache or, past the switch, the S-tiled decode kernel);
+    then, with ``batched``, of a batched prefill of 4 rows of bucket 128 (M
+    = 512, T = 128: the requant kernels).
 
     Tolerance: the GEMM and the KV write give the same bits on both sides
     (phase 2), but RoPE's cos/sin and the attention kernels' sums differ in
@@ -781,19 +1025,23 @@ def card_vs_cpu(dev, params, config, prompt):
     nudged = {**cpu, "embed": bits.view(emb.dtype)}
     del nudge, bits
     n, bucket, steps = len(prompt), 128, 4
+    V = config.vocab_size
     toks = torch.zeros((1, bucket), dtype=torch.int64)
     toks[0, :n] = torch.tensor(prompt)
     host = torch.device("cpu")
     sides = {}
     for name, d, p in (("card", dev, cut), ("cpu", host, cpu),
                        ("nudged", host, nudged)):
-        caches = kv_cache.init(cfg2, 1, 256, quantized=True, device=d)
+        caches = kv_cache.init(cfg2, 1, max_len, quantized=True, device=d)
         lg, _ = forward(p, cfg2, toks.to(d), caches=caches,
                         cache_len=torch.zeros((1,), dtype=torch.int32,
                                               device=d),
                         logits_at=torch.tensor([n - 1], device=d))
         sides[name] = (p, d, caches, [lg[0, -1].cpu()])
     fed = []
+    fns = kernel_fns()
+    for fn, _, _ in fns.values():
+        fn.launches = 0
     for step in range(steps):
         tok = int(sides["card"][3][-1].argmax())
         fed.append(tok)
@@ -804,6 +1052,11 @@ def card_vs_cpu(dev, params, config, prompt):
                                                    dtype=torch.int32,
                                                    device=d))
             out.append(lg[0, -1].cpu())
+    decode = slot_kernels(max_len)[1]
+    if fns[decode][0].launches != 2 * steps:
+        raise AssertionError(f"the card's decode steps launched {decode} "
+                             f"{fns[decode][0].launches} times, expected "
+                             f"{2 * steps}")
     agree, worst = 0, 0.0
     for i, (a, b, c) in enumerate(zip(*(sides[k][3] for k in
                                         ("card", "cpu", "nudged")))):
@@ -823,8 +1076,10 @@ def card_vs_cpu(dev, params, config, prompt):
             raise AssertionError(f"step {i}: card vs CPU logits differ by "
                                  f"{rel:.3%} RMS > {CARD_VS_CPU_TOL:.0%}")
     log(f"  token agreement card vs CPU: {agree}/{steps + 1} (teacher-forced "
-        f"tokens {fed}); worst {worst:.3%} RMS, bound "
-        f"{CARD_VS_CPU_TOL:.0%}")
+        f"tokens {fed}, decode on {decode}, max_len {max_len}); worst "
+        f"{worst:.3%} RMS, bound {CARD_VS_CPU_TOL:.0%}")
+    if not batched:
+        return
 
     # a batched prefill of M = 4·128 rows, T = 128: the requant kernels
     rng = np.random.default_rng(1)
@@ -1010,7 +1265,14 @@ def main() -> int:
         **check_paged_writes(dev, gen, timer),
         "paged_flash_attention_int8": check_paged_flash(dev, gen, timer),
         "paged_decode_attention_int8": check_paged_decode(dev, gen, timer),
+        **check_fused(dev, gen, timer),
+        "flash_decode_attention_int8": check_flash_decode(dev, gen, timer),
     }
+    log("  the existing kernels at run 3e's Llama-3.1-8B shapes:")
+    check_kv_write(dev, gen, timer, B=4, S=L31_MAX_LEN, nkv=NKV3)
+    check_flash(dev, gen, timer, cases=L31_FLASH_CASES, nkv=NKV3,
+                report_at=None)
+    check_gemm_family(dev, gen, timer, L31_GEMM_CHECKS)
     del timer
     torch.cuda.empty_cache()
 
@@ -1021,7 +1283,14 @@ def main() -> int:
     log("phase 3a: serve Llama-2-7B (g128 W4A8, gate/up GLU-fused, INT8 "
         "slot KV cache)")
     params = random_packed_params(dev, config, 128)
-    runs["g128"], prompt0, _, _ = serve(dev, params, config, "g128")
+    runs["g128"], prompt0, toks_a, _ = serve(dev, params, config, "g128")
+    log("phase 3f: 3a with FUSE_ACT_QUANT (decode linears on the "
+        "activation-quant-fused g128 kernel)")
+    runs["g128 fused"], _, toks, _ = serve(dev, params, config, "g128",
+                                           fused=True)
+    if toks != toks_a:
+        raise AssertionError("3f: tokens differ from 3a's")
+    log("  tokens equal to 3a's")
     log("phase 3c: serve Llama-2-7B (g128 W4A8, gate/up GLU-fused, paged "
         "INT8 KV pool, chunked prefill, Engine defaults)")
     runs["paged"], _, roomy, _ = serve(dev, params, config, "g128",
@@ -1051,14 +1320,52 @@ def main() -> int:
     log("phase 3b: serve Llama-2-7B (per-channel W4A8, gate/up GLU-fused, "
         "INT8 slot KV cache)")
     params = random_packed_params(dev, config, -1)
-    runs["per-channel"], _, _, _ = serve(dev, params, config, "per-channel")
+    runs["per-channel"], _, toks_b, _ = serve(dev, params, config,
+                                              "per-channel")
+    log("phase 3g: 3b with FUSE_ACT_QUANT (decode linears on the "
+        "activation-quant-fused per-channel kernel)")
+    runs["per-channel fused"], _, toks, _ = serve(
+        dev, params, config, "per-channel", fused=True)
+    if toks != toks_b:
+        raise AssertionError("3g: tokens differ from 3b's")
+    log("  tokens equal to 3b's")
     del params
     torch.cuda.empty_cache()
 
-    # each kernel's launches from the run whose path it is on: the g128
-    # slot run, the paged one, else the per-channel one
-    launches = {k: runs["g128"][k] or runs["paged"][k]
-                or runs["per-channel"][k] for k in runs["g128"]}
+    config31 = ModelConfig.from_hf(LLAMA31_8B)
+    log(f"phase 3e: serve Llama-3.1-8B ({config31.num_attention_heads} "
+        f"heads, {config31.num_key_value_heads} kv heads, llama3 RoPE "
+        f"scaling; g128 W4A8, gate/up GLU-fused, INT8 slot KV cache of "
+        f"{L31_MAX_LEN})")
+    params = random_packed_params(dev, config31, 128)
+    runs["llama31"], prompt31, toks31, eng = serve(
+        dev, params, config31, "g128", traffic=L31_TRAFFIC)
+    # a request of P prompt tokens and n output tokens had n - 1 decode
+    # steps; the last fed token n - 1 at position P + n - 2 and attended
+    # P + n - 1 keys, on the S-tiled kernel (serve held its launches to 32
+    # per tick and the whole-cache kernel's to 0)
+    longest = int(np.argmax(L31_PROMPT_LENS))
+    keys = L31_PROMPT_LENS[longest] + len(toks31[longest]) - 1
+    if not keys > 8192:
+        raise AssertionError(f"3e's longest row attended at most {keys} "
+                             "keys, not past the 8192 switch")
+    log(f"  the {L31_PROMPT_LENS[longest]}-token row returned "
+        f"{len(toks31[longest])} tokens: its last decode step attended "
+        f"{keys} keys on the S-tiled kernel "
+        f"({runs['llama31']['flash_decode_attention_int8']} launches = "
+        f"{config31.num_hidden_layers} layers x {eng.stats['decode_ticks']} "
+        "ticks)")
+    del eng
+    log("phase 4: card against CPU, 2-layer cut of the Llama-3.1-8B g128 "
+        "weights over a 16384-token slot cache")
+    card_vs_cpu(dev, params, config31, prompt31, max_len=16384,
+                batched=False)
+    del params
+    torch.cuda.empty_cache()
+
+    # each kernel's launches from the first run whose path it is on
+    launches = {k: next((r[k] for r in runs.values() if r[k]), 0)
+                for k in runs["g128"]}
     report = []
     for kname, (fn, source, replaces) in kernel_fns().items():
         r = rows[kname]

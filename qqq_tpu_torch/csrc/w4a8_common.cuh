@@ -1,5 +1,5 @@
 // Shared pieces of the W4A8 GEMM kernels (w4a8_gemm.cu, w4a8_requant.cu,
-// w4a8_group.cu): the nibble-plane operand layout, the GLU column map and
+// w4a8_group.cu, w4a8_fused.cu): the nibble-plane operand layout, the GLU column map and
 // epilogue, and the int32-dot main loop that the per-channel and the g128
 // requant kernels share.
 //

@@ -1,25 +1,29 @@
 """Attention over the INT8 slot cache and the paged INT8 block pool (port
 of qqq_tpu/kernels/attention.py: decode_attention_int8,
-decode_attention_auto, flash_attention_int8, paged_flash_attention_int8
-and paged_decode_attention_int8, with ``qk_int8=False``).
+flash_decode_attention_int8, decode_attention_auto, flash_attention_int8,
+paged_flash_attention_int8 and paged_decode_attention_int8, with
+``qk_int8=False``).
 
 On CUDA tensors the wrappers launch csrc/decode_attention.cu,
-csrc/flash_attention.cu and csrc/paged_decode_attention.cu; on CPU tensors
-they run the plain PyTorch versions below.  The slot decode version is the
-JAX kernel's one-pass f32 softmax; the kernel takes it online over 128-key
-tiles, which only reassociates f32 sums.  The flash version repeats the
-CUDA kernel's online softmax over 32-key tiles, because there the order
-matters beyond f32: probabilities are rounded to bf16 against the running
-row maximum, so the tiling changes which bf16 values feed P·V (the JAX
-kernel tiles by 1024 keys, or by the block size over the pool).  The
-paged flash version gathers the pool through the tables and is then the
-flash version.  Paged decode has numerics of its own (bf16 q, bf16
-probabilities times v_scale) and walks JAX's own tile, which its kernel
-walks too.  The tests state the tolerances that follow.  The S-tiled decode
-kernel (_flash_decode_kernel, S > 8192) arrives in a later slice.
+csrc/flash_decode_attention.cu, csrc/flash_attention.cu and
+csrc/paged_decode_attention.cu; on CPU tensors they run the plain PyTorch
+versions below.  The slot decode version is the JAX kernel's one-pass f32
+softmax; the kernel takes it online over 128-key tiles, which only
+reassociates f32 sums.  The flash version repeats the CUDA kernel's online
+softmax over 32-key tiles, because there the order matters beyond f32:
+probabilities are rounded to bf16 against the running row maximum, so the
+tiling changes which bf16 values feed P·V (the JAX kernel tiles by 1024
+keys, or by the block size over the pool).  The paged flash version
+gathers the pool through the tables and is then the flash version.  The
+S-tiled decode (caches past the whole-cache switch) and paged decode share
+numerics of their own (bf16 q, bf16 probabilities times v_scale) and walk
+JAX's own key tile, which their kernels walk too.  The tests state the
+tolerances that follow.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,8 +33,8 @@ _NEG_INF = -1e30
 _IO_DTYPES = (torch.bfloat16, torch.float32)
 
 #: decode_attention_int8 is the path up to this many positions at hd = 128
-#: (qqq_tpu/kernels/attention.py:_DECODE_WHOLE_S_LIMIT); past it the JAX
-#: package switches to _flash_decode_kernel, which is not ported yet
+#: (qqq_tpu/kernels/attention.py:_DECODE_WHOLE_S_LIMIT); past it the S-tiled
+#: flash_decode_attention_int8 takes over
 _DECODE_WHOLE_S_LIMIT = 8192
 _DECODE_MAX_G = 8
 
@@ -115,19 +119,153 @@ def decode_attention_int8(
 decode_attention_int8.launches = 0  # kernel launches; only CUDA counts
 
 
+def _tiled_decode_plain(q, kc, ks, vc, vs, cache_len, tile: int):
+    """The JAX S-tiled and paged decode kernels' arithmetic over a
+    contiguous (B, nkv, S, hd) cache, tile for tile: q scaled in f32 and
+    rounded to bf16; per tile of ``tile`` keys, f32 scores ``(q·K_i8)·
+    k_scale`` masked at ``s ≥ cache_len``, an online softmax whose ``e·
+    v_scale`` is rounded to bf16 before P·V while the denominator sums the
+    unrounded ``e``; ``acc / max(l, 1e-30)``.  Tiles past the last live key
+    are skipped, and a tile past one row's last key changes nothing for
+    that row (its ``e`` is 0 and its ``alpha`` 1)."""
+    B, nh, hd = q.shape
+    nkv, S = kc.shape[1], kc.shape[2]
+    g = nh // nkv
+    f32 = torch.float32
+    qg = (q.reshape(B, nkv, g, hd).to(f32)
+          / _sqrt_hd(hd).to(q.device)).to(torch.bfloat16).to(f32)
+    clen = cache_len.to(torch.int64)
+    live = min(S, int(clen.max()))
+    m = torch.full((B, nkv, g, 1), _NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, nkv, g, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((B, nkv, g, hd), dtype=f32, device=q.device)
+    for t0 in range(0, live, tile):
+        t1 = min(t0 + tile, live)
+        key = torch.arange(t0, t1, device=q.device)
+        valid = (key[None, :] < clen[:, None])[:, None, None, :]
+        sc = (qg @ kc[:, :, t0:t1].to(f32).transpose(-1, -2)) \
+            * ks[:, :, None, t0:t1]
+        sc = torch.where(valid, sc, _NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        e = torch.where(valid, torch.exp(sc - m_new), 0.0)
+        ev = (e * vs[:, :, None, t0:t1]).to(torch.bfloat16).to(f32)
+        l = l * alpha + e.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + ev @ vc[:, :, t0:t1].to(f32)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(B, nh, hd).to(q.dtype)
+
+
+def _pick_decode_tiles(nkv: int, S: int, hd: int, g: int):
+    """(hblk, sblk) of the JAX S-tiled decode kernel (copied from
+    qqq_tpu/kernels/attention.py:_pick_decode_tiles: the biggest head ×
+    sequence tile whose K+V fits a ~4.5 MB TPU buffer, sblk | S, ties
+    preferring sblk ≈ 2048).  It is a TPU rule, but sblk sets where the
+    bf16 roundings meet the running maximum, so the port walks the same
+    tiles; hblk has no counterpart here."""
+    del g
+    budget = 9 * 1024 * 1024 // 2
+
+    def key(hblk, sblk):
+        return (hblk * sblk, -abs(sblk - 2048))
+
+    best = (1, min(S, 1024))
+    for hblk in range(nkv, 0, -1):
+        if nkv % hblk:
+            continue
+        sblk = min(S, budget // (hblk * 2 * (hd + 4)))
+        sblk = (sblk // 512) * 512
+        while sblk >= 512 and S % sblk:
+            sblk -= 512
+        if sblk >= 512 and key(hblk, sblk) > key(*best):
+            best = (hblk, sblk)
+    return best
+
+
+def flash_decode_tile(nkv: int, S: int, hd: int, g: int,
+                      sblk: Optional[int] = None) -> int:
+    """Keys per online-softmax step of the S-tiled decode: ``sblk`` or
+    JAX's pick, walked down as JAX walks it (through multiples of 128 to a
+    divisor of S, else S itself)."""
+    if sblk is None:
+        sblk = _pick_decode_tiles(nkv, S, hd, g)[1]
+    while S % sblk and sblk > 128:
+        sblk -= 128
+    if S % sblk:
+        sblk = S
+    return sblk
+
+
+def flash_decode_attention_int8_plain(q, k_cache, k_scale, v_cache, v_scale,
+                                      cache_len, *, sblk=None):
+    """The JAX S-tiled decode kernel's arithmetic over its own key tile
+    (:func:`flash_decode_tile`), which the CUDA kernel walks too."""
+    B, nh, hd = q.shape
+    nkv, S = k_cache.shape[1], k_cache.shape[2]
+    tile = flash_decode_tile(nkv, S, hd, nh // nkv, sblk)
+    return _tiled_decode_plain(q, k_cache, k_scale, v_cache, v_scale,
+                               cache_len, tile)
+
+
+def flash_decode_attention_int8(
+    q: torch.Tensor,        # (B, n_heads, hd), RoPE'd current-step queries
+    k_cache: torch.Tensor,  # (B, n_kv, S, hd) int8 (current k written)
+    k_scale: torch.Tensor,  # (B, n_kv, S) f32
+    v_cache: torch.Tensor,
+    v_scale: torch.Tensor,
+    cache_len: torch.Tensor,  # (B,) int32 ≥ 1: valid tokens incl. current
+    *,
+    sblk: Optional[int] = None,
+) -> torch.Tensor:
+    """S-tiled decode for caches past the whole-cache kernel's switch (any
+    S).  Returns (B, n_heads, hd) in q.dtype.  Raises ValueError where a
+    tile's scores for a kv head's query heads do not fit in the shared
+    memory of one block (the tile is never changed: it fixes the
+    numerics)."""
+    B, nh, hd = q.shape
+    nkv, S = k_cache.shape[1], k_cache.shape[2]
+    if q.device.type == "cpu":
+        return flash_decode_attention_int8_plain(
+            q, k_cache, k_scale, v_cache, v_scale, cache_len, sblk=sblk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_attention_int8: device {q.device}")
+    if q.dtype not in _IO_DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
+    if nh % nkv or nh // nkv > _DECODE_MAX_G or hd > 256 or hd % 16:
+        raise ValueError(f"S-tiled decode kernel takes nh/nkv ≤ "
+                         f"{_DECODE_MAX_G}, hd ≤ 256 and hd % 16 == 0 "
+                         f"(nh={nh}, nkv={nkv}, hd={hd})")
+    g = nh // nkv
+    tile = flash_decode_tile(nkv, S, hd, g, sblk)
+    _check_args(q, k_cache, k_scale, v_cache, v_scale, cache_len, nkv, S)
+    out = torch.empty_like(q)
+    fn = build.bind("flash_decode_attention", "flash_decode_attention_int8",
+                    "pppppppiiiiiiip")
+    build.check(fn(q.data_ptr(), k_cache.data_ptr(), k_scale.data_ptr(),
+                   v_cache.data_ptr(), v_scale.data_ptr(),
+                   cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, S, hd,
+                   tile, int(q.dtype == torch.bfloat16), build.stream_of(q)),
+                f"flash_decode_attention_int8 at nh={nh}, nkv={nkv}, S={S}, "
+                f"hd={hd}: a tile of {tile} keys for {g} query heads")
+    flash_decode_attention_int8.launches += 1
+    return out
+
+
+flash_decode_attention_int8.launches = 0  # kernel launches; only CUDA counts
+
+
 def decode_attention_auto(q, k_cache, k_scale, v_cache, v_scale, cache_len):
     """Decode attention with the JAX package's kernel selection: the
-    whole-cache kernel up to S = 8192 (at hd = 128).  Longer caches take
-    the S-tiled kernel there, which this slice does not port yet."""
+    whole-cache kernel up to S = 8192 (at hd = 128), the S-tiled kernel
+    beyond."""
     S = k_cache.shape[2]
     hd = q.shape[-1]
-    if S * (hd + 8) * 2 > _DECODE_WHOLE_S_LIMIT * (128 + 8) * 2:
-        raise NotImplementedError(
-            f"decode attention at S={S} needs the S-tiled kernel "
-            "(_flash_decode_kernel), which a later slice ports"
-        )
-    return decode_attention_int8(q, k_cache, k_scale, v_cache, v_scale,
-                                 cache_len)
+    if S * (hd + 8) * 2 <= _DECODE_WHOLE_S_LIMIT * (128 + 8) * 2:
+        return decode_attention_int8(q, k_cache, k_scale, v_cache, v_scale,
+                                     cache_len)
+    return flash_decode_attention_int8(q, k_cache, k_scale, v_cache, v_scale,
+                                       cache_len)
 
 
 # ---------------------------------------------------------------------------
@@ -312,45 +450,16 @@ def paged_decode_tile(bs: int) -> int:
 
 def paged_decode_attention_int8_plain(q, k_pool, k_scale, v_pool, v_scale,
                                       tables, cache_len):
-    """The JAX paged decode kernel's arithmetic, tile for tile: q scaled in
-    f32 and rounded to bf16; per tile of :func:`paged_decode_tile` keys,
-    f32 scores ``(q·K_i8)·k_scale`` masked at ``s ≥ cache_len``, an online
-    softmax whose ``e·v_scale`` is rounded to bf16 before P·V while the
-    denominator sums the unrounded ``e``; ``acc / max(l, 1e-30)``.  A tile
-    past a row's last key changes nothing for that row (its ``e`` is 0 and
-    its ``alpha`` 1)."""
+    """The JAX paged decode kernel's arithmetic, tile for tile over the
+    pool gathered through the tables: the S-tiled decode's numerics
+    (:func:`_tiled_decode_plain`) with tiles of :func:`paged_decode_tile`
+    keys."""
     from qqq_tpu_torch.serve.paged_kv import gather
 
-    B, nh, hd = q.shape
-    nkv, bs = k_pool.shape[1], k_pool.shape[2]
-    g = nh // nkv
-    sub = paged_decode_tile(bs)
-    f32 = torch.float32
-    qg = (q.reshape(B, nkv, g, hd).to(f32)
-          / _sqrt_hd(hd).to(q.device)).to(torch.bfloat16).to(f32)
-    kc, ks = gather(k_pool, tables), gather(k_scale, tables)
-    vc, vs = gather(v_pool, tables), gather(v_scale, tables)
-    S = kc.shape[2]
-    clen = cache_len.to(torch.int64)
-    m = torch.full((B, nkv, g, 1), _NEG_INF, dtype=f32, device=q.device)
-    l = torch.zeros((B, nkv, g, 1), dtype=f32, device=q.device)
-    acc = torch.zeros((B, nkv, g, hd), dtype=f32, device=q.device)
-    for t0 in range(0, min(S, int(clen.max())), sub):
-        t1 = t0 + sub
-        key = torch.arange(t0, t1, device=q.device)
-        valid = (key[None, :] < clen[:, None])[:, None, None, :]
-        sc = (qg @ kc[:, :, t0:t1].to(f32).transpose(-1, -2)) \
-            * ks[:, :, None, t0:t1]
-        sc = torch.where(valid, sc, _NEG_INF)
-        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        e = torch.where(valid, torch.exp(sc - m_new), 0.0)
-        ev = (e * vs[:, :, None, t0:t1]).to(torch.bfloat16).to(f32)
-        l = l * alpha + e.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + ev @ vc[:, :, t0:t1].to(f32)
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)
-    return out.reshape(B, nh, hd).to(q.dtype)
+    return _tiled_decode_plain(
+        q, gather(k_pool, tables), gather(k_scale, tables),
+        gather(v_pool, tables), gather(v_scale, tables), cache_len,
+        paged_decode_tile(k_pool.shape[2]))
 
 
 def paged_decode_attention_int8(

@@ -25,11 +25,17 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "qqq_tpu_torch"
 
 #: the sources of the W4A8 serving paths: the GEMM routes (per channel,
-#: g128 requant, g128 exact; each plain and GLU-fused), the KV writes (slot
-#: and paged), slot decode attention, prefill flash attention (slot and
-#: paged) and paged decode attention
-KERNELS = ("w4a8_gemm", "w4a8_requant", "w4a8_group", "kv_write",
-           "decode_attention", "flash_attention", "paged_decode_attention")
+#: g128 requant, g128 exact; each plain and GLU-fused; per channel and g128
+#: exact with the activation quantization fused in), the KV writes (slot
+#: and paged), slot decode attention (whole-cache and S-tiled), prefill
+#: flash attention (slot and paged) and paged decode attention
+KERNELS = ("w4a8_gemm", "w4a8_requant", "w4a8_group", "w4a8_fused",
+           "kv_write", "decode_attention", "flash_decode_attention",
+           "flash_attention", "paged_decode_attention")
+
+#: what an entry returns, having launched nothing, when its block would need
+#: more shared memory than the card gives one block (csrc/smem_fit.cuh)
+SMEM_TOO_LARGE = -2
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -120,6 +126,12 @@ def bind(name: str, fn: str, sig: str):
 
 
 def check(err: int, what: str) -> None:
+    """Raises unless the entry launched: ValueError for a block too large
+    for the card's shared memory (``what`` names the shape), else
+    RuntimeError with the CUDA error."""
+    if err == SMEM_TOO_LARGE:
+        raise ValueError(f"{what}: the block needs more shared memory than "
+                         "the card gives one block")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 

@@ -1,33 +1,42 @@
-"""W4A8 GEMM, per channel and g128, plain and GLU-fused (port of
-qqq_tpu/kernels/w4a8_gemm.py: w4a8_gemm, w4a8_linear, fuse_glu_layout,
-w4a8_glu_gemm, w4a8_glu_linear; the activation-quant-fused variants, off by
-default there, are not ported yet).
+"""W4A8 GEMM, per channel and g128, plain, GLU-fused and with the
+activation quantization fused in (port of qqq_tpu/kernels/w4a8_gemm.py:
+w4a8_gemm, w4a8_gemm_fused, w4a8_linear, fuse_glu_layout, w4a8_glu_gemm,
+w4a8_glu_linear, FUSE_ACT_QUANT).
 
-Six kernel routes, one wrapper each, each with a plain PyTorch twin and its
-own launch count:
+Eight kernel routes, one wrapper each, each with a plain PyTorch twin and
+its own launch count:
 
-====================  ===============================  =====================
-wrapper               TPU kernel                       CUDA source
-====================  ===============================  =====================
-w4a8_gemm_channel     _w4a8_channel_kernel             csrc/w4a8_gemm.cu
-w4a8_glu_channel      _w4a8_channel_glu_kernel         csrc/w4a8_gemm.cu
-w4a8_gemm_group       _w4a8_group_kernel               csrc/w4a8_group.cu
-w4a8_glu_group        _w4a8_group_glu_kernel           csrc/w4a8_group.cu
-w4a8_gemm_requant     _w4a8_requant_group_kernel       csrc/w4a8_requant.cu
-w4a8_glu_requant      _w4a8_requant_group_glu_kernel   csrc/w4a8_requant.cu
-====================  ===============================  =====================
+======================  ===============================  ===================
+wrapper                 TPU kernel                       CUDA source
+======================  ===============================  ===================
+w4a8_gemm_channel       _w4a8_channel_kernel             csrc/w4a8_gemm.cu
+w4a8_glu_channel        _w4a8_channel_glu_kernel         csrc/w4a8_gemm.cu
+w4a8_gemm_group         _w4a8_group_kernel               csrc/w4a8_group.cu
+w4a8_glu_group          _w4a8_group_glu_kernel           csrc/w4a8_group.cu
+w4a8_gemm_requant       _w4a8_requant_group_kernel       csrc/w4a8_requant.cu
+w4a8_glu_requant        _w4a8_requant_group_glu_kernel   csrc/w4a8_requant.cu
+w4a8_gemm_fused_channel _w4a8_fused_channel_kernel       csrc/w4a8_fused.cu
+w4a8_gemm_fused_group   _w4a8_fused_group_kernel         csrc/w4a8_fused.cu
+======================  ===============================  ===================
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs its plain version.  :func:`w4a8_gemm` and :func:`w4a8_glu_gemm`
 choose the route as the JAX package does: per channel, or g128 exact, or
-g128 requant (``requant`` if given, else ``M >= 512``).
+g128 requant (``requant`` if given, else ``M >= 512``).  The two fused
+routes take raw bf16/f32 activations and quantize them per token in the
+kernel's prologue; :func:`w4a8_linear` takes them as JAX does, when
+``FUSE_ACT_QUANT`` is set, M ≤ 64 and :func:`_fused_bn` admits (K, N).
 
 Numerics.  Per channel and requant are exact in int32 up to two f32
 multiplies in the JAX order: kernel and plain version are bit-identical.
 The exact g128 route sums the groups' f32 terms in group order, each
 product and sum rounded on its own, on both sides: bit-identical too.  The
-GLU epilogue ``g·σ(g)·u`` (f32, one rounding to the output dtype) may
-differ where the kernel's ``expf`` and PyTorch's ``sigmoid`` do.
+fused routes add the JAX kernels' quantization, ``s = max(absmax, 1e-30) /
+127`` and ``clip(rint(x / s))`` with IEEE divisions, to those two: also
+bit-identical, and equal to the unfused route except on an all-zero row's
+scale (its outputs are 0 either way).  The GLU epilogue ``g·σ(g)·u`` (f32,
+one rounding to the output dtype) may differ where the kernel's ``expf``
+and PyTorch's ``sigmoid`` do.
 """
 
 from __future__ import annotations
@@ -39,17 +48,23 @@ import torch
 from qqq_tpu_torch.core.packing import PACK_BLOCK, unpack_int4
 from qqq_tpu_torch.core.quant import (
     int_dot, quantize_activations_per_token, requant_scales,
-    requantize_group_weights_int8, w4a8_matmul_reference,
+    requantize_group_weights_int8, true_div, w4a8_matmul_reference,
 )
 from qqq_tpu_torch.kernels import build
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 _SG_DTYPES = (torch.bfloat16, torch.float32)
+_X_DTYPES = (torch.bfloat16, torch.float32)
 
 GLU_INTERLEAVE = 256  # gate/up column-tile width baked into the fused layout
 
 #: rows (M) from which the g128 GEMM takes the requant route by default
 REQUANT_MIN_M = 512
+
+#: the JAX module's switch (off there: slower on v5e): :func:`w4a8_linear`
+#: reads it at call time and, when set, quantizes decode-size activations
+#: inside the fused kernels
+FUSE_ACT_QUANT = False
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +106,35 @@ def w4a8_gemm_requant_plain(a_q, s_token, w_packed, s_group,
                                        PACK_BLOCK)
     out = int_dot(a_q, w8).to(torch.float32) * s_extra[None, :]
     return (out * s_token.reshape(-1, 1).to(torch.float32)).to(out_dtype)
+
+
+def quantize_activations_fused_plain(x: torch.Tensor):
+    """The fused kernels' prologue, per row of ``x`` (M, K): ``s =
+    max(absmax, 1e-30) / 127`` and ``a = clip(rint(x / s), −128, 127)``,
+    both IEEE divisions (the JAX kernels' order; core/quant.py's divides
+    first and clamps after, which differs only on an all-zero row).
+    Returns (a (M, K) int8, s (M, 1) f32)."""
+    xf = x.to(torch.float32)
+    s = true_div(torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-30),
+                 127.0)
+    a = torch.clamp(torch.round(xf / s), -128, 127)
+    return a.to(torch.int8), s
+
+
+def w4a8_gemm_fused_channel_plain(x, w_packed, s_channel,
+                                  out_dtype=torch.bfloat16):
+    """Per-token quantization of ``x`` as the fused kernel does it, then
+    the per-channel GEMM."""
+    a, s = quantize_activations_fused_plain(x)
+    return w4a8_gemm_channel_plain(a, s, w_packed, s_channel, out_dtype)
+
+
+def w4a8_gemm_fused_group_plain(x, w_packed, s_group,
+                                out_dtype=torch.bfloat16):
+    """Per-token quantization of ``x`` as the fused kernel does it, then
+    the exact g128 GEMM (groups summed in f32 in order)."""
+    a, s = quantize_activations_fused_plain(x)
+    return w4a8_gemm_group_plain(a, s, w_packed, s_group, out_dtype)
 
 
 def w4a8_glu_channel_plain(a_q, s_token, w_glu, s_channel,
@@ -205,6 +249,48 @@ def _requant(counter, a_q, s_token, w_packed, s_group, out_dtype, glu):
     return out
 
 
+def _fused(counter, x, w_packed, scales, out_dtype, group: bool):
+    M, K = x.shape
+    N = w_packed.shape[1]
+    if K % PACK_BLOCK or tuple(w_packed.shape) != (K // 8, N):
+        raise ValueError(f"x {tuple(x.shape)} / w_packed "
+                         f"{tuple(w_packed.shape)}: K must be a multiple of "
+                         f"{PACK_BLOCK} and w_packed (K//8, N)")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype {out_dtype} not in {_OUT_DTYPES}")
+    if x.device.type == "cpu":
+        plain = (w4a8_gemm_fused_group_plain if group
+                 else w4a8_gemm_fused_channel_plain)
+        return plain(x, w_packed, scales, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused W4A8 GEMM: unsupported device {x.device}")
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"x dtype {x.dtype} not in {_X_DTYPES}")
+    dev = x.device
+    build.require(x, x.dtype, (M, K), "x", dev)
+    build.require(w_packed, torch.int32, (K // 8, N), "w_packed", dev)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (read as int4 vectors)")
+    if group:
+        if scales.dtype not in _SG_DTYPES:
+            raise TypeError(f"s_group dtype {scales.dtype} not in "
+                            f"{_SG_DTYPES}")
+        build.require(scales, scales.dtype, (K // PACK_BLOCK, N), "s_group",
+                      dev)
+    else:
+        build.require(scales, torch.float32, (N,), "s_channel", dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    fn = build.bind("w4a8_fused", "w4a8_gemm_fused", "ppppiiiiiiip")
+    build.check(fn(x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+                   out.data_ptr(), M, K, N, int(group),
+                   int(x.dtype == torch.bfloat16),
+                   int(scales.dtype == torch.bfloat16),
+                   int(out_dtype == torch.bfloat16), build.stream_of(x)),
+                f"{counter.__name__} at M={M}, K={K}, N={N}")
+    counter.launches += 1
+    return out
+
+
 def _counted(route, glu: bool, name: str, doc: str):
     """The public wrapper of one kernel.  ``route`` adds one to the
     wrapper's own ``launches`` right after it launches the kernel."""
@@ -243,10 +329,36 @@ w4a8_glu_requant = _counted(
     "g128 requant GEMM with the GLU epilogue "
     "(_w4a8_requant_group_glu_kernel) → (M, I).")
 
+
+def _counted_fused(group: bool, name: str, doc: str):
+    """The public wrapper of one activation-quant-fused kernel; its own
+    ``launches`` as :func:`_counted`."""
+
+    def wrapper(x, w_packed, scales, out_dtype=torch.bfloat16):
+        return _fused(wrapper, x, w_packed, scales, out_dtype, group)
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc
+    wrapper.launches = 0  # kernel launches; only the CUDA branch counts
+    return wrapper
+
+
+w4a8_gemm_fused_channel = _counted_fused(
+    False, "w4a8_gemm_fused_channel",
+    "Per-channel GEMM with the per-token activation quantization in its "
+    "prologue (_w4a8_fused_channel_kernel): x (M, K) bf16 or f32, w_packed "
+    "(K//8, N) int32, s_channel (N,) f32 → (M, N).")
+w4a8_gemm_fused_group = _counted_fused(
+    True, "w4a8_gemm_fused_group",
+    "Exact g128 GEMM with the per-token activation quantization in its "
+    "prologue (_w4a8_fused_group_kernel): x (M, K) bf16 or f32, s_group "
+    "(K//128, N) bf16 or f32 → (M, N).")
+
 #: every kernel wrapper of this module, by name
 KERNEL_WRAPPERS = {f.__name__: f for f in (
     w4a8_gemm_channel, w4a8_glu_channel, w4a8_gemm_group, w4a8_glu_group,
-    w4a8_gemm_requant, w4a8_glu_requant)}
+    w4a8_gemm_requant, w4a8_glu_requant, w4a8_gemm_fused_channel,
+    w4a8_gemm_fused_group)}
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +427,45 @@ def w4a8_glu_gemm(
     return _GLU[name](a_q, s_token, w_glu, scales, out_dtype)
 
 
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _fused_bn(K: int, N: int) -> int:
+    """JAX's rule for the fused route (qqq_tpu/kernels/w4a8_gemm.py:
+    _fused_bn, copied): the column tile whose whole-K weight slab fits the
+    TPU's VMEM, or 0 when none does.  A TPU rule, kept so that the same
+    linears take the fused route in both packages."""
+    if K % PACK_BLOCK != 0:
+        return 0
+    for bn in (512, 256, 128):
+        if N % bn == 0 and K * bn <= 3 * 1024 * 1024:
+            return bn
+    return 0
+
+
+def w4a8_gemm_fused(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    s_channel: Optional[torch.Tensor] = None,
+    s_group: Optional[torch.Tensor] = None,
+    *,
+    group_size: int = -1,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Single-launch W4A8 linear: ``x`` (M, K) bf16/f32 raw activations,
+    quantized per token in the kernel's prologue, then the per-channel
+    (``group_size=-1``, ``s_channel``) or exact g128 (``s_group``) GEMM →
+    (M, N).  Takes the (K, N) that JAX's does (:func:`_fused_bn`)."""
+    K, N = x.shape[1], w_packed.shape[1]
+    if not _fused_bn(K, _round_up(N, 128)):
+        raise ValueError(f"fused W4A8 GEMM: K={K}, N={N} has no fused tile")
+    name, scales = _route(x.shape[0], s_channel, s_group, group_size, False)
+    fn = w4a8_gemm_fused_channel if name == "channel" else \
+        w4a8_gemm_fused_group
+    return fn(x, w_packed, scales, out_dtype)
+
+
 def w4a8_linear(
     x: torch.Tensor,
     w_packed: torch.Tensor,
@@ -327,14 +478,23 @@ def w4a8_linear(
     requant: Optional[bool] = None,
 ) -> torch.Tensor:
     """Quantized linear layer: per-token INT8 activation quantization (plain
-    PyTorch, in front of the kernel as in JAX) + W4A8 GEMM + bias.
-    ``x`` may have any leading shape ``(..., K)``."""
+    PyTorch, in front of the kernel as in JAX) + W4A8 GEMM + bias.  With
+    ``FUSE_ACT_QUANT`` set, calls of M ≤ 64 rows whose (K, N) pass
+    :func:`_fused_bn` take the fused kernels instead (``requant`` is then
+    moot), as JAX's do.  ``x`` may have any leading shape ``(..., K)``."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    a_q, s_tok = quantize_activations_per_token(x2)
-    out = w4a8_gemm(a_q, s_tok, w_packed, s_channel, s_group,
-                    group_size=group_size, out_dtype=out_dtype,
-                    requant=requant)
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K)
+    N = w_packed.shape[1]
+    if FUSE_ACT_QUANT and x2.shape[0] <= 64 and _fused_bn(
+            K, _round_up(N, 128)):
+        out = w4a8_gemm_fused(x2.contiguous(), w_packed, s_channel, s_group,
+                              group_size=group_size, out_dtype=out_dtype)
+    else:
+        a_q, s_tok = quantize_activations_per_token(x2)
+        out = w4a8_gemm(a_q, s_tok, w_packed, s_channel, s_group,
+                        group_size=group_size, out_dtype=out_dtype,
+                        requant=requant)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out.reshape(*lead, -1)

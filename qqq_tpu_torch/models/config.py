@@ -22,7 +22,8 @@ class ModelConfig:
     max_position_embeddings: int = 4096
     attention_bias: bool = False  # qwen2: True for qkv (not o_proj)
     tie_word_embeddings: bool = False
-    # HF rope_scaling, stored as a sorted item-tuple so the config hashes
+    # HF rope_scaling, stored as a sorted item-tuple so the config hashes (a
+    # list of pairs, as json gives the tuple back, is taken too)
     rope_scaling: Optional[Any] = None
 
     def __post_init__(self):
@@ -34,6 +35,11 @@ class ModelConfig:
             object.__setattr__(
                 self, "rope_scaling", tuple(sorted(self.rope_scaling.items()))
             )
+        elif isinstance(self.rope_scaling, list):  # round-tripped through json
+            object.__setattr__(
+                self, "rope_scaling",
+                tuple((k, v) for k, v in self.rope_scaling),
+            )
 
     @property
     def rope_scaling_dict(self) -> Optional[dict]:
@@ -42,6 +48,43 @@ class ModelConfig:
     @property
     def num_kv_groups(self) -> int:
         return self.num_attention_heads // self.num_key_value_heads
+
+    @classmethod
+    def from_hf(cls, hf_config: Any) -> "ModelConfig":
+        """Build from a transformers config object or a plain dict (a
+        config.json), e.g. Llama-3.1's GQA geometry and llama3
+        ``rope_scaling``."""
+        get = (
+            hf_config.get
+            if isinstance(hf_config, dict)
+            else lambda k, d=None: getattr(hf_config, k, d)
+        )
+        model_type = get("model_type", "llama")
+        if model_type not in ("llama", "qwen2"):
+            raise ValueError(f"unsupported model_type {model_type!r}")
+        rope_scaling = get("rope_scaling", None)
+        if rope_scaling is not None and not isinstance(rope_scaling, dict):
+            rope_scaling = dict(rope_scaling)
+        return cls(
+            model_type=model_type,
+            vocab_size=get("vocab_size"),
+            hidden_size=get("hidden_size"),
+            intermediate_size=get("intermediate_size"),
+            num_hidden_layers=get("num_hidden_layers"),
+            num_attention_heads=get("num_attention_heads"),
+            num_key_value_heads=get(
+                "num_key_value_heads", get("num_attention_heads")
+            ),
+            head_dim=get("head_dim", None),
+            rms_norm_eps=get("rms_norm_eps", 1e-5),
+            rope_theta=get("rope_theta", 10000.0),
+            max_position_embeddings=get("max_position_embeddings", 4096),
+            attention_bias=(
+                model_type == "qwen2" or bool(get("attention_bias", False))
+            ),
+            tie_word_embeddings=bool(get("tie_word_embeddings", False)),
+            rope_scaling=rope_scaling,
+        )
 
     @property
     def q_dim(self) -> int:

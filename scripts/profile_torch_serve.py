@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_serve.py [--layers 32] [--ticks 8]
                                            [--group-size 128] [--paged]
+                                           [--llama31]
 
 Builds the Llama-2-7B-geometry port model (random weights from a seeded
 generator, RTN-packed in groups of 128, or per channel with
@@ -17,11 +18,18 @@ prints, for each: the host wall time (ending in a synchronize), the summed
 device time of all CUDA kernels, the device idle share, and the kernels
 ranked by device time, per dispatch and per tick.  The card's name and
 power limit come first.
+
+With ``--llama31`` the model is Llama-3.1-8B (``ModelConfig.from_hf`` of
+chip_smoke.py's config: 8 kv heads, llama3 RoPE scaling) over a
+32768-token slot cache, and the 4 prompts are 100, 400, 1500 and 12000
+tokens long (buckets 128, 512, 2048 and 16384, one dispatch each, not
+profiled): every decode tick runs the S-tiled decode kernel.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -62,6 +70,9 @@ def main() -> int:
     ap.add_argument("--group-size", type=int, default=128, choices=(128, -1))
     ap.add_argument("--paged", action="store_true",
                     help="serve over the paged INT8 pool (Engine defaults)")
+    ap.add_argument("--llama31", action="store_true",
+                    help="Llama-3.1-8B over a 32768-token slot cache, "
+                         "prompts of 100/400/1500/12000 tokens")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -81,19 +92,28 @@ def main() -> int:
           f"GLU-fused, {'paged' if args.paged else 'slot'} KV cache")
     build.build_all()
     dev = torch.device("cuda")
-    cfg = ModelConfig(num_hidden_layers=args.layers)  # Llama-2-7B geometry
+    if args.llama31:
+        from chip_smoke import L31_BUCKETS, L31_TRAFFIC, LLAMA31_8B
+
+        cfg = dataclasses.replace(ModelConfig.from_hf(LLAMA31_8B),
+                                  num_hidden_layers=args.layers)
+        lens, _, max_len = L31_TRAFFIC
+        kw = dict(prefill_buckets=L31_BUCKETS)
+    else:
+        cfg = ModelConfig(num_hidden_layers=args.layers)  # Llama-2-7B
+        lens, max_len, kw = (500,) * 4, 2048, {}
     params = quantize_params_rtn(
         init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                     device=dev), cfg, args.group_size)
     rng = np.random.default_rng(0)
 
     def requests():
-        return [Request([int(t) for t in rng.integers(0, cfg.vocab_size, 500)],
+        return [Request([int(t) for t in rng.integers(0, cfg.vocab_size, n)],
                         SamplingParams(max_new_tokens=1000))
-                for _ in range(4)]
+                for n in lens]
 
-    eng = Engine(params, cfg, max_batch=4, max_len=2048, paged=args.paged,
-                 device=dev)
+    eng = Engine(params, cfg, max_batch=4, max_len=max_len, paged=args.paged,
+                 device=dev, **kw)
     active = np.ones(4, bool)
 
     def prefill():
@@ -102,6 +122,9 @@ def main() -> int:
             eng._pending = requests()
             eng._admit_chunked()
             eng._progress_chunk_prefills_paged()
+        elif args.llama31:
+            eng._pending = requests()
+            eng._admit_whole()
         else:
             eng._admit_batch(requests(), [0, 1, 2, 3], 512)
 
@@ -110,24 +133,31 @@ def main() -> int:
             eng._grow_for_decode()
         eng._decode_tick(active)
 
-    prefill()  # warm-up
-    for _ in range(3):
-        tick()
-    for s in range(4):
-        eng._free_slot(s)
-
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    n0 = eng.stats["prefill_dispatches"]
-    with profile(activities=acts) as prof:
+    if args.llama31:
         t0 = time.perf_counter()
         prefill()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    n = eng.stats["prefill_dispatches"] - n0
-    report(f"prefill, 4 x 500 tokens in {n} dispatch(es) of "
-           f"{eng.stats['prefill_shapes'][-1]} (rows, tokens)", wall, prof,
-           per=n)
+        print(f"prefill, prompts {lens} in dispatches "
+              f"{eng.stats['prefill_shapes']} (rows, bucket): wall "
+              f"{time.perf_counter() - t0:.3f} s (not profiled)")
+    else:
+        prefill()  # warm-up
+        for _ in range(3):
+            tick()
+        for s in range(4):
+            eng._free_slot(s)
+        torch.cuda.synchronize()
+        n0 = eng.stats["prefill_dispatches"]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        n = eng.stats["prefill_dispatches"] - n0
+        report(f"prefill, 4 x 500 tokens in {n} dispatch(es) of "
+               f"{eng.stats['prefill_shapes'][-1]} (rows, tokens)", wall,
+               prof, per=n)
 
     for _ in range(2):
         tick()
@@ -138,7 +168,7 @@ def main() -> int:
             tick()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    report(f"decode, batch 4, cache ~{int(eng.slot_len[0])} tokens", wall,
+    report(f"decode, batch 4, cache lengths {eng.slot_len.tolist()}", wall,
            prof, per=args.ticks, unit="tick")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")

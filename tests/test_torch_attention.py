@@ -57,13 +57,28 @@ def test_decode_attention_matches_jax(B, nh, nkv, S, hd):
     assert torch.equal(decode_attention_auto(*t), out)
 
 
-def test_decode_attention_auto_waits_for_s_tiled_kernel():
-    q = torch.zeros((1, 1, 128))
-    kc = torch.zeros((1, 1, 16384, 128), dtype=torch.int8)
-    sc = torch.zeros((1, 1, 16384))
-    with pytest.raises(NotImplementedError, match="_flash_decode_kernel"):
-        decode_attention_auto(q, kc, sc, kc, sc,
-                              torch.ones(1, dtype=torch.int32))
+def test_decode_attention_auto_waits_for_s_tiled_kernel(monkeypatch):
+    """Past the whole-cache switch (S = 16384 at hd = 128) the port
+    dispatches to the S-tiled decode, as JAX does, instead of raising; the
+    S-tiled plain version runs once and gives the output.  (The name is
+    the one this test had while the S-tiled kernel was still to come.)"""
+    from qqq_tpu_torch.kernels import attention as ta
+
+    B, nh, nkv, S, hd = 1, 2, 1, 16384, 128
+    rng = np.random.default_rng(16384)
+    q = torch.from_numpy(rng.standard_normal((B, nh, hd)).astype(np.float32))
+    cache = [torch.from_numpy(a) for a in _cache(rng, B, nkv, S, hd)]
+    clen = torch.tensor([S - 5], dtype=torch.int32)
+    plain, calls = ta.flash_decode_attention_int8_plain, []
+
+    def spy(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(ta, "flash_decode_attention_int8_plain", spy)
+    out = decode_attention_auto(q, *cache, clen)
+    assert len(calls) == 1
+    assert torch.equal(out, plain(q, *cache, clen))
 
 
 @pytest.mark.parametrize("B,nh,nkv,T,S,clen", [

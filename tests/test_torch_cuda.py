@@ -1,19 +1,21 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small and odd shapes the Llama-2-7B checks of chip_smoke.py do not reach
-(hd = 64, GQA, f32 I/O, ragged M and N, chunks after cached keys; over the
-paged pool: block sizes 8, 16, 128 and 512, scrambled tables, chunks that
-straddle blocks, rows past their table and rows whose table is all null).
+at small and odd shapes the checks of chip_smoke.py do not reach (hd = 64,
+GQA up to g = 8, f32 I/O, ragged M and N, odd S, chunks after cached keys;
+over the paged pool: block sizes 8, 16, 128 and 512, scrambled tables,
+chunks that straddle blocks, rows past their table and rows whose table is
+all null).
 
 Needs an NVIDIA GPU with nvcc; skips without one.  Run on the card with
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` (the suite's
 conftest imports JAX, which the GPU machine need not have).
-Tolerances as in chip_smoke.py: the GEMMs (per channel, exact g128 and
-requant) and the KV writes bit-exact (the paged ones outside the null
-block, whose content is unspecified), the GLU-fused GEMMs within two bf16
+Tolerances as in chip_smoke.py: the GEMMs (per channel, exact g128,
+requant and the activation-quant-fused ones) and the KV writes bit-exact
+(the paged ones outside the null block, whose content is unspecified), the
+GLU-fused GEMMs within two bf16
 ulps of their largest output (another exp in the epilogue); attention
 within two ulps of the output dtype at the largest output (bf16: 2^-6,
-f32: 2^-22 relative to max |ref|, plus the flash and paged decode
-kernels' bf16 probabilities: 2^-7 relative in f32).
+f32: 2^-22 relative to max |ref|, plus the flash, paged decode and S-tiled
+decode kernels' bf16 probabilities: 2^-7 relative in f32).
 """
 
 import pytest
@@ -339,3 +341,124 @@ def test_paged_decode_kernel(dev, dtype, bs):
     ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
     assert float((out.float() - ref.float()).abs().max()) \
         <= ulps * float(ref.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the S-tiled decode and the activation-quant-fused GEMMs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nh,nkv,hd,S,sblk", [
+    (4, 4, 128, 1999, None),   # g = 1, odd S: JAX's walk-down gives S
+    (8, 2, 128, 4096, 512),    # g = 4, eight tiles
+    (7, 1, 64, 3001, None),    # g = 7
+    (16, 2, 128, 2048, 256),   # g = 8
+])
+def test_flash_decode_kernel(dev, dtype, nh, nkv, hd, S, sblk):
+    """Cache lengths of one key, mid-tile, on a tile boundary and the whole
+    cache; two ulps as paged decode (bf16 probabilities)."""
+    from qqq_tpu_torch.kernels.attention import (
+        flash_decode_attention_int8, flash_decode_attention_int8_plain,
+        flash_decode_tile,
+    )
+
+    B = 4
+    tile = flash_decode_tile(nkv, S, hd, nh // nkv, sblk)
+    q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev).to(dtype)
+    clen = torch.tensor([1, S // 2 + 3, min(2 * tile, S), S],
+                        dtype=torch.int32, device=dev)
+    args = (q, *_cache(dev, B, nkv, S, hd), clen)
+    n0 = flash_decode_attention_int8.launches
+    out = flash_decode_attention_int8(*args, sblk=sblk)
+    assert flash_decode_attention_int8.launches == n0 + 1
+    ref = flash_decode_attention_int8_plain(*args, sblk=sblk)
+    ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
+    assert float((out.float() - ref.float()).abs().max()) \
+        <= ulps * float(ref.float().abs().max())
+
+
+def test_flash_decode_tile_too_large_raises(dev):
+    """hd = 64 at S = 16384 makes JAX's tile the whole cache: 16384 keys'
+    scores for 4 query heads do not fit a block's shared memory, and the
+    wrapper refuses rather than retile (the tile fixes the numerics)."""
+    from qqq_tpu_torch.kernels.attention import flash_decode_attention_int8
+
+    B, nh, nkv, S, hd = 1, 8, 2, 16384, 64
+    q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev)
+    args = (q, *_cache(dev, B, nkv, S, hd),
+            torch.tensor([S], dtype=torch.int32, device=dev))
+    n0 = flash_decode_attention_int8.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_decode_attention_int8(*args)
+    assert flash_decode_attention_int8.launches == n0
+    flash_decode_attention_int8(*args, sblk=2048)  # a smaller tile fits
+    assert flash_decode_attention_int8.launches == n0 + 1
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 128, 33), (3, 384, 96),
+                                   (33, 1152, 200), (64, 256, 517)])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("route", ["channel", "group"])
+def test_w4a8_fused_kernels_bit_exact(dev, route, M, K, N, x_dtype,
+                                      out_dtype):
+    """Activation quantization in the prologue, then the per-channel or
+    exact g128 sum; an all-zero row; bit-exact."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    _, _, w, s = _gemm_operands(dev, M, K, N,
+                                0 if route == "channel" else K // 128)
+    if route == "group":
+        s = s.to(torch.bfloat16)
+    x = (torch.randn((M, K), generator=_gen(dev), device=dev) * 3).to(x_dtype)
+    x[0] = 0
+    fn = getattr(k, f"w4a8_gemm_fused_{route}")
+    out = _launch_once(fn, x, w, s, out_dtype)
+    assert out.shape == (M, N) and out.dtype == out_dtype
+    assert torch.equal(out, getattr(k, f"w4a8_gemm_fused_{route}_plain")(
+        x, w, s, out_dtype))
+    assert not out[0].any()
+
+
+def test_w4a8_fused_too_large_raises(dev):
+    """8 rows of K = 32768 codes exceed a block's shared memory: the kernel
+    refuses to launch and the wrapper raises; 4 rows fit."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    K, N = 32768, 64
+    _, _, w, s = _gemm_operands(dev, 8, K, N, 0)
+    x = torch.randn((8, K), generator=_gen(dev), device=dev).to(torch.bfloat16)
+    n0 = k.w4a8_gemm_fused_channel.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        k.w4a8_gemm_fused_channel(x, w, s)
+    assert k.w4a8_gemm_fused_channel.launches == n0
+    out = k.w4a8_gemm_fused_channel(x[:4], w, s)
+    assert k.w4a8_gemm_fused_channel.launches == n0 + 1
+    assert torch.equal(out, k.w4a8_gemm_fused_channel_plain(x[:4], w, s))
+
+
+@pytest.mark.parametrize("group_size", [-1, 128])
+def test_fused_route_launches_under_flag(dev, monkeypatch, group_size):
+    """``FUSE_ACT_QUANT`` on: w4a8_linear at M = 4 launches the fused
+    kernel alone (its own count), at M = 65 the two-step route, and with
+    the flag off never the fused one."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    K, N = 512, 256
+    _, _, w, s = _gemm_operands(dev, 65, K, N,
+                                0 if group_size == -1 else K // 128)
+    sc, sg = (s, None) if group_size == -1 else (None, s)
+    x = torch.randn((65, K), generator=_gen(dev), device=dev).to(
+        torch.bfloat16)
+    fused = ("w4a8_gemm_fused_channel" if group_size == -1
+             else "w4a8_gemm_fused_group")
+    plain = "w4a8_gemm_channel" if group_size == -1 else "w4a8_gemm_group"
+    for flag, rows, expect in ((True, 4, fused), (True, 65, plain),
+                               (False, 4, plain)):
+        monkeypatch.setattr(k, "FUSE_ACT_QUANT", flag)
+        before = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+        k.w4a8_linear(x[:rows], w, sc, sg, group_size=group_size,
+                      requant=False)
+        after = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+        assert {n: after[n] - before[n] for n in after} == {
+            n: int(n == expect) for n in after}
