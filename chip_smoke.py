@@ -5,15 +5,20 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
-1. build the CUDA kernels from the sources in this checkout;
+1. build the CUDA kernels from the sources in this checkout, printing
+   ``-Xptxas -v`` (registers, shared memory, spills) of each entry of the
+   two tensor-core kernels (slot flash, g128 requant);
 2. check each of the sixteen kernels against its plain PyTorch version on
    the card at the Llama-2-7B and Llama-3.1-8B shapes of the served paths
    (the GEMMs, the activation-quant-fused ones included, and the KV writes
-   bit-exact, the paged writes outside the null block; the GLU-fused GEMMs
-   and the five attention kernels within two bf16 ulps of the largest
-   output; the paged ones over scrambled block tables), and time it beside
-   its bound, its plain version and a one-call PyTorch yardstick that the
-   port never calls;
+   bit-exact, requant also at ragged M and N, the paged writes outside the
+   null block; the GLU-fused GEMMs and the attention kernels within two
+   bf16 ulps of the largest output, slot flash and the S-tiled decode per
+   row of their output, slot flash also after cached keys, the S-tiled
+   decode also at Qwen2-0.5B's attention geometry, whose whole-cache tile
+   keeps its scores in a global workspace; the paged ones over scrambled
+   block tables), and time it beside its bound, its plain version and a
+   one-call PyTorch yardstick that the port never calls;
 3. serve 4 requests through the port's Engine, with its default arguments
    (gate/up GLU-fused), on full-width, full-depth Llama-2-7B (random weights
    from a seeded generator): RTN-packed in groups of 128, the JAX package's
@@ -57,6 +62,8 @@ HERE = pathlib.Path(__file__).resolve().parent
 # Llama-2-7B geometry (the repo's headline configuration)
 V, H, I, L, NH, NKV, HD = 32000, 4096, 11008, 32, 32, 32, 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
+#: the sources of the tensor-core kernels, whose entries phase 1 names
+TENSOR_CORE_SOURCES = ("w4a8_requant", "flash_attention")
 # the paged pool of the served runs: 128-token blocks, 16 per slot
 # (max_len 2048), 65 blocks = max_batch 4 × 16 + the null block
 BS, NBMAX, NB_POOL = 128, 16, 65
@@ -178,13 +185,16 @@ L31_GLU_SHAPES = [(H3, 2 * I3)]
 #: per kernel: the rows M it is checked at (those the served runs give it:
 #: decode at batch 1 and 4, one row of slot bucket 128, one of bucket 512,
 #: two of bucket 2048, and the paged runs' (2, 512) chunk dispatches, M =
-#: 1024), its (K, N) shapes, and the (M, K, N) its report row shows
+#: 1024, plus M = 2048 for the requant GEMM), its (K, N) shapes, and the
+#: (M, K, N) its report row shows
 GEMM_CHECKS = {
     "w4a8_gemm_channel": ((1, 4, 128, 512, 4096), PLAIN_SHAPES, (4, I, H)),
     "w4a8_glu_channel": ((4, 128, 512, 4096), GLU_SHAPES, (4, H, 2 * I)),
     "w4a8_gemm_group": ((1, 4, 128), PLAIN_SHAPES, (4, I, H)),
     "w4a8_glu_group": ((1, 4, 128), GLU_SHAPES, (4, H, 2 * I)),
-    "w4a8_gemm_requant": ((512, 1024, 4096), PLAIN_SHAPES, (512, I, H)),
+    # and ragged row tiles of the 128 x 128 tensor-core kernel: M = 513, 1000
+    "w4a8_gemm_requant": ((512, 513, 1000, 1024, 2048, 4096), PLAIN_SHAPES,
+                          (512, I, H)),
     "w4a8_glu_requant": ((512, 1024, 4096), GLU_SHAPES, (512, H, 2 * I)),
 }
 #: the same at the Llama-3.1-8B shapes of every dispatch of run 3e and of
@@ -199,6 +209,13 @@ L31_GEMM_CHECKS = {
 }
 #: run 3e's prefill dispatches of slot flash: one row of each bucket
 L31_FLASH_CASES = ((1, 128), (1, 512), (1, 2048), (1, 16384))
+#: slot flash after cached keys: (B, T, S, cache lengths), T not a multiple
+#: of the kernel's 64-row block
+FLASH_OFFSET_CASES = ((2, 300, 2048, (0, 1500)),)
+#: Qwen2-0.5B's attention geometry (14 heads, 2 kv heads, hd 64) over a
+#: 32768-token slot cache: JAX's S-tiled tile is 16384 keys, whose scores
+#: for 7 query heads do not fit a block's shared memory
+QWEN2_ATTN = dict(nh=14, nkv=2, hd=64, S=32768, clen=(1, 9001, 16385, 32768))
 #: (K, N) of the fused GEMMs: Llama-2-7B's q/k/v/o and down (runs 3f, 3g)
 #: and Llama-3.1-8B's k/v and down (its q/o are (4096, 4096) too)
 FUSED_SHAPES = [(H, H), (I, H), (H3, NKV3 * HD), (I3, H3)]
@@ -467,9 +484,13 @@ def check_decode(dev, gen, timer):
 
 def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
                 nkv=NKV, report_at=(2, 512)):
-    """Slot flash at each (B, T) of ``cases``, T = S (a fresh bucket-sized
-    prefill cache, cache_len 0), two bf16 ulps; yardstick: causal SDPA on
-    the dequantized bf16 K/V, kv heads repeated for GQA."""
+    """Slot flash at each case of ``cases``: (B, T) with T = S (a fresh
+    bucket-sized prefill cache, cache_len 0), or (B, T, S, cache lengths),
+    each row of the output within two bf16 ulps of its own largest value
+    (:func:`ulp_rows`: a causal prefill's first row sees one key and would
+    set a whole-output bound far above the long rows).  Yardstick: SDPA on
+    the dequantized bf16 K/V, kv heads repeated for GQA, causal (with the
+    cache offset as a mask where cache_len > 0)."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels.attention import (
@@ -477,9 +498,10 @@ def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
     )
 
     report, err = None, 0.0
-    for B, T in cases:
-        S = T  # the prefill bucket: a fresh bucket-sized cache, clen = 0
-        clen = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for case in cases:
+        B, T = case[:2]
+        S, clens = case[2:] if len(case) > 2 else (T, (0,) * B)
+        clen = torch.tensor(clens, dtype=torch.int32, device=dev)
         q = torch.randn((B, NH, T, HD), generator=gen, device=dev).to(
             torch.bfloat16)
         kc = torch.randint(-128, 128, (B, nkv, S, HD), generator=gen,
@@ -492,26 +514,38 @@ def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
         out = flash_attention_int8(*args)
         ref = flash_attention_int8_plain(*args)
         torch.cuda.synchronize()
-        e = (out.float() - ref.float()).abs().max().item()
-        if not e <= ulp_tol(ref):
-            raise AssertionError(f"flash_attention_int8 B={B} T={T} "
-                                 f"nkv={nkv}: max |diff| {e} > "
-                                 f"{ulp_tol(ref)}")
+        e, worst = ulp_rows(out, ref)
+        if not worst <= 1:
+            raise AssertionError(f"flash_attention_int8 B={B} T={T} S={S} "
+                                 f"nkv={nkv} cache_len {clens}: a row differs"
+                                 f" by {worst:.3g} times its bound of "
+                                 f"{ATTN_ULPS} bf16 ulps")
         err = max(err, e)
         del out, ref
         kd = _dequant(kc, ks).repeat_interleave(NH // nkv, dim=1)
         vd = _dequant(vc, vs).repeat_interleave(NH // nkv, dim=1)
         ms = timer.ms(lambda: flash_attention_int8(*args))
         plain = timer.ms(lambda: flash_attention_int8_plain(*args))
-        lib = timer.ms(lambda: F.scaled_dot_product_attention(
-            q, kd, vd, is_causal=True))
-        pairs = B * NH * T * (T + 1) // 2  # visible (query, key) pairs
-        nbytes = 2 * B * NH * T * HD * 2 + 2 * B * nkv * S * (HD + 4) + B * 4
+        if any(clens) or S != T:
+            qpos = clen[:, None] + torch.arange(T, device=dev)[None, :]
+            mask = (torch.arange(S, device=dev)[None, None, :]
+                    <= qpos[:, :, None])[:, None]
+            lib = timer.ms(lambda: F.scaled_dot_product_attention(
+                q, kd, vd, attn_mask=mask))
+            del mask
+        else:
+            lib = timer.ms(lambda: F.scaled_dot_product_attention(
+                q, kd, vd, is_causal=True))
+        # visible (query, key) pairs and live keys
+        pairs = NH * sum(T * c + T * (T + 1) // 2 for c in clens)
+        keys = sum(c + T for c in clens)
+        nbytes = 2 * B * NH * T * HD * 2 + keys * nkv * (HD + 4) * 2 + B * 4
         b, by = bound_ms(nbytes, 4.0 * HD * pairs)
-        log(f"  flash_attention_int8 B={B} T=S={T} nkv={nkv}: max |diff| "
-            f"{e:.3g}; {ms:.4f} ms (bound {b:.4f} by {by}, plain "
+        log(f"  flash_attention_int8 B={B} T={T} S={S} nkv={nkv} cache_len "
+            f"{clens}: max |diff| {e:.3g} (worst row {worst:.3g} of its "
+            f"bound); {ms:.4f} ms (bound {b:.4f} by {by}, plain "
             f"{plain:.4f}, sdpa {lib:.4f})")
-        if (B, T) == report_at:
+        if (B, T) == report_at and len(case) == 2:
             report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                           bound_by=by, shape=f"B={B} T=S={T} causal, clen 0")
         del kc, vc, kd, vd
@@ -587,6 +621,66 @@ def check_flash_decode(dev, gen, timer):
     del kc, vc
     torch.cuda.empty_cache()
     return report
+
+
+def check_flash_decode_qwen2(dev, gen, timer):
+    """The S-tiled decode at Qwen2-0.5B's attention geometry
+    (:data:`QWEN2_ATTN`, B = 4, bf16 q): JAX's tile is 16384 keys, whose
+    scores for 7 query heads the kernel keeps in a global workspace; each
+    (row, head) within two bf16 ulps of its own largest output.  Logged,
+    with the workspace's bytes, beside the bound, the plain version and
+    SDPA; not a report row."""
+    import torch.nn.functional as F
+
+    from qqq_tpu_torch.kernels.attention import (
+        flash_decode_attention_int8, flash_decode_attention_int8_plain,
+        flash_decode_tile, flash_decode_workspace_bytes,
+    )
+
+    nh, nkv, hd, S = (QWEN2_ATTN[k] for k in ("nh", "nkv", "hd", "S"))
+    clen = QWEN2_ATTN["clen"]
+    B = len(clen)
+    tile = flash_decode_tile(nkv, S, hd, nh // nkv)
+    ws = flash_decode_workspace_bytes(B, nh, nkv, hd, tile)
+    if not ws > 0:
+        raise AssertionError(f"S-tiled decode at nh={nh} nkv={nkv} hd={hd} "
+                             f"tile {tile}: expected a score workspace, the "
+                             f"kernel asks for {ws} bytes")
+    kc = torch.randint(-128, 128, (B, nkv, S, hd), generator=gen,
+                       device=dev, dtype=torch.int8)
+    vc = torch.randint(-128, 128, (B, nkv, S, hd), generator=gen,
+                       device=dev, dtype=torch.int8)
+    ks = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
+    vs = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
+    cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+    q = torch.randn((B, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    args = (q, kc, ks, vc, vs, cl)
+    out = flash_decode_attention_int8(*args)
+    ref = flash_decode_attention_int8_plain(*args)
+    torch.cuda.synchronize()
+    e, worst = ulp_rows(out, ref)
+    if not worst <= 1:
+        raise AssertionError(f"flash_decode_attention_int8 at Qwen2-0.5B's "
+                             f"geometry, cache_len {clen}: a (row, head) "
+                             f"differs by {worst:.3g} times its bound")
+    ms = timer.ms(lambda: flash_decode_attention_int8(*args))
+    plain = timer.ms(lambda: flash_decode_attention_int8_plain(*args))
+    kd = _dequant(kc, ks).repeat_interleave(nh // nkv, dim=1)
+    vd = _dequant(vc, vs).repeat_interleave(nh // nkv, dim=1)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < cl[:, None])[:, None, None, :]
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask))
+    n_pos = sum(clen)
+    nbytes = n_pos * nkv * (hd + 4) * 2 + 2 * B * nh * hd * 2 + B * 4
+    b, by = bound_ms(nbytes, 4.0 * nh * hd * n_pos)
+    log(f"  flash_decode_attention_int8 B={B} nh={nh} nkv={nkv} hd={hd} "
+        f"S={S} tile {tile} (scores in a {ws}-byte workspace) cache_len "
+        f"{clen}: max |diff| {e:.3g} (worst (row, head) {worst:.3g} of its "
+        f"bound); {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain:.4f}, "
+        f"sdpa {lib:.4f})")
+    del kc, vc, kd, vd, mask
+    torch.cuda.empty_cache()
 
 
 def _scrambled_tables(dev, rows: int, seed: int):
@@ -1251,7 +1345,8 @@ def main() -> int:
         f"(per source: {json.dumps({k: round(v, 1) for k, v in secs.items()})})")
     for k in build.KERNELS:
         for line in build.build_log(k).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or (
+                    k in TENSOR_CORE_SOURCES and "entry function" in line):
                 log(f"  {k}: {line.strip()}")
 
     log("phase 2: kernels against their plain versions on the card")
@@ -1268,6 +1363,9 @@ def main() -> int:
         **check_fused(dev, gen, timer),
         "flash_decode_attention_int8": check_flash_decode(dev, gen, timer),
     }
+    check_flash(dev, gen, timer, cases=FLASH_OFFSET_CASES, nkv=NKV3,
+                report_at=None)
+    check_flash_decode_qwen2(dev, gen, timer)
     log("  the existing kernels at run 3e's Llama-3.1-8B shapes:")
     check_kv_write(dev, gen, timer, B=4, S=L31_MAX_LEN, nkv=NKV3)
     check_flash(dev, gen, timer, cases=L31_FLASH_CASES, nkv=NKV3,

@@ -18,7 +18,10 @@
 // unrounded e (:822), acc = acc * alpha + sum(bf16(e * v_scale) * V_i8)
 // (:816-823); out = acc / max(l, 1e-30).  The tile decides which running
 // maximum each bf16 rounding of e * v_scale meets, so it is never changed
-// here: a tile whose scores do not fit in shared memory is refused.
+// here, and every tile JAX takes runs: where a tile's scores do not fit in
+// shared memory (hd = 64 at S = 16384, where JAX's tile is the whole
+// cache) they live in a global workspace instead, with the same arithmetic
+// in the same order.
 //
 // What bounds it on the H100: bytes, the K and V codes and scales of the
 // live keys, B * nkv * L * (hd + 4) * 2 at 3.35 TB/s.  Tiles past
@@ -28,17 +31,21 @@
 // Design: one block of 256 threads per (b, kv head) serves all g query
 // heads, so each K/V byte is read once for the group.  A tile's scores for
 // its g heads sit in dynamic shared memory (g * sblk * 4 bytes, 32 KB at
-// g = 4 and sblk = 2048).  Per tile, (1) thread t scores keys t, t + 256,
-// ... (a key's K row is hd / 16 loads of 16 bytes; q' sits in shared memory
-// and is read as float4 broadcasts); (2) warp j takes head j for the tile's
-// max, exp and sum, keeps its running m and l in registers and overwrites
-// the scores with bf16(e * v_scale); (3) the threads split into
-// 256 / (hd / 4) key groups of hd / 4 threads, each thread accumulating 4
-// output dims of every head over its group's keys (one coalesced V row per
-// key and group), and the groups' partial sums are added at the end.  Only
-// B * nkv blocks run (32 at B = 4 on Llama-3.1-8B), far from filling 132
-// SMs; splitting the keys across blocks (split-K) is later work and would
-// change the f32 order of the sums.
+// g = 4 and sblk = 2048) or, where that does not fit beside the rest of the
+// block, in the (b, kv head)'s slice of a (B, nkv, g, sblk) f32 workspace
+// that the wrapper allocates (flash_decode_workspace_bytes says how much;
+// the kernel allocates nothing).  Per tile, (1) thread t scores keys t,
+// t + 256, ... (a key's K row is hd / 16 loads of 16 bytes; q' sits in
+// shared memory and is read as float4 broadcasts); (2) warp j takes head j
+// for the tile's max, exp and sum, keeps its running m and l in registers
+// and overwrites the scores with bf16(e * v_scale); (3) the threads split
+// into 256 / (hd / 4) key groups of hd / 4 threads, each thread
+// accumulating 4 output dims of every head over its group's keys (one
+// coalesced V row per key and group), and the groups' partial sums are
+// added at the end.  Only B * nkv blocks run (32 at B = 4 on
+// Llama-3.1-8B), far from filling 132 SMs; splitting the keys across
+// blocks (split-K) is later work and would change the f32 order of the
+// sums.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,40 +72,45 @@ __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Dynamic shared memory in floats: q' (g, hd), the tile's scores (g, sblk),
-// the key groups' partial outputs (kg, g, hd), alpha (g) and l (g).
+// Dynamic shared memory in floats: q' (g, hd), the tile's scores (g, sblk)
+// unless they live in the workspace, the key groups' partial outputs (kg,
+// g, hd), alpha (g) and l (g).
 __host__ __device__ inline int key_groups(int hd) {
   return kThreads / (hd / 4);
 }
-inline size_t smem_bytes(int g, int sblk, int hd) {
+inline size_t smem_bytes(int g, int sblk, int hd, bool scores_in_smem) {
   return 4 * (size_t)g *
-         ((size_t)hd + sblk + (size_t)key_groups(hd) * hd + 2);
+         ((size_t)hd + (scores_in_smem ? (size_t)sblk : 0) +
+          (size_t)key_groups(hd) * hd + 2);
 }
 
-template <typename T>
+// kGlobalP: the tile's scores in ws[(b * nkv + h) * g * sblk ...], else in
+// shared memory.
+template <typename T, bool kGlobalP>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                     const float* __restrict__ ks,
                     const int8_t* __restrict__ vc,
                     const float* __restrict__ vs,
                     const int* __restrict__ clen, T* __restrict__ out,
-                    int nh, int nkv, int S, int hd, int sblk) {
+                    float* __restrict__ ws, int nh, int nkv, int S, int hd,
+                    int sblk) {
   extern __shared__ float4 smem4[];
   const int g = nh / nkv;
   const int nd = hd / 4;         // 4-dim column groups of a V row
   const int kg = key_groups(hd);
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const size_t bh = (size_t)b * nkv + h;
   float* qs = reinterpret_cast<float*>(smem4);  // [g][hd]
-  float* p = qs + g * hd;                       // [g][sblk]
-  float* red = p + (size_t)g * sblk;            // [kg][g][hd]
+  float* p = kGlobalP ? ws + bh * g * sblk : qs + g * hd;  // [g][sblk]
+  float* red = qs + g * hd + (kGlobalP ? 0 : (size_t)g * sblk);  // [kg][g][hd]
   float* alpha_sh = red + kg * g * hd;          // [g]
   float* l_sh = alpha_sh + g;                   // [g]
 
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const size_t bh = (size_t)b * nkv + h;
   const int8_t* kb = kc + bh * S * hd;
   const int8_t* vb = vc + bh * S * hd;
   const float* ksb = ks + bh * S;
@@ -227,42 +239,77 @@ flash_decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   }
 }
 
-template <typename T>
+// Whether a tile's scores fit in shared memory beside the rest of the block
+// (*in_smem); the CUDA error of the query otherwise.  Every variant has the
+// same (no) static shared memory, so one answers for all.
+int scores_fit(int g, int sblk, int hd, bool* in_smem) {
+  size_t room = 0;
+  const int err =
+      smem_room(flash_decode_kernel<float, false>, &room);
+  if (err != 0) return err;
+  *in_smem = smem_bytes(g, sblk, hd, true) <= room;
+  return 0;
+}
+
+bool bad_args(int nh, int nkv, int hd, int sblk) {
+  return nkv <= 0 || nh % nkv || nh / nkv > kMaxG || hd % 16 || hd <= 0 ||
+         hd > 256 || sblk <= 0;
+}
+
+template <typename T, bool kGlobalP>
 int launch(const void* q, const void* kc, const void* ks, const void* vc,
-           const void* vs, const void* cl, void* out, int B, int nh, int nkv,
-           int S, int hd, int sblk, size_t smem, cudaStream_t st) {
-  auto kernel = flash_decode_kernel<T>;
-  const int fit = smem_fit(kernel, smem);
+           const void* vs, const void* cl, void* out, void* ws, int B, int nh,
+           int nkv, int S, int hd, int sblk, cudaStream_t st) {
+  auto kernel = flash_decode_kernel<T, kGlobalP>;
+  const int fit = smem_fit(kernel, smem_bytes(nh / nkv, sblk, hd, !kGlobalP));
   if (fit != 0) return fit;
-  kernel<<<dim3(B, nkv), kThreads, smem, st>>>(
+  kernel<<<dim3(B, nkv), kThreads, smem_bytes(nh / nkv, sblk, hd, !kGlobalP),
+           st>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(kc),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
       static_cast<const float*>(vs), static_cast<const int*>(cl),
-      static_cast<T*>(out), nh, nkv, S, hd, sblk);
+      static_cast<T*>(out), static_cast<float*>(ws), nh, nkv, S, hd, sblk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The f32 workspace bytes flash_decode_attention_int8 needs for these
+// arguments: 0 when a tile's scores fit in shared memory, else B * nkv *
+// (nh / nkv) * sblk * 4, the scores of every (b, kv head).  Negative: minus
+// the CUDA error (cudaErrorInvalidValue for arguments the kernel refuses).
+extern "C" long long flash_decode_workspace_bytes(int B, int nh, int nkv,
+                                                  int hd, int sblk) {
+  if (bad_args(nh, nkv, hd, sblk)) return -(long long)cudaErrorInvalidValue;
+  bool in_smem = true;
+  const int err = scores_fit(nh / nkv, sblk, hd, &in_smem);
+  if (err != 0) return -(long long)err;
+  return in_smem ? 0 : 4LL * B * nh * sblk;
+}
+
 // q (B, nh, hd) bf16 (bf16_io = 1) or f32; caches (B, nkv, S, hd) int8 and
 // scales (B, nkv, S) f32; cache_len (B,) int32, the live keys including the
-// current one; out (B, nh, hd) like q.  nh / nkv <= 8, hd % 16 == 0, hd <=
-// 256 and 0 < sblk (else cudaErrorInvalidValue); kSmemTooLarge, nothing
-// launched, where the tile's shared memory exceeds what a block may hold.
+// current one; out (B, nh, hd) like q; workspace: the bytes
+// flash_decode_workspace_bytes asks for (f32, 16-byte aligned), or null
+// when it asks for none.  nh / nkv <= 8, hd % 16 == 0, hd <= 256 and
+// 0 < sblk (else cudaErrorInvalidValue, as for a missing workspace).
 extern "C" int flash_decode_attention_int8(
     const void* q, const void* k_cache, const void* k_scale,
     const void* v_cache, const void* v_scale, const void* cache_len,
-    void* out, int B, int nh, int nkv, int S, int hd, int sblk, int bf16_io,
-    void* stream) {
-  if (nkv <= 0 || nh % nkv || nh / nkv > kMaxG || hd % 16 || hd <= 0 ||
-      hd > 256 || sblk <= 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(nh / nkv, sblk, hd);
+    void* out, void* workspace, int B, int nh, int nkv, int S, int hd,
+    int sblk, int bf16_io, void* stream) {
+  if (bad_args(nh, nkv, hd, sblk)) return (int)cudaErrorInvalidValue;
+  bool in_smem = true;
+  const int err = scores_fit(nh / nkv, sblk, hd, &in_smem);
+  if (err != 0) return err;
+  if (!in_smem && workspace == nullptr) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+#define FD_LAUNCH(T, G)                                                     \
+  launch<T, G>(q, k_cache, k_scale, v_cache, v_scale, cache_len, out,       \
+               workspace, B, nh, nkv, S, hd, sblk, st)
   if (bf16_io)
-    return launch<__nv_bfloat16>(q, k_cache, k_scale, v_cache, v_scale,
-                                 cache_len, out, B, nh, nkv, S, hd, sblk,
-                                 smem, st);
-  return launch<float>(q, k_cache, k_scale, v_cache, v_scale, cache_len, out,
-                       B, nh, nkv, S, hd, sblk, smem, st);
+    return in_smem ? FD_LAUNCH(__nv_bfloat16, false)
+                   : FD_LAUNCH(__nv_bfloat16, true);
+  return in_smem ? FD_LAUNCH(float, false) : FD_LAUNCH(float, true);
+#undef FD_LAUNCH
 }

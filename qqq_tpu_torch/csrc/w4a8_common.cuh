@@ -1,7 +1,9 @@
 // Shared pieces of the W4A8 GEMM kernels (w4a8_gemm.cu, w4a8_requant.cu,
-// w4a8_group.cu, w4a8_fused.cu): the nibble-plane operand layout, the GLU column map and
-// epilogue, and the int32-dot main loop that the per-channel and the g128
-// requant kernels share.
+// w4a8_group.cu, w4a8_fused.cu): the nibble-plane operand layout, the GLU
+// column map and epilogue, the INT4 -> INT8 regrid, and the CUDA-core
+// int32-dot main loop (int_dot_kernel) that the per-channel kernels (plain
+// and GLU) and the g128 requant GLU kernel still run.  The plain g128
+// requant kernel left it for the int8 tensor cores (w4a8_requant.cu).
 //
 // Operand layout (core/packing.py).  Word row 16b+r of a column holds, in
 // its low nibbles, the codes k = 128b+4r+{0..3} and, in its high nibbles,
@@ -17,7 +19,7 @@
 // the accurate expf and an IEEE division, and rounds once; the (M, I) gate
 // and up intermediates never reach global memory.
 //
-// Block shape: 8 warps own 32 output columns, one per lane, so every weight
+// int_dot_kernel's block shape: 8 warps own 32 output columns, one per lane, so every weight
 // load is one coalesced 128-byte row of a column tile; the warps split the
 // 128-row K blocks among themselves, and each thread keeps BM rows of
 // accumulators so that a weight word loaded once serves BM rows.  Rows of A
@@ -74,16 +76,20 @@ __device__ __forceinline__ void load_a(const int8_t* __restrict__ a, int K,
   }
 }
 
-// INT4 → INT8 regrid of four codes: w8 = clip(rint((u − 8)·s_frac), ±127),
-// the offset removed before the multiply so that the f32 product rounds
-// once, half to even (__float2int_rn).  Returns four signed bytes.
+// INT4 → INT8 regrid of one code: w8 = clip(rint(q·s_frac), ±127) for q =
+// u − 8, the offset removed before the multiply so that the f32 product
+// rounds once, half to even (__float2int_rn).
+__device__ __forceinline__ int requant1(int q, float sf) {
+  const int w8 = __float2int_rn(__fmul_rn((float)q, sf));
+  return min(127, max(-127, w8));
+}
+
+// requant1 of four codes, one per byte of u4; returns four signed bytes.
 __device__ __forceinline__ int requant4(unsigned u4, float sf) {
   unsigned packed = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int q = (int)((u4 >> (8 * i)) & 0xFu) - 8;
-    int w8 = __float2int_rn(__fmul_rn((float)q, sf));
-    w8 = min(127, max(-127, w8));
+    const int w8 = requant1((int)((u4 >> (8 * i)) & 0xFu) - 8, sf);
     packed |= ((unsigned)w8 & 0xFFu) << (8 * i);
   }
   return (int)packed;

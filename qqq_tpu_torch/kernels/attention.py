@@ -9,16 +9,19 @@ csrc/flash_decode_attention.cu, csrc/flash_attention.cu and
 csrc/paged_decode_attention.cu; on CPU tensors they run the plain PyTorch
 versions below.  The slot decode version is the JAX kernel's one-pass f32
 softmax; the kernel takes it online over 128-key tiles, which only
-reassociates f32 sums.  The flash version repeats the CUDA kernel's online
-softmax over 32-key tiles, because there the order matters beyond f32:
+reassociates f32 sums.  The flash version repeats the CUDA kernels' online
+softmax over 32-key steps, because there the order matters beyond f32:
 probabilities are rounded to bf16 against the running row maximum, so the
-tiling changes which bf16 values feed P·V (the JAX kernel tiles by 1024
-keys, or by the block size over the pool).  The paged flash version
-gathers the pool through the tables and is then the flash version.  The
-S-tiled decode (caches past the whole-cache switch) and paged decode share
-numerics of their own (bf16 q, bf16 probabilities times v_scale) and walk
-JAX's own key tile, which their kernels walk too.  The tests state the
-tolerances that follow.
+step changes which bf16 values feed P·V (the JAX kernel tiles by 1024
+keys, or by the block size over the pool).  Both flash kernels step their
+softmax 32 keys at a time whatever their load stage (the slot kernel loads
+64 keys a stage for its tensor cores, the paged one 32).  The paged flash
+version gathers the pool through the tables and is then the flash
+version.  The S-tiled decode (caches past the whole-cache switch) and
+paged decode share numerics of their own (bf16 q, bf16 probabilities times
+v_scale) and walk JAX's own key tile, which their kernels walk too, the
+S-tiled one at any tile JAX takes (its scores in a workspace where they
+outgrow shared memory).  The tests state the tolerances that follow.
 """
 
 from __future__ import annotations
@@ -219,10 +222,11 @@ def flash_decode_attention_int8(
     sblk: Optional[int] = None,
 ) -> torch.Tensor:
     """S-tiled decode for caches past the whole-cache kernel's switch (any
-    S).  Returns (B, n_heads, hd) in q.dtype.  Raises ValueError where a
-    tile's scores for a kv head's query heads do not fit in the shared
-    memory of one block (the tile is never changed: it fixes the
-    numerics)."""
+    S).  Returns (B, n_heads, hd) in q.dtype.  Every tile JAX takes runs:
+    where a tile's scores for a kv head's query heads do not fit in the
+    shared memory of one block (the tile is never changed: it fixes the
+    numerics), the kernel keeps them in a workspace allocated here, of the
+    size its C entry asks for."""
     B, nh, hd = q.shape
     nkv, S = k_cache.shape[1], k_cache.shape[2]
     if q.device.type == "cpu":
@@ -239,17 +243,36 @@ def flash_decode_attention_int8(
     g = nh // nkv
     tile = flash_decode_tile(nkv, S, hd, g, sblk)
     _check_args(q, k_cache, k_scale, v_cache, v_scale, cache_len, nkv, S)
+    what = (f"flash_decode_attention_int8 at nh={nh}, nkv={nkv}, S={S}, "
+            f"hd={hd}: a tile of {tile} keys for {g} query heads")
+    ws_bytes = flash_decode_workspace_bytes(B, nh, nkv, hd, tile)
+    if ws_bytes < 0:
+        raise RuntimeError(f"{what}: CUDA error {-ws_bytes} sizing the "
+                           "workspace")
+    ws = (torch.empty(ws_bytes // 4, dtype=torch.float32, device=q.device)
+          if ws_bytes else None)
     out = torch.empty_like(q)
     fn = build.bind("flash_decode_attention", "flash_decode_attention_int8",
-                    "pppppppiiiiiiip")
+                    "ppppppppiiiiiiip")
     build.check(fn(q.data_ptr(), k_cache.data_ptr(), k_scale.data_ptr(),
                    v_cache.data_ptr(), v_scale.data_ptr(),
-                   cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, S, hd,
+                   cache_len.data_ptr(), out.data_ptr(),
+                   None if ws is None else ws.data_ptr(), B, nh, nkv, S, hd,
                    tile, int(q.dtype == torch.bfloat16), build.stream_of(q)),
-                f"flash_decode_attention_int8 at nh={nh}, nkv={nkv}, S={S}, "
-                f"hd={hd}: a tile of {tile} keys for {g} query heads")
+                what)
     flash_decode_attention_int8.launches += 1
     return out
+
+
+def flash_decode_workspace_bytes(B: int, nh: int, nkv: int, hd: int,
+                                 sblk: int) -> int:
+    """Bytes of the f32 score workspace the S-tiled decode kernel needs on
+    the current card: 0 where a tile's scores fit in a block's shared memory
+    (the rule lives in csrc/flash_decode_attention.cu alone); negative:
+    minus a CUDA error."""
+    fn = build.bind("flash_decode_attention", "flash_decode_workspace_bytes",
+                    "iiiii", ret="q")
+    return int(fn(B, nh, nkv, hd, sblk))
 
 
 flash_decode_attention_int8.launches = 0  # kernel launches; only CUDA counts
@@ -272,8 +295,9 @@ def decode_attention_auto(q, k_cache, k_scale, v_cache, v_scale, cache_len):
 # chunked prefill
 
 
-#: keys per online-softmax step of csrc/flash_attention.cu (its BK); this
-#: must follow the kernel's BK whenever the kernel is retiled
+#: keys per online-softmax step of both kernels of csrc/flash_attention.cu
+#: (BK of the slot kernel, whatever its 64-key load stage; PK of the paged
+#: one); it must follow them whenever they change the step
 _FLASH_KEY_TILE = 32
 
 
@@ -285,11 +309,11 @@ def flash_attention_int8_plain(q, k_cache, k_scale, v_cache, v_scale,
     before P·V, and an f32 denominator of the unrounded ones.  Tiles past
     the last visible key change nothing and are skipped.
 
-    The tile is the kernel's BK (``_FLASH_KEY_TILE``), not JAX's 1024-key
-    tile, so that the card check can hold the kernel to two bf16 ulps; a
-    retiled kernel changes ``_FLASH_KEY_TILE`` with it.  The link back to
-    JAX is tests/test_torch_attention.py, which holds this version to the
-    JAX kernel, several of its 1024-key tiles included."""
+    The step is the kernels' (``_FLASH_KEY_TILE``), not JAX's 1024-key
+    tile, so that the card check can hold the kernels to two bf16 ulps; a
+    kernel that changes its step changes ``_FLASH_KEY_TILE`` with it.  The
+    link back to JAX is tests/test_torch_attention.py, which holds this
+    version to the JAX kernel, several of its 1024-key tiles included."""
     B, nh, T, hd = q.shape
     nkv, S = k_cache.shape[1], k_cache.shape[2]
     g = nh // nkv

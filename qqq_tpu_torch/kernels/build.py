@@ -115,13 +115,14 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def bind(name: str, fn: str, sig: str):
+def bind(name: str, fn: str, sig: str, ret: str = "i"):
     """The C entry ``fn`` of library ``name`` with its argtypes set from
-    ``sig``: ``p`` a pointer (the stream included), ``i`` an int.  Every
-    entry returns ``cudaGetLastError()``."""
+    ``sig``: ``p`` a pointer (the stream included), ``i`` an int.  A launch
+    entry returns ``cudaGetLastError()`` (``ret`` "i"); a sizing entry
+    returns bytes as a long long (``ret`` "q")."""
     f = getattr(load(name), fn)
     f.argtypes = [_VOID if c == "p" else _INT for c in sig]
-    f.restype = _INT
+    f.restype = ctypes.c_longlong if ret == "q" else _INT
     return f
 
 

@@ -4,20 +4,22 @@ w4a8_gemm, w4a8_gemm_fused, w4a8_linear, fuse_glu_layout, w4a8_glu_gemm,
 w4a8_glu_linear, FUSE_ACT_QUANT).
 
 Eight kernel routes, one wrapper each, each with a plain PyTorch twin and
-its own launch count:
+its own launch count (loop: ``int_dot`` is w4a8_common.cuh's CUDA-core
+int32-dot loop, ``own`` the kernel's own CUDA-core loop, ``wgmma`` the
+int8 tensor cores); sources under csrc/:
 
-======================  ===============================  ===================
-wrapper                 TPU kernel                       CUDA source
-======================  ===============================  ===================
-w4a8_gemm_channel       _w4a8_channel_kernel             csrc/w4a8_gemm.cu
-w4a8_glu_channel        _w4a8_channel_glu_kernel         csrc/w4a8_gemm.cu
-w4a8_gemm_group         _w4a8_group_kernel               csrc/w4a8_group.cu
-w4a8_glu_group          _w4a8_group_glu_kernel           csrc/w4a8_group.cu
-w4a8_gemm_requant       _w4a8_requant_group_kernel       csrc/w4a8_requant.cu
-w4a8_glu_requant        _w4a8_requant_group_glu_kernel   csrc/w4a8_requant.cu
-w4a8_gemm_fused_channel _w4a8_fused_channel_kernel       csrc/w4a8_fused.cu
-w4a8_gemm_fused_group   _w4a8_fused_group_kernel         csrc/w4a8_fused.cu
-======================  ===============================  ===================
+=======================  ==============================  ==============  =======
+wrapper                  TPU kernel                      CUDA source     loop
+=======================  ==============================  ==============  =======
+w4a8_gemm_channel        _w4a8_channel_kernel            w4a8_gemm.cu    int_dot
+w4a8_glu_channel         _w4a8_channel_glu_kernel        w4a8_gemm.cu    int_dot
+w4a8_gemm_group          _w4a8_group_kernel              w4a8_group.cu   own
+w4a8_glu_group           _w4a8_group_glu_kernel          w4a8_group.cu   own
+w4a8_gemm_requant        _w4a8_requant_group_kernel      w4a8_requant.cu wgmma
+w4a8_glu_requant         _w4a8_requant_group_glu_kernel  w4a8_requant.cu int_dot
+w4a8_gemm_fused_channel  _w4a8_fused_channel_kernel      w4a8_fused.cu   own
+w4a8_gemm_fused_group    _w4a8_fused_group_kernel        w4a8_fused.cu   own
+=======================  ==============================  ==============  =======
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs its plain version.  :func:`w4a8_gemm` and :func:`w4a8_glu_gemm`
@@ -239,12 +241,20 @@ def _requant(counter, a_q, s_token, w_packed, s_group, out_dtype, glu):
     s_frac, s_extra = requant_scales(s_group)
     build.require(s_frac, torch.float32, (K // PACK_BLOCK, N), "s_frac",
                   a_q.device)
-    fn = build.bind("w4a8_requant", "w4a8_gemm_requant", "ppppppiiiiip")
+    size = build.bind("w4a8_requant", "w4a8_requant_workspace_bytes", "iiii",
+                      ret="q")
+    ws_bytes = int(size(M, K, N, int(glu)))
+    if ws_bytes < 0:
+        raise RuntimeError(f"{counter.__name__}: CUDA error {-ws_bytes} "
+                           "sizing the split-K workspace")
+    ws = (torch.empty(ws_bytes // 4, dtype=torch.int32, device=a_q.device)
+          if ws_bytes else None)
+    fn = build.bind("w4a8_requant", "w4a8_gemm_requant", "pppppppiiiiip")
     build.check(fn(a_q.data_ptr(), s_tok.data_ptr(), w_packed.data_ptr(),
                    s_frac.data_ptr(), s_extra.data_ptr(), out.data_ptr(),
-                   M, K, N, int(glu), int(out_dtype == torch.bfloat16),
-                   build.stream_of(a_q)),
-                counter.__name__)
+                   None if ws is None else ws.data_ptr(), M, K, N, int(glu),
+                   int(out_dtype == torch.bfloat16), build.stream_of(a_q)),
+                f"{counter.__name__} at M={M}, K={K}, N={N}")
     counter.launches += 1
     return out
 

@@ -22,8 +22,9 @@ power limit come first.
 With ``--llama31`` the model is Llama-3.1-8B (``ModelConfig.from_hf`` of
 chip_smoke.py's config: 8 kv heads, llama3 RoPE scaling) over a
 32768-token slot cache, and the 4 prompts are 100, 400, 1500 and 12000
-tokens long (buckets 128, 512, 2048 and 16384, one dispatch each, not
-profiled): every decode tick runs the S-tiled decode kernel.
+tokens long (buckets 128, 512, 2048 and 16384, one dispatch each, profiled
+together, once, with no warm-up: the kernels are built before it): every
+decode tick runs the S-tiled decode kernel.
 """
 
 from __future__ import annotations
@@ -135,12 +136,14 @@ def main() -> int:
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     if args.llama31:
-        t0 = time.perf_counter()
-        prefill()
-        torch.cuda.synchronize()
-        print(f"prefill, prompts {lens} in dispatches "
-              f"{eng.stats['prefill_shapes']} (rows, bucket): wall "
-              f"{time.perf_counter() - t0:.3f} s (not profiled)")
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        report(f"prefill, prompts {lens} in dispatches "
+               f"{eng.stats['prefill_shapes']} (rows, bucket)", wall, prof,
+               unit="prefill of all 4")
     else:
         prefill()  # warm-up
         for _ in range(3):

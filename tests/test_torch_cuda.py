@@ -15,7 +15,9 @@ GLU-fused GEMMs within two bf16
 ulps of their largest output (another exp in the epilogue); attention
 within two ulps of the output dtype at the largest output (bf16: 2^-6,
 f32: 2^-22 relative to max |ref|, plus the flash, paged decode and S-tiled
-decode kernels' bf16 probabilities: 2^-7 relative in f32).
+decode kernels' bf16 probabilities: 2^-7 relative in f32), slot flash and
+the S-tiled decode's whole-cache tile per output row, at its own largest
+value.
 """
 
 import pytest
@@ -49,9 +51,9 @@ def _gemm_operands(dev, M, K, N, n_scales):
     return a, s_tok, w, s
 
 
-def _launch_once(fn, *args):
+def _launch_once(fn, *args, **kw):
     n0 = fn.launches
-    out = fn(*args)
+    out = fn(*args, **kw)
     assert fn.launches == n0 + 1
     return out
 
@@ -88,6 +90,22 @@ def test_w4a8_g128_kernels_bit_exact(dev, route, M, K, N, sg_dtype,
     plain = getattr(k, f"w4a8_gemm_{route}_plain")
     out = _launch_once(fn, a, s_tok, w, sg, out_dtype)
     assert torch.equal(out, plain(a, s_tok, w, sg, out_dtype))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 128, 32), (130, 384, 200),
+                                   (513, 1152, 1000), (512, 4096, 1024)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w4a8_requant_tensor_core_tiles(dev, M, K, N, out_dtype):
+    """The requant kernel's 128 x 128 tiles at ragged M and N, and a grid
+    too small for the card that splits K (M = 512, N = 1024, as the k/v
+    projections): bit-exact, one launch."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    a, s_tok, w, sg = _gemm_operands(dev, M, K, N, K // 128)
+    sg = sg.to(torch.bfloat16)
+    out = _launch_once(k.w4a8_gemm_requant, a, s_tok, w, sg, out_dtype)
+    assert torch.equal(out, k.w4a8_gemm_requant_plain(a, s_tok, w, sg,
+                                                      out_dtype))
 
 
 @pytest.mark.parametrize("M,K,I", [(1, 128, 256), (5, 384, 512),
@@ -165,6 +183,15 @@ def _cache(dev, B, nkv, S, hd):
 _ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
 
 
+def _per_row_ulps(out, ref, dtype):
+    """Worst (row, head) |diff| over two ulps of its own largest output
+    (bf16 probabilities in f32: 2^-7); the rows agree when it is ≤ 1."""
+    ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
+    d = (out.float() - ref.float()).abs().amax(dim=-1)
+    tol = ulps * ref.float().abs().amax(dim=-1)
+    return float(torch.where(d > 0, d / tol, torch.zeros_like(d)).max())
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("nh,nkv,hd", [(4, 2, 64), (8, 1, 128), (2, 2, 32)])
 def test_decode_attention_kernel(dev, dtype, nh, nkv, hd):
@@ -225,8 +252,12 @@ def test_cpu_cache_len_beside_cuda_tensors_raises(dev, kernel):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("nh,nkv,hd,T,clen", [(4, 2, 64, 16, (0, 20)),
-                                              (2, 2, 128, 100, (0, 37))])
+                                              (2, 2, 128, 100, (0, 37)),
+                                              (8, 2, 128, 100, (0, 37))])
 def test_flash_attention_kernel(dev, dtype, nh, nkv, hd, T, clen):
+    """GQA up to g = 4, chunks after cached keys, T not a multiple of the
+    kernel's 64-row block; each output row within two ulps of its own
+    largest value (bf16 probabilities in f32: 2^-7)."""
     from qqq_tpu_torch.kernels.attention import (
         flash_attention_int8, flash_attention_int8_plain,
     )
@@ -235,12 +266,9 @@ def test_flash_attention_kernel(dev, dtype, nh, nkv, hd, T, clen):
     q = torch.randn((B, nh, T, hd), generator=_gen(dev), device=dev).to(dtype)
     cl = torch.tensor(clen, dtype=torch.int32, device=dev)
     args = (q, *_cache(dev, B, nkv, S, hd), cl)
-    out = flash_attention_int8(*args)
+    out = _launch_once(flash_attention_int8, *args)
     ref = flash_attention_int8_plain(*args)
-    # bf16 probabilities: a flipped rounding of one is 2^-8 of its term
-    ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
-    assert float((out.float() - ref.float()).abs().max()) \
-        <= ulps * float(ref.float().abs().max())
+    assert _per_row_ulps(out, ref, dtype) <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -377,22 +405,29 @@ def test_flash_decode_kernel(dev, dtype, nh, nkv, hd, S, sblk):
         <= ulps * float(ref.float().abs().max())
 
 
-def test_flash_decode_tile_too_large_raises(dev):
+def test_flash_decode_whole_cache_tile(dev):
     """hd = 64 at S = 16384 makes JAX's tile the whole cache: 16384 keys'
-    scores for 4 query heads do not fit a block's shared memory, and the
-    wrapper refuses rather than retile (the tile fixes the numerics)."""
-    from qqq_tpu_torch.kernels.attention import flash_decode_attention_int8
+    scores for 4 query heads do not fit a block's shared memory, so they
+    live in a workspace the wrapper allocates; one launch, each (row, head)
+    within two ulps of the plain version over the same tile.  A 2048-key
+    tile still keeps its scores in shared memory."""
+    from qqq_tpu_torch.kernels.attention import (
+        flash_decode_attention_int8, flash_decode_attention_int8_plain,
+        flash_decode_tile, flash_decode_workspace_bytes,
+    )
 
     B, nh, nkv, S, hd = 1, 8, 2, 16384, 64
+    assert flash_decode_tile(nkv, S, hd, nh // nkv) == S
+    assert flash_decode_workspace_bytes(B, nh, nkv, hd, S) == 4 * B * nh * S
+    assert flash_decode_workspace_bytes(B, nh, nkv, hd, 2048) == 0
     q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev)
-    args = (q, *_cache(dev, B, nkv, S, hd),
-            torch.tensor([S], dtype=torch.int32, device=dev))
-    n0 = flash_decode_attention_int8.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        flash_decode_attention_int8(*args)
-    assert flash_decode_attention_int8.launches == n0
-    flash_decode_attention_int8(*args, sblk=2048)  # a smaller tile fits
-    assert flash_decode_attention_int8.launches == n0 + 1
+    for clen in (S, 9001):
+        args = (q, *_cache(dev, B, nkv, S, hd),
+                torch.tensor([clen], dtype=torch.int32, device=dev))
+        for sblk in (None, 2048):
+            out = _launch_once(flash_decode_attention_int8, *args, sblk=sblk)
+            ref = flash_decode_attention_int8_plain(*args, sblk=sblk)
+            assert _per_row_ulps(out, ref, q.dtype) <= 1
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 128, 33), (3, 384, 96),
