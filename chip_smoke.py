@@ -13,12 +13,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (the GEMMs, the activation-quant-fused ones included, and the KV writes
    bit-exact, requant also at ragged M and N, the paged writes outside the
    null block; the GLU-fused GEMMs and the attention kernels within two
-   bf16 ulps of the largest output, slot flash and the S-tiled decode per
-   row of their output, slot flash also after cached keys, the S-tiled
-   decode also at Qwen2-0.5B's attention geometry, whose whole-cache tile
-   keeps its scores in a global workspace; the paged ones over scrambled
-   block tables), and time it beside its bound, its plain version and a
-   one-call PyTorch yardstick that the port never calls;
+   bf16 ulps of the largest output, slot and paged flash and the S-tiled
+   decode per row of their output, slot flash also after cached keys,
+   paged flash also bit-equal to slot flash on the gathered pool, the
+   S-tiled decode also at Qwen2-0.5B's attention geometry, whose
+   whole-cache tile keeps its scores in a global workspace; the paged ones
+   over scrambled block tables), and time it beside its bound, its plain
+   version and a one-call PyTorch yardstick that the port never calls;
 3. serve 4 requests through the port's Engine, with its default arguments
    (gate/up GLU-fused), on full-width, full-depth Llama-2-7B (random weights
    from a seeded generator): RTN-packed in groups of 128, the JAX package's
@@ -192,10 +193,11 @@ GEMM_CHECKS = {
     "w4a8_glu_channel": ((4, 128, 512, 4096), GLU_SHAPES, (4, H, 2 * I)),
     "w4a8_gemm_group": ((1, 4, 128), PLAIN_SHAPES, (4, I, H)),
     "w4a8_glu_group": ((1, 4, 128), GLU_SHAPES, (4, H, 2 * I)),
-    # and ragged row tiles of the 128 x 128 tensor-core kernel: M = 513, 1000
+    # and ragged row tiles of the 256-row tensor-core kernels: M = 513, 1000
     "w4a8_gemm_requant": ((512, 513, 1000, 1024, 2048, 4096), PLAIN_SHAPES,
                           (512, I, H)),
-    "w4a8_glu_requant": ((512, 1024, 4096), GLU_SHAPES, (512, H, 2 * I)),
+    "w4a8_glu_requant": ((512, 513, 1024, 4096), GLU_SHAPES,
+                         (512, H, 2 * I)),
 }
 #: the same at the Llama-3.1-8B shapes of every dispatch of run 3e and of
 #: its phase-4 cut: the exact kernels at decode (M = 1 in phase 4, 4 in 3e)
@@ -768,13 +770,19 @@ def _gathered_bf16(pool, tables):
 def check_paged_flash(dev, gen, timer):
     """Paged flash at the served chunk (R = 2 rows of T = 512) over
     scrambled tables, after 300 and 1400 cached keys (the chunk attends to
-    earlier blocks), and one row of a fresh prompt; two bf16 ulps.
-    Yardstick: SDPA with the causal offset mask on the gathered K/V."""
+    earlier blocks), and one row of a fresh prompt: each output row within
+    two bf16 ulps of its own largest value (:func:`ulp_rows`), and bit-equal
+    to slot flash on the pool gathered through the tables (the two differ
+    only in where a key row is read; that kernel's time is logged beside
+    it).  Yardstick: SDPA with the causal offset mask on the gathered
+    K/V."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels.attention import (
-        paged_flash_attention_int8, paged_flash_attention_int8_plain,
+        flash_attention_int8, paged_flash_attention_int8,
+        paged_flash_attention_int8_plain,
     )
+    from qqq_tpu_torch.serve.paged_kv import gather
 
     report, err = None, 0.0
     T = 512
@@ -788,17 +796,26 @@ def check_paged_flash(dev, gen, timer):
         args = (q, *pool, tables, cl)
         out = paged_flash_attention_int8(*args)
         ref = paged_flash_attention_int8_plain(*args)
+        slot_args = (q, *(gather(t, tables) for t in pool), cl)
+        slot = flash_attention_int8(*slot_args)
         torch.cuda.synchronize()
-        e = (out.float() - ref.float()).abs().max().item()
-        if not e <= ulp_tol(ref):
+        e, worst = ulp_rows(out, ref)
+        if not worst <= 1:
             raise AssertionError(f"paged_flash_attention_int8 cache_len "
-                                 f"{clen}: max |diff| {e} > {ulp_tol(ref)}")
+                                 f"{clen}: a row differs by {worst:.3g} "
+                                 f"times its bound of {ATTN_ULPS} bf16 ulps")
+        if not torch.equal(out, slot):
+            raise AssertionError(f"paged_flash_attention_int8 cache_len "
+                                 f"{clen}: not bit-equal to "
+                                 "flash_attention_int8 on the gathered pool")
         err = max(err, e)
+        del out, ref, slot
         kd, vd = _gathered_bf16(pool, tables)
         key = torch.arange(NBMAX * BS, device=dev)
         qpos = cl[:, None] + torch.arange(T, device=dev)[None, :]  # (R, T)
         mask = (key[None, None, :] <= qpos[:, :, None])[:, None]
         ms = timer.ms(lambda: paged_flash_attention_int8(*args))
+        slot_ms = timer.ms(lambda: flash_attention_int8(*slot_args))
         plain = timer.ms(lambda: paged_flash_attention_int8_plain(*args))
         lib = timer.ms(lambda: F.scaled_dot_product_attention(
             q, kd, vd, attn_mask=mask))
@@ -808,13 +825,15 @@ def check_paged_flash(dev, gen, timer):
                   + R * 4 + sum(-(-(c + T) // BS) for c in clen) * 4)
         b, by = bound_ms(nbytes, 4.0 * HD * pairs)
         log(f"  paged_flash_attention_int8 R={R} T={T} cache_len {clen}: "
-            f"max |diff| {e:.3g}; {ms:.4f} ms (bound {b:.4f} by {by}, plain "
-            f"{plain:.4f}, sdpa {lib:.4f})")
+            f"max |diff| {e:.3g} (worst row {worst:.3g} of its bound), "
+            f"bit-equal to slot flash on the gathered pool; {ms:.4f} ms "
+            f"(bound {b:.4f} by {by}, slot flash on the gathered pool "
+            f"{slot_ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f})")
         if report is None:
             report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                           bound_by=by, shape=f"R={R} T={T} causal, cache_len "
                           f"{list(clen)}, scrambled tables")
-        del pool, kd, vd
+        del pool, kd, vd, slot_args
     report["max_abs_err"] = err
     return report
 

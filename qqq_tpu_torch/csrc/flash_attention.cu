@@ -1,5 +1,5 @@
-// Causal chunk (prefill) attention over the INT8 slot cache (bf16 tensor
-// cores) and over the paged block pool (CUDA cores), for Hopper (sm_90a).
+// Causal chunk (prefill) attention over the INT8 slot cache and over the
+// paged block pool, on the bf16 tensor cores of Hopper (sm_90a).
 //
 // Replaces: qqq_tpu/kernels/attention.py:_flash_attn_kernel (:89), reached
 // through flash_attention_int8 (:249, call :384) with qk_int8 = False; and
@@ -26,13 +26,14 @@
 // visible (query, key) pair, 4 * B * nh * hd * sum_t (clen + t + 1) in all,
 // against 989 TFLOP/s of bf16 tensor cores.
 //
-// Design of the slot kernel (FlashAttention-2 on mma.sync.m16n8k16 bf16):
+// Design (FlashAttention-2 on mma.sync.m16n8k16 bf16), one kernel for both
+// layouts:
 // a block of 8 warps takes 128 query rows of one (b, kv head), rows
 // flattened as (g, T) so that the g heads of a group share every K/V tile;
 // warp w owns rows 16w..16w+15, whose q' fragments are loaded once
 // (ldmatrix) and stay in registers for the whole walk.  Keys arrive in
 // stages of 64: each stage's K/V codes and scales come by cp.async (16-byte
-// copies, rows found by key_row, the one place the cache layout enters)
+// copies, rows found by KeyRows, the one place the cache layout enters)
 // into a 3-slot ring two stages ahead of the math, and the block
 // dequantizes each stage once into bf16 K and V tiles whose rows are padded
 // by 8 bf16 (16-byte aligned, conflict-free ldmatrix).  Per 32-key softmax
@@ -43,10 +44,11 @@
 // rescales acc by alpha and adds P.V (V by ldmatrix.trans).  A block walks
 // keys only up to its last row's causal limit, and the grid launches the
 // longest rows first so that the causal tail does not finish on a few SMs.
-//
-// Paged flash (#15) still runs the CUDA-core kernel below (f32 fmaf from
-// shared memory, 32-key tiles): a 4 x 4 register tile of scores per thread
-// and its share of P.V.
+// Over the pool each copied key row is looked up on its own (a 64-key stage
+// spans several blocks when bs < 64), the table entry read through the
+// read-only cache.  Everything past the copies is the slot kernel's, so the
+// paged kernel on a pool is bit-identical to the slot kernel on the pool
+// gathered through the tables.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,10 +64,6 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -75,9 +73,6 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-
-// ---------------------------------------------------------------------------
-// slot flash on the tensor cores
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int BQ = 128;        // query rows a block, 16 a warp
@@ -97,11 +92,35 @@ struct TcLayout {
   static constexpr int kBytes = kOffV + BKS * LD * 2;
 };
 
-// The (B, nkv, S, hd) cache row of key s of (b, kv head) bh: the one place
-// the slot layout enters the walk.
-__device__ __forceinline__ long long key_row(size_t bh, int S, int s) {
-  return (long long)(bh * S + s);
-}
+// The cache row of key s of (b, kv head h): the one place the layout enters
+// the walk.  Slot: row (b * nkv + h) * S + s of the (B, nkv, S, hd) cache.
+// Paged: row (tab[b][s / bs] * nkv + h) * bs + s % bs of the (nb, nkv, bs,
+// hd) pool, S = nbmax * bs.
+template <bool kPaged>
+struct KeyRows;
+
+template <>
+struct KeyRows<false> {
+  long long base;
+  static __device__ KeyRows make(const int*, int b, int h, int nkv, int S,
+                                 int) {
+    return {((long long)b * nkv + h) * S};
+  }
+  __device__ long long operator()(int s) const { return base + s; }
+};
+
+template <>
+struct KeyRows<true> {
+  const int* tab;  // row b's table
+  int nkv, h, bs;
+  static __device__ KeyRows make(const int* tables, int b, int h, int nkv,
+                                 int S, int bs) {
+    return {tables + (size_t)b * (S / bs), nkv, h, bs};
+  }
+  __device__ long long operator()(int s) const {
+    return ((long long)__ldg(tab + s / bs) * nkv + h) * bs + s % bs;
+  }
+};
 
 __device__ __forceinline__ void cp16z(uint32_t dst, const void* src,
                                       bool valid) {
@@ -151,41 +170,44 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 
 // Issue the copies of load stage `st` (keys st*BKS ..) into ring slot
 // st % kRing; keys at or past kend are zero-filled, never read.
-template <int HD>
+template <int HD, class Rows>
 __device__ __forceinline__ void load_stage(
     uint8_t* smem, const int8_t* kc, const float* ks, const int8_t* vc,
-    const float* vs, size_t bh, int S, int kend, int st, int tid) {
+    const float* vs, const Rows& rows, int kend, int st, int tid) {
   using L = TcLayout<HD>;
   const uint32_t slot =
       (uint32_t)__cvta_generic_to_shared(smem + (st % kRing) * L::kSlot);
   constexpr int kChunks = BKS * HD / 16;  // 16-byte chunks of K (and of V)
+  static_assert(kChunks % kThreads == 0, "whole passes");
+  // each key row found once for its K and V copies
 #pragma unroll
-  for (int i = 0; i < 2 * kChunks / kThreads; ++i) {
+  for (int i = 0; i < kChunks / kThreads; ++i) {
     const int id = tid + i * kThreads;
-    const int v = id / kChunks;  // 0: K, 1: V
-    const int kk = (id % kChunks) / (HD / 16), c = id % (HD / 16);
+    const int kk = id / (HD / 16), c = id % (HD / 16);
     const int s = st * BKS + kk;
     const bool ok = s < kend;
-    const long long row = key_row(bh, S, ok ? s : 0);
-    cp16z(slot + (v * BKS + kk) * HD + c * 16,
-          (v ? vc : kc) + row * HD + c * 16, ok);
+    const long long row = rows(ok ? s : 0);
+    cp16z(slot + kk * HD + c * 16, kc + row * HD + c * 16, ok);
+    cp16z(slot + (BKS + kk) * HD + c * 16, vc + row * HD + c * 16, ok);
   }
-  if (tid < 2 * BKS) {  // K then V scales, one a thread
-    const int v = tid / BKS, kk = tid % BKS;
-    const int s = st * BKS + kk;
+  if (tid < BKS) {  // K and V scales, one key a thread
+    const int s = st * BKS + tid;
     const bool ok = s < kend;
-    const long long row = key_row(bh, S, ok ? s : 0);
-    cp4z(slot + L::kCodes + (v * BKS + kk) * 4, (v ? vs : ks) + row, ok);
+    const long long row = rows(ok ? s : 0);
+    cp4z(slot + L::kCodes + tid * 4, ks + row, ok);
+    cp4z(slot + L::kCodes + (BKS + tid) * 4, vs + row, ok);
   }
 }
 
-template <int HD, typename T>
+// tab (B, S / bs) tables and bs: the pool's (kPaged); unused for the slot
+// cache.
+template <int HD, typename T, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                 const float* __restrict__ ks, const int8_t* __restrict__ vc,
-                const float* __restrict__ vs,
+                const float* __restrict__ vs, const int* __restrict__ tab,
                 const int* __restrict__ cache_len, T* __restrict__ out,
-                int nh, int nkv, int Tq, int S, int causal) {
+                int nh, int nkv, int Tq, int S, int bs, int causal) {
   using L = TcLayout<HD>;
   constexpr int LD = L::LD;
   constexpr int KC = HD / 16;  // k16 chunks of a q' row
@@ -202,7 +224,7 @@ flash_tc_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   const int g = nh / nkv;
   const int M = g * Tq;
   const int clen = cache_len[b];
-  const size_t bh = (size_t)b * nkv + h;
+  const auto rows = KeyRows<kPaged>::make(tab, b, h, nkv, S, bs);
   // rows r = j * T + t of heads h*g .. h*g+g-1 are contiguous in q and out
   const size_t qbase = ((size_t)b * nh + (size_t)h * g) * Tq * HD;
 
@@ -214,7 +236,7 @@ flash_tc_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
 
 #pragma unroll
   for (int i = 0; i < kRing - 1; ++i) {
-    if (i < nst) load_stage<HD>(smem, kc, ks, vc, vs, bh, S, kend, i, tid);
+    if (i < nst) load_stage<HD>(smem, kc, ks, vc, vs, rows, kend, i, tid);
     cp_commit();
   }
 
@@ -267,7 +289,7 @@ flash_tc_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     cp_wait<kRing - 2>();  // this thread's copies of stage st have landed
     __syncthreads();  // everyone's; the K/V tiles and slot st - 1 are free
     if (st + kRing - 1 < nst)
-      load_stage<HD>(smem, kc, ks, vc, vs, bh, S, kend, st + kRing - 1, tid);
+      load_stage<HD>(smem, kc, ks, vc, vs, rows, kend, st + kRing - 1, tid);
     cp_commit();
     {  // dequantize: bf16(code * bf16(scale)), 8 codes a thread a pass
       const uint8_t* slot = smem + (st % kRing) * L::kSlot;
@@ -383,11 +405,12 @@ flash_tc_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   }
 }
 
-template <int HD, typename T>
+template <int HD, typename T, bool kPaged>
 int launch_tc(const void* q, const void* kc, const void* ks, const void* vc,
-              const void* vs, const void* cl, void* out, int B, int nh,
-              int nkv, int Tq, int S, int causal, cudaStream_t st) {
-  auto kernel = flash_tc_kernel<HD, T>;
+              const void* vs, const void* tab, const void* cl, void* out,
+              int B, int nh, int nkv, int Tq, int S, int bs, int causal,
+              cudaStream_t st) {
+  auto kernel = flash_tc_kernel<HD, T, kPaged>;
   const int fit = smem_fit(kernel, TcLayout<HD>::kBytes);
   if (fit != 0) return fit;
   const int M = (nh / nkv) * Tq;
@@ -395,207 +418,10 @@ int launch_tc(const void* q, const void* kc, const void* ks, const void* vc,
   kernel<<<grid, kThreads, TcLayout<HD>::kBytes, st>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(kc),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
-      static_cast<const float*>(vs), static_cast<const int*>(cl),
-      static_cast<T*>(out), nh, nkv, Tq, S, causal);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// paged flash on the CUDA cores
-
-constexpr int kPgThreads = 128;
-constexpr int PQ = 64;  // query rows per block: 16 row groups of 4
-constexpr int PK = 32;  // keys per tile: 8 key groups of 4
-
-// The CUDA-core kernel, which paged flash still runs: kc/ks/vc/vs are the
-// (nb, nkv, bs, hd) pool and its scales, tab the (B, nbmax) tables, S =
-// nbmax * bs.
-template <int HD, typename T>
-__global__ void __launch_bounds__(kPgThreads)
-paged_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
-                   const float* __restrict__ ks,
-                   const int8_t* __restrict__ vc,
-                   const float* __restrict__ vs,
-                   const int* __restrict__ tab,
-                   const int* __restrict__ cache_len, T* __restrict__ out,
-                   int nh, int nkv, int Tq, int S, int bs, int causal) {
-  constexpr int LD = HD + 2;       // padded bf16 row stride (odd word count)
-  constexpr int NP = HD / 16;      // output dim pairs per thread
-  __shared__ __nv_bfloat16 Qs[PQ * LD];
-  __shared__ __nv_bfloat16 Ks[PK * LD];
-  __shared__ __nv_bfloat16 Vs[PK * LD];
-  __shared__ float Ps[PQ][PK + 1];
-  __shared__ long long krow[PK];  // cache / pool row of each key, -1: none
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;
-  const int ty = tid >> 3;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int g = nh / nkv;
-  const int M = g * Tq;
-  const int r0 = blockIdx.x * PQ;
-  const int clen = cache_len[b];
-  // rows r = j * T + t of heads h*g .. h*g+g-1 are contiguous in q and out
-  const size_t qbase = ((size_t)b * nh + (size_t)h * g) * Tq * HD;
-  const float sq = sqrtf((float)HD);
-
-  for (int i = tid; i < PQ * HD; i += kPgThreads) {
-    const int rr = i / HD, d = i % HD;
-    const int r = r0 + rr;
-    const float v = r < M ? to_f(q[qbase + (size_t)r * HD + d]) / sq : 0.f;
-    Qs[rr * LD + d] = __float2bfloat16_rn(v);
-  }
-
-  // the last key any row of this block can see
-  const int rlast = min(r0 + PQ, M) - 1;
-  const int t_max = (r0 / Tq == rlast / Tq) ? rlast % Tq : Tq - 1;
-  const int kend = min(S, causal ? clen + t_max + 1 : clen + Tq);
-
-  int trow[4];
-  float mrow[4], lrow[4];
-  float2 acc[4][NP];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    trow[i] = (r0 + ty * 4 + i) % Tq;
-    mrow[i] = kNegInf;
-    lrow[i] = 0.f;
-#pragma unroll
-    for (int p = 0; p < NP; ++p) acc[i][p] = make_float2(0.f, 0.f);
-  }
-
-  for (int s0 = 0; s0 < kend; s0 += PK) {
-    __syncthreads();  // the previous tile's readers are done
-    if (tid < PK) {
-      const int s = s0 + tid;
-      long long row = -1;
-      if (s < kend)
-        row = ((long long)tab[(size_t)b * (S / bs) + s / bs] * nkv + h) * bs
-              + s % bs;
-      krow[tid] = row;
-    }
-    __syncthreads();
-    for (int i = tid; i < PK * HD; i += kPgThreads) {
-      const int kk = i / HD, d = i % HD;
-      const long long row = krow[kk];
-      float kv = 0.f, vv = 0.f;
-      if (row >= 0) {
-        kv = (float)kc[row * HD + d] * bf16r(ks[row]);
-        vv = (float)vc[row * HD + d] * bf16r(vs[row]);
-      }
-      Ks[kk * LD + d] = __float2bfloat16_rn(kv);
-      Vs[kk * LD + d] = __float2bfloat16_rn(vv);
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    const __nv_bfloat162* Q2 = reinterpret_cast<const __nv_bfloat162*>(Qs);
-    const __nv_bfloat162* K2 = reinterpret_cast<const __nv_bfloat162*>(Ks);
-#pragma unroll 4
-    for (int dp = 0; dp < HD / 2; ++dp) {
-      float2 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = __bfloat1622float2(Q2[((ty * 4 + i) * LD) / 2 + dp]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = __bfloat1622float2(K2[((tx * 4 + j) * LD) / 2 + dp]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qv[i].x, kv[j].x, sc[i][j]);
-          sc[i][j] = fmaf(qv[i].y, kv[j].y, sc[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = s0 + tx * 4 + j;
-        bool ok = key < S && key < clen + Tq;
-        if (causal) ok = ok && key <= clen + trow[i];
-        if (!ok) sc[i][j] = kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float mn = fmaxf(mrow[i], mx);
-      const float alpha = expf(mrow[i] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(sc[i][j] - mn);
-        sum += e;
-        Ps[ty * 4 + i][tx * 4 + j] = bf16r(e);
-      }
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      lrow[i] = lrow[i] * alpha + sum;
-      mrow[i] = mn;
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        acc[i][p].x *= alpha;
-        acc[i][p].y *= alpha;
-      }
-    }
-    __syncthreads();
-
-    const __nv_bfloat162* V2 = reinterpret_cast<const __nv_bfloat162*>(Vs);
-#pragma unroll 2
-    for (int kk = 0; kk < PK; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[ty * 4 + i][kk];
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const float2 v = __bfloat1622float2(V2[(kk * LD) / 2 + tx + 8 * p]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][p].x = fmaf(pv[i], v.x, acc[i][p].x);
-          acc[i][p].y = fmaf(pv[i], v.y, acc[i][p].y);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r < M) {
-      const float den = fmaxf(lrow[i], 1e-30f);
-      T* o = out + qbase + (size_t)r * HD;
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const int d = 2 * (tx + 8 * p);
-        store(o + d, acc[i][p].x / den);
-        store(o + d + 1, acc[i][p].y / den);
-      }
-    }
-  }
-}
-
-template <int HD, typename T>
-void launch_paged(const void* q, const void* kc, const void* ks,
-                  const void* vc, const void* vs, const void* tab,
-                  const void* cl, void* out, int B, int nh, int nkv, int Tq,
-                  int S, int bs, int causal, cudaStream_t st) {
-  const int M = (nh / nkv) * Tq;
-  const dim3 grid((M + PQ - 1) / PQ, nkv, B);
-  paged_flash_kernel<HD, T><<<grid, kPgThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(kc),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
       static_cast<const float*>(vs), static_cast<const int*>(tab),
       static_cast<const int*>(cl), static_cast<T*>(out), nh, nkv, Tq, S, bs,
       causal);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -610,9 +436,9 @@ extern "C" int flash_attention_int8(const void* q, const void* k_cache,
                                     int S, int hd, int causal, int bf16_io,
                                     void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define FL_LAUNCH(HD_, T_)                                                  \
-  launch_tc<HD_, T_>(q, k_cache, k_scale, v_cache, v_scale, cache_len, out, \
-                     B, nh, nkv, T, S, causal, st)
+#define FL_LAUNCH(HD_, T_)                                                   \
+  launch_tc<HD_, T_, false>(q, k_cache, k_scale, v_cache, v_scale, nullptr, \
+                            cache_len, out, B, nh, nkv, T, S, 1, causal, st)
   if (hd == 128)
     return bf16_io ? FL_LAUNCH(128, __nv_bfloat16) : FL_LAUNCH(128, float);
   if (hd == 64)
@@ -632,18 +458,13 @@ extern "C" int paged_flash_attention_int8(
     int nbmax, int hd, int causal, int bf16_io, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const int S = nbmax * bs;
-#define PG_LAUNCH(HD_, T_)                                                   \
-  launch_paged<HD_, T_>(q, k_pool, k_scale, v_pool, v_scale, tables,         \
-                        cache_len, out, B, nh, nkv, T, S, bs, causal, st)
-  if (hd == 128) {
-    if (bf16_io) PG_LAUNCH(128, __nv_bfloat16);
-    else PG_LAUNCH(128, float);
-  } else if (hd == 64) {
-    if (bf16_io) PG_LAUNCH(64, __nv_bfloat16);
-    else PG_LAUNCH(64, float);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+#define PG_LAUNCH(HD_, T_)                                                 \
+  launch_tc<HD_, T_, true>(q, k_pool, k_scale, v_pool, v_scale, tables,    \
+                           cache_len, out, B, nh, nkv, T, S, bs, causal, st)
+  if (hd == 128)
+    return bf16_io ? PG_LAUNCH(128, __nv_bfloat16) : PG_LAUNCH(128, float);
+  if (hd == 64)
+    return bf16_io ? PG_LAUNCH(64, __nv_bfloat16) : PG_LAUNCH(64, float);
 #undef PG_LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,9 @@
 // Shared pieces of the W4A8 GEMM kernels (w4a8_gemm.cu, w4a8_requant.cu,
 // w4a8_group.cu, w4a8_fused.cu): the nibble-plane operand layout, the GLU
-// column map and epilogue, the INT4 -> INT8 regrid, and the CUDA-core
-// int32-dot main loop (int_dot_kernel) that the per-channel kernels (plain
-// and GLU) and the g128 requant GLU kernel still run.  The plain g128
-// requant kernel left it for the int8 tensor cores (w4a8_requant.cu).
+// column map and epilogue, the INT4 -> INT8 regrid of one code, and the
+// CUDA-core int32-dot main loop (int_dot_kernel) of the per-channel kernels
+// (plain and GLU).  The g128 requant kernels, plain and GLU, run the int8
+// tensor cores instead (w4a8_requant.cu).
 //
 // Operand layout (core/packing.py).  Word row 16b+r of a column holds, in
 // its low nibbles, the codes k = 128b+4r+{0..3} and, in its high nibbles,
@@ -84,30 +84,16 @@ __device__ __forceinline__ int requant1(int q, float sf) {
   return min(127, max(-127, w8));
 }
 
-// requant1 of four codes, one per byte of u4; returns four signed bytes.
-__device__ __forceinline__ int requant4(unsigned u4, float sf) {
-  unsigned packed = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int w8 = requant1((int)((u4 >> (8 * i)) & 0xFu) - 8, sf);
-    packed |= ((unsigned)w8 & 0xFFu) << (8 * i);
-  }
-  return (int)packed;
-}
-
-// The int32-dot main loop.  kRequant = false: the per-channel kernel,
+// The int32-dot main loop of the per-channel kernel,
 //   D = ((A·U)_s32 − 8·rowsum A) · s_col[n] · s_tok[m]
-// with s_col = s_channel.  kRequant = true: the g128 requant kernel,
-//   D = (A·W8)_s32 · s_col[n] · s_tok[m]
-// with W8 the regridded weights of requant4 and s_col = s_extra.  Both are
-// exact in int32 up to the two f32 multiplies of the epilogue, taken in the
-// JAX kernels' order, so the result is bit-identical to the plain version.
-template <int BM, bool kRequant, bool kGlu, bool kBf16Out>
+// with s_col = s_channel: exact in int32 up to the two f32 multiplies of
+// the epilogue, taken in the JAX kernel's order, so the result is
+// bit-identical to the plain version.
+template <int BM, bool kGlu, bool kBf16Out>
 __global__ void __launch_bounds__(kThreads)
 int_dot_kernel(const int8_t* __restrict__ a, const float* __restrict__ s_tok,
                const int32_t* __restrict__ w, const float* __restrict__ s_col,
-               const float* __restrict__ s_frac, void* __restrict__ out,
-               int M, int K, int Nw) {
+               void* __restrict__ out, int M, int K, int Nw) {
   constexpr int NS = kGlu ? 2 : 1;
   __shared__ int red[kWarps][NS][BM][kCols];
   __shared__ int asum[BM];
@@ -117,7 +103,7 @@ int_dot_kernel(const int8_t* __restrict__ a, const float* __restrict__ s_tok,
   const int o = blockIdx.x * kCols + lane;
   const int m0 = blockIdx.y * BM;
   const int KB = K / 128;
-  if (!kRequant && threadIdx.x < BM) asum[threadIdx.x] = 0;
+  if (threadIdx.x < BM) asum[threadIdx.x] = 0;
 
   int acc[NS][BM];
 #pragma unroll
@@ -134,21 +120,6 @@ int_dot_kernel(const int8_t* __restrict__ a, const float* __restrict__ s_tok,
 #pragma unroll
         for (int r = 0; r < 16; ++r) raw[s][r] = (unsigned)__ldg(wp + (size_t)r * Nw);
       }
-      // requant: the regridded INT8 words against A words r and 16 + r,
-      // made once per K block for all BM rows
-      int wq[NS][32];
-      if constexpr (kRequant) {
-#pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          const float sf =
-              __ldg(s_frac + (size_t)kb * Nw + weight_col<kGlu>(o, s));
-#pragma unroll
-          for (int r = 0; r < 16; ++r) {
-            wq[s][r] = requant4(raw[s][r] & kNib, sf);
-            wq[s][16 + r] = requant4((raw[s][r] >> 4) & kNib, sf);
-          }
-        }
-      }
 #pragma unroll
       for (int i = 0; i < BM; ++i) {
         if (m0 + i < M) {
@@ -159,14 +130,11 @@ int_dot_kernel(const int8_t* __restrict__ a, const float* __restrict__ s_tok,
             int t = acc[s][i];
 #pragma unroll
             for (int r = 0; r < 16; ++r) {
-              // per channel: the nibble planes masked where they are used;
-              // holding 32 unpacked words instead costs registers and ran
-              // the BM = 16 kernel ~40% slower on the H100
-              const int lo = kRequant ? wq[s][r] : (int)(raw[s][r] & kNib);
-              const int hi =
-                  kRequant ? wq[s][16 + r] : (int)((raw[s][r] >> 4) & kNib);
-              t = __dp4a(lo, av[r], t);
-              t = __dp4a(hi, av[16 + r], t);
+              // the nibble planes masked where they are used; holding 32
+              // unpacked words instead costs registers and ran the BM = 16
+              // kernel ~40% slower on the H100
+              t = __dp4a((int)(raw[s][r] & kNib), av[r], t);
+              t = __dp4a((int)((raw[s][r] >> 4) & kNib), av[16 + r], t);
             }
             acc[s][i] = t;
           }
@@ -176,7 +144,7 @@ int_dot_kernel(const int8_t* __restrict__ a, const float* __restrict__ s_tok,
   }
   __syncthreads();  // asum zeroed before the atomics below
 
-  if (!kRequant) {  // full-row sums of A for this block's rows (exact)
+  {  // full-row sums of A for this block's rows (exact)
     const int K4 = K / 4;
 #pragma unroll
     for (int i = 0; i < BM; ++i) {
@@ -209,7 +177,7 @@ int_dot_kernel(const int8_t* __restrict__ a, const float* __restrict__ s_tok,
         int tot = 0;
 #pragma unroll
         for (int q = 0; q < kWarps; ++q) tot += red[q][s][i][c];
-        if (!kRequant) tot -= 8 * asum[i];  // undo the +8 code offset
+        tot -= 8 * asum[i];  // undo the +8 code offset
         v[s] = __fmul_rn((float)tot, s_col[weight_col<kGlu>(oo, s)]);
         v[s] = __fmul_rn(v[s], s_tok[m]);
       }
@@ -224,14 +192,14 @@ inline dim3 grid_for(int M, int No, int BM) {
   return dim3((No + kCols - 1) / kCols, (M + BM - 1) / BM);
 }
 
-template <bool kRequant, bool kGlu, bool kBf16Out>
+template <bool kGlu, bool kBf16Out>
 void launch_int_dot(int BM, const int8_t* a, const float* s_tok,
-                    const int32_t* w, const float* s_col, const float* s_frac,
-                    void* out, int M, int K, int Nw, cudaStream_t st) {
+                    const int32_t* w, const float* s_col, void* out, int M,
+                    int K, int Nw, cudaStream_t st) {
   const int No = kGlu ? Nw / 2 : Nw;
-#define W4A8_LAUNCH(bm)                                                      \
-  int_dot_kernel<bm, kRequant, kGlu, kBf16Out>                                \
-      <<<grid_for(M, No, bm), kThreads, 0, st>>>(a, s_tok, w, s_col, s_frac, \
+#define W4A8_LAUNCH(bm)                                               \
+  int_dot_kernel<bm, kGlu, kBf16Out>                                  \
+      <<<grid_for(M, No, bm), kThreads, 0, st>>>(a, s_tok, w, s_col, \
                                                  out, M, K, Nw)
   switch (BM) {
     case 1: W4A8_LAUNCH(1); break;

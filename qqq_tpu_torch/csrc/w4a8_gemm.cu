@@ -46,14 +46,14 @@ extern "C" int w4a8_gemm_channel(const void* a, const void* s_tok,
   const int bm = rows_per_block(M);
   if (glu) {
     if (bf16_out)
-      launch_int_dot<false, true, true>(bm, A, ST, W, SC, nullptr, out, M, K, N, st);
+      launch_int_dot<true, true>(bm, A, ST, W, SC, out, M, K, N, st);
     else
-      launch_int_dot<false, true, false>(bm, A, ST, W, SC, nullptr, out, M, K, N, st);
+      launch_int_dot<true, false>(bm, A, ST, W, SC, out, M, K, N, st);
   } else {
     if (bf16_out)
-      launch_int_dot<false, false, true>(bm, A, ST, W, SC, nullptr, out, M, K, N, st);
+      launch_int_dot<false, true>(bm, A, ST, W, SC, out, M, K, N, st);
     else
-      launch_int_dot<false, false, false>(bm, A, ST, W, SC, nullptr, out, M, K, N, st);
+      launch_int_dot<false, false>(bm, A, ST, W, SC, out, M, K, N, st);
   }
   return (int)cudaGetLastError();
 }

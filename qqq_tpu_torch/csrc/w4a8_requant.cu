@@ -1,6 +1,6 @@
-// g128 W4A8 GEMM, requant route, for Hopper (sm_90a): the INT4 codes are
-// regridded to INT8 and the whole K takes one exact int32 dot, on the int8
-// tensor cores; the GLU-fused variant still on the CUDA cores.
+// g128 W4A8 GEMM, requant route, plain and GLU-fused, for Hopper (sm_90a):
+// the INT4 codes are regridded to INT8 and the whole K takes one exact int32
+// dot, on the int8 tensor cores.
 //
 // Replaces: qqq_tpu/kernels/w4a8_gemm.py:_w4a8_requant_group_kernel (:81),
 // reached through w4a8_gemm (:469, call :606) with group_size = 128 and
@@ -9,8 +9,10 @@
 //
 // Computes  w8[k, n] = clip(rint((u[k, n] - 8) * s_frac[k/128, n]), ±127),
 //           D[m, n]  = out( (float)(A · w8)[m, n] * s_extra[n] * s_tok[m] )
-// with the double scale s_frac = s_group / s_extra and s_extra =
-// 7·max_g s_group / 127, both computed by the wrapper (kernels/w4a8_gemm.py).
+// (GLU: that sum, scaled, of the gate column g and of the up column u of
+// each output column, then out(silu_mul(g, u)), w4a8_common.cuh) with the
+// double scale s_frac = s_group / s_extra and s_extra = 7·max_g s_group /
+// 127, both computed by the wrapper (kernels/w4a8_gemm.py).
 // The regrid rounds one f32 product half to even (the offset is removed
 // before the multiply, as in the JAX kernel's _requant_w8 :60), the dot is
 // exact in int32 in any order (|sum| <= K·127² < 2³¹), and the epilogue
@@ -18,16 +20,17 @@
 // PyTorch version (the GLU variant up to expf).
 //
 // What bounds it on the H100: this route serves prefill (M >= 512 rows),
-// where the 2·M·N·K int8 products bound it, 1979 TOP/s on the tensor cores.
+// where the 2·M·N·K int8 products bound it, 1979 TOP/s on the tensor cores
+// (N = 2I weight columns for the GLU kernel).
 //
-// Design (glu = 0; after LiquidGEMM's W4A8 kernel, PAPERS.md): a block of two
-// warpgroups owns a 256 x 128 output tile and walks K in steps of 128, one
-// g128 group: one s_frac row and one 16-word block of the nibble-plane
+// Design (after LiquidGEMM's W4A8 kernel, PAPERS.md): a block of two
+// warpgroups owns 256 rows x 128 weight columns and walks K in steps of 128,
+// one g128 group: one s_frac row and one 16-word block of the nibble-plane
 // packing (w4a8_common.cuh). Per step, A (256 rows x 128 int8) arrives by
 // cp.async into a 128-byte-swizzled K-major tile, and the packed words and
 // the s_frac row into a 4-stage ring (two steps ahead). The block then
 // regrids the step's words once, for all 256 rows (the CUDA-core kernel did
-// it once per 16): a 16-entry table per column holds requant4's w8 of each
+// it once per 16): a 16-entry table per column holds requant1's w8 of each
 // code, and each packed word becomes two 4-byte K-major chunks of the int8 B
 // tile through byte permutes (word r of a column holds k = 4r..4r+3 in its
 // low nibbles and 64+4r.. in its high ones, so no shuffle is needed). The
@@ -44,10 +47,15 @@
 // wrapper allocates (w4a8_requant_workspace_bytes) and a second kernel adds
 // the splits and applies the epilogue, bit-exact in any order.
 //
-// Still on the old loop: glu = 1 (#8, _w4a8_requant_group_glu_kernel) runs
-// int_dot_kernel of w4a8_common.cuh (__dp4a, 16 rows a block).  The new
-// loop's loader takes the column map (weight_col<kGlu>) as a template
-// parameter so that the GLU kernel becomes an instantiation of it.
+// GLU (kGlu): the same main loop over a tile whose 128 weight columns are
+// the 64 gate columns of output columns o0 .. o0 + 63 followed by their 64
+// up columns (tile_col; each run is contiguous, as 64 divides the
+// interleave of 256), so the regrid costs per int8 product what the plain
+// kernel's does.  In the m64n128 fragment a thread's accumulator i + 32 is
+// column + 64 of its accumulator i: each thread holds the gate and the up
+// sum of the same output, and the epilogue applies silu_mul in registers.
+// A split-K GLU grid adds the gate and up partials in weight-column space
+// in its second pass, then applies the same epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,7 +70,7 @@ using w4a8::weight_col;
 
 constexpr int TM = 256;              // output rows a block
 constexpr int kSlabs = TM / 128;     // m64 slabs a warpgroup
-constexpr int TN = 128;              // output columns a block
+constexpr int TN = 128;              // weight columns a block
 constexpr int TK = 128;              // K a step: one g128 group
 constexpr int kWordsK = TK / 8;      // packed words a column a step
 constexpr int kStages = 4;           // ring of A, words and s_frac
@@ -178,14 +186,27 @@ __device__ __forceinline__ unsigned regrid4(unsigned x, uint4 t) {
   return (hi8 & hi) | (lo8 & ~hi);
 }
 
+// Output columns a block: 128, or 64 with the GLU epilogue.
+template <bool kGlu>
+constexpr int kOutCols = kGlu ? TN / 2 : TN;
+
+// Weight column of tile column c of the block whose first output column is
+// o0 (the last output column repeated past No).  GLU: c < 64 the gate, c >=
+// 64 the up column of output column o0 + c % 64.
+template <bool kGlu>
+__device__ __forceinline__ int tile_col(int o0, int c, int No) {
+  const int o = min(o0 + c % kOutCols<kGlu>, No - 1);
+  return weight_col<kGlu>(o, c / kOutCols<kGlu>);
+}
+
 // Issue the cp.async copies of K step kb into ring slot s: A rows m0.. (the
 // last row repeated past M), the step's 16 packed-word rows of the block's
-// columns (the last column repeated past N) and their s_frac.
+// weight columns and their s_frac.
 template <bool kGlu>
 __device__ __forceinline__ void load_step(uint32_t base, const int8_t* a,
                                           const int32_t* w, const float* sf,
                                           int M, int K, int Nw, int No,
-                                          int m0, int n0, int kb, int s,
+                                          int m0, int o0, int kb, int s,
                                           int tid) {
   const uint32_t sa = base + kOffA + s * TM * TK;
 #pragma unroll
@@ -200,11 +221,11 @@ __device__ __forceinline__ void load_step(uint32_t base, const int8_t* a,
   for (int i = 0; i < kWordsK * TN / kThreads; ++i) {
     const int id = tid + i * kThreads;
     const int r = id / TN, c = id % TN;
-    const int n = weight_col<kGlu>(min(n0 + c, No - 1), 0);
+    const int n = tile_col<kGlu>(o0, c, No);
     cp4(sw + (r * kWLd + c) * 4, w + ((size_t)kb * kWordsK + r) * Nw + n);
   }
   if (tid < TN) {
-    const int n = weight_col<kGlu>(min(n0 + tid, No - 1), 0);
+    const int n = tile_col<kGlu>(o0, tid, No);
     cp4(base + kOffSf + (s * TN + tid) * 4, sf + (size_t)kb * Nw + n);
   }
 }
@@ -220,9 +241,15 @@ __device__ __forceinline__ void frag_pos(int h, int i, int tid, int& r,
   c = 8 * (i >> 2) + 2 * (l & 3) + (e & 1);
 }
 
-// One block: output tile (blockIdx.y, blockIdx.x) over K steps
-// [z * steps, (z + 1) * steps) of split z = blockIdx.z.  One split: the
-// scaled tile to `out`; several: the int32 partial tile to ws[z] (M, No).
+// The epilogue's two multiplies, in the JAX kernel's order.
+__device__ __forceinline__ float scaled(int acc, float s_col, float s_tok) {
+  return __fmul_rn(__fmul_rn((float)acc, s_col), s_tok);
+}
+
+// One block: tile (blockIdx.y, blockIdx.x) over K steps [z * steps, (z + 1)
+// * steps) of split z = blockIdx.z.  One split: the scaled (GLU: silu_mul)
+// output tile to `out`; several: the int32 partial tile to ws[z], (M, Nw) in
+// weight-column space.
 template <bool kGlu, bool kBf16Out>
 __global__ void __launch_bounds__(kThreads, 1)
 requant_tc_kernel(const int8_t* __restrict__ a,
@@ -237,7 +264,7 @@ requant_tc_kernel(const int8_t* __restrict__ a,
   uint8_t* smem = smem_raw + (base - raw);
   const int tid = threadIdx.x;
   const int No = kGlu ? Nw / 2 : Nw;
-  const int n0 = blockIdx.x * TN;
+  const int o0 = blockIdx.x * kOutCols<kGlu>;
   const int m0 = blockIdx.y * TM;
   const int kb0 = blockIdx.z * steps;
   const int nk = min(K / TK - kb0, steps);
@@ -250,7 +277,7 @@ requant_tc_kernel(const int8_t* __restrict__ a,
 #pragma unroll
   for (int i = 0; i < kAhead; ++i) {
     if (i < nk)
-      load_step<kGlu>(base, a, w, s_frac, M, K, Nw, No, m0, n0, kb0 + i,
+      load_step<kGlu>(base, a, w, s_frac, M, K, Nw, No, m0, o0, kb0 + i,
                       i % kStages, tid);
     cp_commit();
   }
@@ -260,7 +287,7 @@ requant_tc_kernel(const int8_t* __restrict__ a,
     cp_wait<kAhead - 1>();  // this thread's copies of step i have landed
     __syncthreads();        // everyone's; step i - 2's buffers are free
     if (i + kAhead < nk)
-      load_step<kGlu>(base, a, w, s_frac, M, K, Nw, No, m0, n0,
+      load_step<kGlu>(base, a, w, s_frac, M, K, Nw, No, m0, o0,
                       kb0 + i + kAhead, (i + kAhead) % kStages, tid);
     cp_commit();
 
@@ -326,56 +353,83 @@ requant_tc_kernel(const int8_t* __restrict__ a,
   cp_wait<0>();
   __syncthreads();  // every product done: A and B are free for staging
 
-  // the tile staged in shared memory (int32 partial sums when K is split,
-  // else the scaled f32 values), then stored row by row, coalesced
+  // the tile staged in shared memory (int32 partial sums of all 128 weight
+  // columns when K is split, else the f32 outputs), then stored row by row,
+  // coalesced
   const bool split = gridDim.z > 1;
   float* stage = reinterpret_cast<float*>(smem);
   int* stage_i = reinterpret_cast<int*>(smem);
 #pragma unroll
-  for (int h = 0; h < kSlabs; ++h)
+  for (int h = 0; h < kSlabs; ++h) {
+    if (split) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      int r, c;
-      frag_pos(h, i, tid, r, c);
-      if (split) {
+      for (int i = 0; i < 64; ++i) {
+        int r, c;
+        frag_pos(h, i, tid, r, c);
         stage_i[r * kOutLd + c] = acc[h][i];
-      } else {
-        const int m = min(m0 + r, M - 1), n = min(n0 + c, No - 1);
-        stage[r * kOutLd + c] = __fmul_rn(
-            __fmul_rn((float)acc[h][i], s_col[weight_col<kGlu>(n, 0)]),
-            s_tok[m]);
+      }
+    } else {
+      // GLU: accumulators 0..31 are gate columns c < 64, i + 32 the up
+      // column c + 64 of the same output
+#pragma unroll
+      for (int i = 0; i < (kGlu ? 32 : 64); ++i) {
+        int r, c;
+        frag_pos(h, i, tid, r, c);
+        const float st = s_tok[min(m0 + r, M - 1)];
+        float v = scaled(acc[h][i], s_col[tile_col<kGlu>(o0, c, No)], st);
+        if (kGlu) {
+          const int cu = tile_col<kGlu>(o0, c + 64, No);
+          v = w4a8::silu_mul(v, scaled(acc[h][kGlu ? i + 32 : i], s_col[cu],
+                                       st));
+        }
+        stage[r * kOutLd + c] = v;
       }
     }
+  }
   __syncthreads();
-  for (int idx = tid; idx < TM * TN; idx += kThreads) {
-    const int r = idx / TN, c = idx % TN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= No) continue;
+  const int cols = split ? TN : kOutCols<kGlu>;
+  for (int idx = tid; idx < TM * cols; idx += kThreads) {
+    const int r = idx / cols, c = idx % cols;
+    const int m = m0 + r;
+    if (m >= M || o0 + c % kOutCols<kGlu> >= No) continue;
     if (split)
-      ws[((size_t)blockIdx.z * M + m) * No + n] = stage_i[r * kOutLd + c];
+      ws[((size_t)blockIdx.z * M + m) * Nw + tile_col<kGlu>(o0, c, No)] =
+          stage_i[r * kOutLd + c];
     else
-      w4a8::store<kBf16Out>(out, (size_t)m * No + n, stage[r * kOutLd + c]);
+      w4a8::store<kBf16Out>(out, (size_t)m * No + o0 + c,
+                            stage[r * kOutLd + c]);
   }
 }
 
-// The splits' int32 partial sums added (exact), then the epilogue.
-template <bool kBf16Out>
+// The splits' int32 partial sums added (exact), then the epilogue: for GLU
+// those of the output's gate and up weight columns.
+template <bool kGlu, bool kBf16Out>
 __global__ void requant_split_epilogue(const int* __restrict__ ws,
                                        const float* __restrict__ s_tok,
                                        const float* __restrict__ s_col,
-                                       void* __restrict__ out, int M, int N,
+                                       void* __restrict__ out, int M, int Nw,
                                        int splits) {
+  constexpr int NS = kGlu ? 2 : 1;
+  const int No = kGlu ? Nw / 2 : Nw;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)M * N) return;
-  const int m = (int)(idx / N), n = (int)(idx % N);
-  int tot = 0;
-  for (int z = 0; z < splits; ++z) tot += ws[(size_t)z * M * N + idx];
-  w4a8::store<kBf16Out>(
-      out, idx, __fmul_rn(__fmul_rn((float)tot, s_col[n]), s_tok[m]));
+  if (idx >= (size_t)M * No) return;
+  const int m = (int)(idx / No), o = (int)(idx % No);
+  float v[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int n = weight_col<kGlu>(o, s);
+    int tot = 0;
+    for (int z = 0; z < splits; ++z)
+      tot += ws[((size_t)z * M + m) * Nw + n];
+    v[s] = scaled(tot, s_col[n], s_tok[m]);
+  }
+  w4a8::store<kBf16Out>(out, idx, kGlu ? w4a8::silu_mul(v[0], v[NS - 1])
+                                       : v[0]);
 }
 
-// K steps per split: the whole K unless the output tiles fill fewer blocks
-// than the card has SMs, then about SMs / tiles splits.
+// K steps per split: the whole K unless the tiles (of N weight columns,
+// GLU or not) fill fewer blocks than the card has SMs, then about SMs /
+// tiles splits.
 int steps_per_split(int M, int K, int N, int* err) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -391,7 +445,8 @@ int steps_per_split(int M, int K, int N, int* err) {
   return (kb + splits - 1) / splits;
 }
 
-template <bool kBf16Out>
+// N: weight columns (2I with the GLU epilogue, a multiple of 512).
+template <bool kGlu, bool kBf16Out>
 int launch_tc(const int8_t* a, const float* s_tok, const int32_t* w,
               const float* s_extra, const float* s_frac, void* out, int* ws,
               int M, int K, int N, cudaStream_t st) {
@@ -400,17 +455,17 @@ int launch_tc(const int8_t* a, const float* s_tok, const int32_t* w,
   if (err != 0) return err;
   const int splits = (K / TK + steps - 1) / steps;
   if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  auto kernel = requant_tc_kernel<false, kBf16Out>;
+  auto kernel = requant_tc_kernel<kGlu, kBf16Out>;
   const int fit = smem_fit(kernel, kSmemBytes);
   if (fit != 0) return fit;
   const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, splits);
   kernel<<<grid, kThreads, kSmemBytes, st>>>(a, s_tok, w, s_extra, s_frac,
                                              out, ws, M, K, N, steps);
   if (splits > 1) {
-    const size_t n = (size_t)M * N;
-    requant_split_epilogue<kBf16Out><<<(unsigned)((n + 255) / 256), 256, 0,
-                                       st>>>(ws, s_tok, s_extra, out, M, N,
-                                             splits);
+    const size_t n = (size_t)M * (kGlu ? N / 2 : N);
+    requant_split_epilogue<kGlu, kBf16Out>
+        <<<(unsigned)((n + 255) / 256), 256, 0, st>>>(ws, s_tok, s_extra, out,
+                                                      M, N, splits);
   }
   return (int)cudaGetLastError();
 }
@@ -418,12 +473,11 @@ int launch_tc(const int8_t* a, const float* s_tok, const int32_t* w,
 }  // namespace
 
 // The int32 workspace bytes w4a8_gemm_requant needs for these arguments on
-// the current card: 0 unless the tensor-core kernel splits K (glu = 0 and
-// fewer output tiles than SMs), then splits · M · N · 4.  Negative: minus
-// a CUDA error.
-extern "C" long long w4a8_requant_workspace_bytes(int M, int K, int N,
-                                                  int glu) {
-  if (glu || M <= 0 || K < TK) return 0;
+// the current card, with or without glu (N weight columns either way): 0
+// unless the kernel splits K (fewer tiles than SMs), then splits · M · N ·
+// 4.  Negative: minus a CUDA error.
+extern "C" long long w4a8_requant_workspace_bytes(int M, int K, int N) {
+  if (M <= 0 || K < TK) return 0;
   int err = 0;
   const int steps = steps_per_split(M, K, N, &err);
   if (err != 0) return -(long long)err;
@@ -441,7 +495,6 @@ extern "C" int w4a8_gemm_requant(const void* a, const void* s_tok,
                                  const void* s_extra, void* out,
                                  void* workspace, int M, int K, int N,
                                  int glu, int bf16_out, void* stream) {
-  using namespace w4a8;
   auto A = static_cast<const int8_t*>(a);
   auto ST = static_cast<const float*>(s_tok);
   auto W = static_cast<const int32_t*>(w);
@@ -449,15 +502,9 @@ extern "C" int w4a8_gemm_requant(const void* a, const void* s_tok,
   auto SE = static_cast<const float*>(s_extra);
   auto WS = static_cast<int*>(workspace);
   auto st = static_cast<cudaStream_t>(stream);
-  if (glu) {
-    const int bm = rows_per_block(M);
-    if (bf16_out)
-      launch_int_dot<true, true, true>(bm, A, ST, W, SE, SF, out, M, K, N, st);
-    else
-      launch_int_dot<true, true, false>(bm, A, ST, W, SE, SF, out, M, K, N, st);
-    return (int)cudaGetLastError();
-  }
-  if (bf16_out)
-    return launch_tc<true>(A, ST, W, SE, SF, out, WS, M, K, N, st);
-  return launch_tc<false>(A, ST, W, SE, SF, out, WS, M, K, N, st);
+#define RQ_LAUNCH(GLU_, BF16_) \
+  launch_tc<GLU_, BF16_>(A, ST, W, SE, SF, out, WS, M, K, N, st)
+  if (glu) return bf16_out ? RQ_LAUNCH(true, true) : RQ_LAUNCH(true, false);
+  return bf16_out ? RQ_LAUNCH(false, true) : RQ_LAUNCH(false, false);
+#undef RQ_LAUNCH
 }

@@ -13,11 +13,11 @@ reassociates f32 sums.  The flash version repeats the CUDA kernels' online
 softmax over 32-key steps, because there the order matters beyond f32:
 probabilities are rounded to bf16 against the running row maximum, so the
 step changes which bf16 values feed P·V (the JAX kernel tiles by 1024
-keys, or by the block size over the pool).  Both flash kernels step their
-softmax 32 keys at a time whatever their load stage (the slot kernel loads
-64 keys a stage for its tensor cores, the paged one 32).  The paged flash
-version gathers the pool through the tables and is then the flash
-version.  The S-tiled decode (caches past the whole-cache switch) and
+keys, or by the block size over the pool).  The flash kernel steps its
+softmax 32 keys at a time whatever its load stage (64 keys for its tensor
+cores).  Over the pool it is the same kernel with each key row looked up
+through the tables, and the paged flash version gathers the pool through
+the tables and is then the flash version.  The S-tiled decode (caches past the whole-cache switch) and
 paged decode share numerics of their own (bf16 q, bf16 probabilities times
 v_scale) and walk JAX's own key tile, which their kernels walk too, the
 S-tiled one at any tile JAX takes (its scores in a workspace where they

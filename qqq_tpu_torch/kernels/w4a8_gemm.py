@@ -16,7 +16,7 @@ w4a8_glu_channel         _w4a8_channel_glu_kernel        w4a8_gemm.cu    int_dot
 w4a8_gemm_group          _w4a8_group_kernel              w4a8_group.cu   own
 w4a8_glu_group           _w4a8_group_glu_kernel          w4a8_group.cu   own
 w4a8_gemm_requant        _w4a8_requant_group_kernel      w4a8_requant.cu wgmma
-w4a8_glu_requant         _w4a8_requant_group_glu_kernel  w4a8_requant.cu int_dot
+w4a8_glu_requant         _w4a8_requant_group_glu_kernel  w4a8_requant.cu wgmma
 w4a8_gemm_fused_channel  _w4a8_fused_channel_kernel      w4a8_fused.cu   own
 w4a8_gemm_fused_group    _w4a8_fused_group_kernel        w4a8_fused.cu   own
 =======================  ==============================  ==============  =======
@@ -241,9 +241,9 @@ def _requant(counter, a_q, s_token, w_packed, s_group, out_dtype, glu):
     s_frac, s_extra = requant_scales(s_group)
     build.require(s_frac, torch.float32, (K // PACK_BLOCK, N), "s_frac",
                   a_q.device)
-    size = build.bind("w4a8_requant", "w4a8_requant_workspace_bytes", "iiii",
+    size = build.bind("w4a8_requant", "w4a8_requant_workspace_bytes", "iii",
                       ret="q")
-    ws_bytes = int(size(M, K, N, int(glu)))
+    ws_bytes = int(size(M, K, N))
     if ws_bytes < 0:
         raise RuntimeError(f"{counter.__name__}: CUDA error {-ws_bytes} "
                            "sizing the split-K workspace")

@@ -34,6 +34,7 @@ logprobs.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -65,6 +66,8 @@ class Request:
     #: token stream to re-prefill on re-admission (prompt + generated so
     #: far), so that generation continues where it left off
     _resume: Optional[List[int]] = None
+    #: tokens of ``output_tokens`` already counted in ``generated_tokens``
+    _emitted: int = 0
     # latency bookkeeping (monotonic seconds, filled by the engine)
     t_enqueue: Optional[float] = None
     t_first_token: Optional[float] = None
@@ -72,7 +75,8 @@ class Request:
 
     @property
     def ttft(self) -> Optional[float]:
-        """Seconds from enqueue to the first sampled token."""
+        """Seconds from enqueue to the first delivered token (None when no
+        token survived: an instant EOS)."""
         if self.t_enqueue is None or self.t_first_token is None:
             return None
         return self.t_first_token - self.t_enqueue
@@ -80,8 +84,6 @@ class Request:
 
 #: max requests prefilled in one dispatch
 _PREFILL_BATCH = 8
-#: bound on the prefill scratch KV of one admission group, in bytes
-_PREFILL_SCRATCH_BYTES = 1536 << 20
 
 
 def _bucket(n: int, buckets) -> int:
@@ -196,9 +198,12 @@ class Engine:
         self.prefill_chunk = prefill_chunk
         if prefill_batch is None:
             # each admitted row costs a bucket-sized KV scratch across every
-            # layer; cap the group so the scratch stays under the budget.
-            # Sized by the largest bucket the engine can actually use, or
-            # the chunk (JAX: engine.py:325).
+            # layer; cap the group so the scratch stays under
+            # QQQ_TPU_PREFILL_SCRATCH_MB (default 1536).  Sized by the
+            # largest bucket the engine can actually use, or the chunk
+            # (JAX: engine.py:321-332).
+            budget = int(os.environ.get(
+                "QQQ_TPU_PREFILL_SCRATCH_MB", "1536")) << 20
             bucket = max(self.prefill_buckets[-1], prefill_chunk)
             scale_bytes = 4 if kv_quantized else 0
             store_bytes = 1 if kv_quantized else dtype.itemsize
@@ -206,7 +211,7 @@ class Engine:
                        * bucket * 2
                        * (config.head_dim * store_bytes + scale_bytes))
             prefill_batch = min(_PREFILL_BATCH,
-                                max(1, _PREFILL_SCRATCH_BYTES // per_row))
+                                max(1, budget // max(per_row, 1)))
         self.prefill_batch = max(1, prefill_batch)
         # slot state (host)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
@@ -289,19 +294,17 @@ class Engine:
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_shapes"].append((pb, bucket))
         self.stats["prefill_s"] += time.perf_counter() - t0
-        now = time.monotonic()
         for i, (req, slot) in enumerate(zip(reqs, slots)):
             first = int(firsts[i])
             req.output_tokens.append(first)
             req.token_logprobs.append(float(lps[i]))
-            req.t_first_token = now
             self.slot_req[slot] = req
             self.slot_len[slot] = int(lens[i])
             self.slot_last_tok[slot] = first
             self.stats["prefills"] += 1
             self.stats["prefill_tokens"] += int(lens[i])
-            self.stats["generated_tokens"] += 1
             self._maybe_finish(slot)
+            self._emit(req)
 
     @torch.inference_mode()
     def _prefill_chunk_paged(self, rows: List[Optional[int]]) -> None:
@@ -369,12 +372,10 @@ class Engine:
         req._resume = None
         req.output_tokens.append(first)
         req.token_logprobs.append(lp)
-        if req.t_first_token is None:  # a resumed request keeps its TTFT
-            req.t_first_token = time.monotonic()
         self.slot_last_tok[slot] = first
         self.stats["prefills"] += 1
-        self.stats["generated_tokens"] += 1
         self._maybe_finish(slot)
+        self._emit(req)
 
     @torch.inference_mode()
     def _decode_tick(self, active: np.ndarray) -> None:
@@ -402,8 +403,8 @@ class Engine:
             req.token_logprobs.append(float(lps[slot]))
             self.slot_len[slot] += 1
             self.slot_last_tok[slot] = tok
-            self.stats["generated_tokens"] += 1
             self._maybe_finish(slot)
+            self._emit(req)
 
     # -- host-side scheduling ---------------------------------------------
 
@@ -601,8 +602,24 @@ class Engine:
         req.done, req.finish_reason = True, "length"
         self._free_slot(slot)
 
+    def _emit(self, req: Request) -> None:
+        """Count the tokens that survived :meth:`_maybe_finish` (an EOS or
+        stop token it popped never counts) and stamp the first one's time;
+        a resumed request keeps its own (JAX: _emit, without the on_token
+        hook)."""
+        while req._emitted < len(req.output_tokens):
+            req._emitted += 1
+            self.stats["generated_tokens"] += 1
+            if req.t_first_token is None:
+                req.t_first_token = time.monotonic()
+
     def _free_slot(self, slot: int) -> None:
-        self.slot_req[slot].t_done = time.monotonic()
+        req = self.slot_req[slot]
+        req.t_done = time.monotonic()
+        if req.t_first_token is None and req.output_tokens:
+            # finished on its first token (max_new_tokens=1): the _emit that
+            # would stamp it runs after this
+            req.t_first_token = req.t_done
         self.slot_len[slot] = 0
         self.slot_req[slot] = None
         if self.paged:

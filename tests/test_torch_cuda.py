@@ -15,9 +15,9 @@ GLU-fused GEMMs within two bf16
 ulps of their largest output (another exp in the epilogue); attention
 within two ulps of the output dtype at the largest output (bf16: 2^-6,
 f32: 2^-22 relative to max |ref|, plus the flash, paged decode and S-tiled
-decode kernels' bf16 probabilities: 2^-7 relative in f32), slot flash and
-the S-tiled decode's whole-cache tile per output row, at its own largest
-value.
+decode kernels' bf16 probabilities: 2^-7 relative in f32), slot and paged
+flash and the S-tiled decode's whole-cache tile per output row, at its own
+largest value; paged flash bit-equal to slot flash on the gathered pool.
 """
 
 import pytest
@@ -109,13 +109,18 @@ def test_w4a8_requant_tensor_core_tiles(dev, M, K, N, out_dtype):
 
 
 @pytest.mark.parametrize("M,K,I", [(1, 128, 256), (5, 384, 512),
-                                   (70, 1152, 256)])
+                                   (70, 1152, 256), (512, 4096, 512),
+                                   (513, 256, 2816), (513, 1152, 256)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("route", ["channel", "group", "requant"])
 def test_w4a8_glu_kernels(dev, route, M, K, I, out_dtype):
     """GLU epilogue g·σ(g)·u: the kernel's expf and PyTorch's sigmoid may
     differ in the last bit.  bf16: two ulps at the largest output; f32:
-    2^-20 of it (σ's own error and three roundings)."""
+    2^-20 of it (σ's own error and three roundings).  For the requant
+    route's tensor-core tiles (256 rows x 64 outputs): M = 512, K = 4096, I
+    = 512 has 16 tiles, fewer than the card's SMs, and splits K; M = 513
+    is ragged, with I = 2816 on 132 tiles (no split) and with I = 256
+    split."""
     from qqq_tpu_torch.kernels import w4a8_gemm as k
 
     a, s_tok, w, s = _gemm_operands(dev, M, K, 2 * I,
@@ -341,9 +346,32 @@ def test_paged_flash_kernel(dev, dtype, bs):
                          device=dev))
     out = _launch_once(paged_flash_attention_int8, *args)
     ref = paged_flash_attention_int8_plain(*args)
-    ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
-    assert float((out.float() - ref.float()).abs().max()) \
-        <= ulps * float(ref.float().abs().max())
+    assert _per_row_ulps(out, ref, dtype) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", [8, 16, 128])
+def test_paged_flash_is_slot_flash_on_gathered_pool(dev, dtype, bs):
+    """Only the key rows' addresses differ between the two layouts: the
+    paged kernel on a pool equals, bit for bit, the slot kernel on the pool
+    gathered through the tables (stages spanning several blocks, a row on
+    an all-null table)."""
+    from qqq_tpu_torch.kernels.attention import (
+        flash_attention_int8, paged_flash_attention_int8,
+    )
+    from qqq_tpu_torch.serve.paged_kv import gather
+
+    B, nh, nkv, nbmax = 3, 8, 2, 6
+    hd = 128 if bs == 128 else 64
+    T = 2 * bs + 5
+    q = torch.randn((B, nh, T, hd), generator=_gen(dev), device=dev).to(dtype)
+    pool = _cache(dev, 1 + B * nbmax, nkv, bs, hd)
+    tables = _tables(dev, B, nbmax, null_row=2)
+    cl = torch.tensor([bs // 2, 3 * bs - 7, 0], dtype=torch.int32,
+                      device=dev)
+    out = _launch_once(paged_flash_attention_int8, q, *pool, tables, cl)
+    slot = flash_attention_int8(q, *(gather(t, tables) for t in pool), cl)
+    assert torch.equal(out, slot)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

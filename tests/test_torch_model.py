@@ -25,6 +25,8 @@ from qqq_tpu.models import ModelConfig as JConfig
 from qqq_tpu.models import init_params as jax_init_params
 from qqq_tpu.models import llama as JM
 from qqq_tpu.serve import kv_cache as jkv
+from qqq_tpu.serve.engine import Engine as JEngine
+from qqq_tpu.serve.engine import Request as JRequest
 from qqq_tpu.serve.engine import generate as jax_generate
 from qqq_tpu.serve.sampling import SamplingParams as JSampling
 from qqq_tpu.serve.sampling import _topk_topp_filter as jax_filter
@@ -71,17 +73,29 @@ def _engine_kw():
     return dict(max_batch=2, max_len=MAX_LEN, prefill_buckets=(16, 64))
 
 
+def _eos_traffic(prompts, greedy):
+    """(prompt, eos) per request: every prompt with request 1's third
+    greedy token as EOS (request 1 stops on it, the others run to their
+    length unless they meet it), and prompt 0 again with its own first
+    greedy token as EOS (an instant EOS: no token survives)."""
+    eos = greedy[1][2]
+    return [(p, eos) for p in prompts] + [(prompts[0], greedy[0][0])]
+
+
 @pytest.fixture(scope="module")
 def jax_greedy(models, prompts):
+    """JAX's greedy tokens, then JAX's Engine on the EOS traffic: its
+    requests and its stats."""
     jparams = models[0]
     out = jax_generate(jparams, JCFG, prompts, JSampling(max_new_tokens=5),
                        kv_quantized=True, dtype=jnp.float32, **_engine_kw())
-    eos = out[1][2]
-    out_eos = jax_generate(
-        jparams, JCFG, prompts,
-        JSampling(max_new_tokens=5, eos_token_id=eos),
-        kv_quantized=True, dtype=jnp.float32, **_engine_kw())
-    return out, eos, out_eos
+    jeng = JEngine(jparams, JCFG, kv_quantized=True, dtype=jnp.float32,
+                   **_engine_kw())
+    jreqs = [JRequest(prompt_tokens=p,
+                      sampling=JSampling(max_new_tokens=5, eos_token_id=e))
+             for p, e in _eos_traffic(prompts, out)]
+    jeng.run(jreqs)
+    return out, jreqs, jeng.stats
 
 
 def test_quantize_params_rtn_matches_jax(models):
@@ -176,17 +190,49 @@ def test_generate_greedy_matches_jax(models, prompts, jax_greedy):
 
 
 def test_generate_eos_stops_where_jax_stops(models, prompts, jax_greedy):
-    _, eos, jax_out = jax_greedy
+    """Stop, instant-EOS and length finishes against JAX's Engine on the
+    same requests: the tokens, the finish reasons, the count of generated
+    tokens (a popped EOS never counts) and which requests have a TTFT (an
+    instant EOS has none)."""
+    out, jreqs, jstats = jax_greedy
     eng = Engine(models[1], TCFG, dtype=torch.float32, device="cpu",
                  **_engine_kw())
     reqs = [Request(prompt_tokens=p,
                     sampling=SamplingParams(max_new_tokens=5,
-                                            eos_token_id=eos))
-            for p in prompts]
+                                            eos_token_id=e))
+            for p, e in _eos_traffic(prompts, out)]
     eng.run(reqs)
-    assert [r.output_tokens for r in reqs] == jax_out
+    assert [r.output_tokens for r in reqs] == [r.output_tokens for r in jreqs]
+    assert [r.finish_reason for r in reqs] == [r.finish_reason
+                                               for r in jreqs]
     assert reqs[1].finish_reason == "stop" and len(reqs[1].output_tokens) == 2
+    assert reqs[3].finish_reason == "stop" and reqs[3].output_tokens == []
+    assert "length" in [r.finish_reason for r in reqs]
+    assert eng.stats["generated_tokens"] == jstats["generated_tokens"] \
+        == sum(len(r.output_tokens) for r in reqs)
+    assert [r.ttft is None for r in reqs] == [r.ttft is None for r in jreqs]
+    assert reqs[3].ttft is None and reqs[0].ttft is not None
     assert eng.stats["prefill_dispatches"] >= 2
+
+
+@pytest.mark.parametrize("scratch_mb,expect", [(None, 8), ("1", 1),
+                                               ("3", 5)])
+def test_prefill_batch_follows_scratch_budget_like_jax(
+        models, monkeypatch, scratch_mb, expect):
+    """QQQ_TPU_PREFILL_SCRATCH_MB (default 1536) caps the admission
+    group, read at construction as JAX's Engine reads it: a row of the
+    1024-token bucket needs 2 layers x 2 kv heads x 1024 x 2 x (64 + 4)
+    bytes = 0.53 MiB of INT8 scratch, so 1 MiB admits one row, 3 MiB five,
+    the default the cap of eight."""
+    if scratch_mb is None:
+        monkeypatch.delenv("QQQ_TPU_PREFILL_SCRATCH_MB", raising=False)
+    else:
+        monkeypatch.setenv("QQQ_TPU_PREFILL_SCRATCH_MB", scratch_mb)
+    kw = dict(max_batch=2, max_len=1024, prefill_buckets=(16, 1024))
+    jeng = JEngine(models[0], JCFG, kv_quantized=True, dtype=jnp.float32,
+                   **kw)
+    eng = Engine(models[1], TCFG, dtype=torch.float32, device="cpu", **kw)
+    assert eng.prefill_batch == jeng.prefill_batch == expect
 
 
 def test_engine_later_slice_features_raise(models):
