@@ -7,19 +7,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. build the CUDA kernels from the sources in this checkout, printing
    ``-Xptxas -v`` (registers, shared memory, spills) of each entry of the
-   two tensor-core kernels (slot flash, g128 requant);
+   two tensor-core kernels (slot flash, g128 requant) and of the split
+   decode;
 2. check each of the sixteen kernels against its plain PyTorch version on
    the card at the Llama-2-7B and Llama-3.1-8B shapes of the served paths
    (the GEMMs, the activation-quant-fused ones included, and the KV writes
    bit-exact, requant also at ragged M and N, the paged writes outside the
    null block; the GLU-fused GEMMs and the attention kernels within two
-   bf16 ulps of the largest output, slot and paged flash and the S-tiled
-   decode per row of their output, slot flash also after cached keys,
-   paged flash also bit-equal to slot flash on the gathered pool, the
-   S-tiled decode also at Qwen2-0.5B's attention geometry, whose
-   whole-cache tile keeps its scores in a global workspace; the paged ones
-   over scrambled block tables), and time it beside its bound, its plain
-   version and a one-call PyTorch yardstick that the port never calls;
+   bf16 ulps of the largest output, slot and paged flash, the S-tiled
+   decode and paged decode per row of their output, slot flash also after
+   cached keys, paged flash also bit-equal to slot flash on the gathered
+   pool, the S-tiled and paged decode (one split-key kernel) also with one
+   long row beside one-key rows and at g = 16, the S-tiled decode also at
+   Qwen2-0.5B's attention geometry, whose tile is half the cache; the paged
+   ones over scrambled block tables), and time it beside its bound, its
+   plain version and a one-call PyTorch yardstick that the port never
+   calls;
 3. serve 4 requests through the port's Engine, with its default arguments
    (gate/up GLU-fused), on full-width, full-depth Llama-2-7B (random weights
    from a seeded generator): RTN-packed in groups of 128, the JAX package's
@@ -63,8 +66,9 @@ HERE = pathlib.Path(__file__).resolve().parent
 # Llama-2-7B geometry (the repo's headline configuration)
 V, H, I, L, NH, NKV, HD = 32000, 4096, 11008, 32, 32, 32, 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
-#: the sources of the tensor-core kernels, whose entries phase 1 names
-TENSOR_CORE_SOURCES = ("w4a8_requant", "flash_attention")
+#: the sources whose entries phase 1 names: the tensor-core kernels and the
+#: split decode
+NAMED_SOURCES = ("w4a8_requant", "flash_attention", "split_decode_attention")
 # the paged pool of the served runs: 128-token blocks, 16 per slot
 # (max_len 2048), 65 blocks = max_batch 4 × 16 + the null block
 BS, NBMAX, NB_POOL = 128, 16, 65
@@ -215,8 +219,7 @@ L31_FLASH_CASES = ((1, 128), (1, 512), (1, 2048), (1, 16384))
 #: of the kernel's 64-row block
 FLASH_OFFSET_CASES = ((2, 300, 2048, (0, 1500)),)
 #: Qwen2-0.5B's attention geometry (14 heads, 2 kv heads, hd 64) over a
-#: 32768-token slot cache: JAX's S-tiled tile is 16384 keys, whose scores
-#: for 7 query heads do not fit a block's shared memory
+#: 32768-token slot cache: JAX's S-tiled tile is 16384 keys
 QWEN2_ATTN = dict(nh=14, nkv=2, hd=64, S=32768, clen=(1, 9001, 16385, 32768))
 #: (K, N) of the fused GEMMs: Llama-2-7B's q/k/v/o and down (runs 3f, 3g)
 #: and Llama-3.1-8B's k/v and down (its q/o are (4096, 4096) too)
@@ -557,132 +560,103 @@ def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
     return report
 
 
-def check_flash_decode(dev, gen, timer):
-    """The S-tiled decode at Llama-3.1-8B's shape over run 3e's 32768-token
-    slot cache (B = 4, 32 heads, 8 kv heads, bf16 q; JAX's tile, 2048
-    keys), each (row, head) within two bf16 ulps of its own largest output
-    (:func:`ulp_rows`): cache lengths of 1 key, on a tile boundary, past the
-    8192 switch mid-tile and the whole cache; then those of the served run's
-    last tick.  Yardstick: SDPA on the dequantized bf16 live K/V (kv heads
-    repeated), masked."""
+def _flash_decode_cases(dev, gen, timer, nh, nkv, hd, S, clens):
+    """The S-tiled decode at B = 4 over one random slot cache of S keys and
+    JAX's tile, for each tuple of cache lengths in ``clens``: each (row,
+    head) within two bf16 ulps of its own largest output (:func:`ulp_rows`),
+    timed beside its bound, its plain version and SDPA on the dequantized
+    bf16 live K/V (kv heads repeated, masked).  Returns a report dict per
+    tuple."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels.attention import (
-        flash_decode_attention_int8, flash_decode_attention_int8_plain,
-        flash_decode_tile,
+        decode_workspace_bytes, flash_decode_attention_int8,
+        flash_decode_attention_int8_plain, flash_decode_tile,
     )
 
-    B, S = 4, L31_MAX_LEN
-    tile = flash_decode_tile(NKV3, S, HD, NH // NKV3)
-    kc = torch.randint(-128, 128, (B, NKV3, S, HD), generator=gen,
-                       device=dev, dtype=torch.int8)
-    vc = torch.randint(-128, 128, (B, NKV3, S, HD), generator=gen,
-                       device=dev, dtype=torch.int8)
-    ks = torch.rand((B, NKV3, S), generator=gen, device=dev) * 0.02 + 1e-3
-    vs = torch.rand((B, NKV3, S), generator=gen, device=dev) * 0.02 + 1e-3
-    report, err = None, 0.0
-    served = tuple(n + 63 for n in L31_PROMPT_LENS)  # its last tick
-    for clen in ((1, 3 * tile, 9001, S), served):
-        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
-        q = torch.randn((B, NH, HD), generator=gen, device=dev).to(
-            torch.bfloat16)
-        args = (q, kc, ks, vc, vs, cl)
-        out = flash_decode_attention_int8(*args)
-        ref = flash_decode_attention_int8_plain(*args)
-        torch.cuda.synchronize()
-        e, worst = ulp_rows(out, ref)
-        if not worst <= 1:
-            raise AssertionError(f"flash_decode_attention_int8 cache_len "
-                                 f"{clen}: a (row, head) differs by {worst:.3g}"
-                                 f" times its bound of {ATTN_ULPS} bf16 ulps")
-        err = max(err, e)
-        ms = timer.ms(lambda: flash_decode_attention_int8(*args))
-        plain = timer.ms(lambda: flash_decode_attention_int8_plain(*args))
-        live = max(clen)
-        kd = _dequant(kc[:, :, :live], ks[:, :, :live]).repeat_interleave(
-            NH // NKV3, dim=1)
-        vd = _dequant(vc[:, :, :live], vs[:, :, :live]).repeat_interleave(
-            NH // NKV3, dim=1)
-        mask = (torch.arange(live, device=dev)[None, :]
-                < cl[:, None])[:, None, None, :]
-        lib = timer.ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kd, vd, attn_mask=mask))
-        del kd, vd
-        n_pos = sum(clen)
-        nbytes = n_pos * NKV3 * (HD + 4) * 2 + 2 * B * NH * HD * 2 + B * 4
-        b, by = bound_ms(nbytes, 4.0 * NH * HD * n_pos)
-        log(f"  flash_decode_attention_int8 B={B} S={S} nkv={NKV3} tile "
-            f"{tile} cache_len {clen}: max |diff| {e:.3g} (worst (row, head) "
-            f"{worst:.3g} of its bound); {ms:.4f} ms "
-            f"(bound {b:.4f} by {by}, plain {plain:.4f}, sdpa {lib:.4f})")
-        if clen == served:
-            report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                          bound_by=by, shape=f"B={B} nh={NH} nkv={NKV3} "
-                          f"S={S}, cache_len {list(clen)}")
-    report["max_abs_err"] = err
-    del kc, vc
-    torch.cuda.empty_cache()
-    return report
-
-
-def check_flash_decode_qwen2(dev, gen, timer):
-    """The S-tiled decode at Qwen2-0.5B's attention geometry
-    (:data:`QWEN2_ATTN`, B = 4, bf16 q): JAX's tile is 16384 keys, whose
-    scores for 7 query heads the kernel keeps in a global workspace; each
-    (row, head) within two bf16 ulps of its own largest output.  Logged,
-    with the workspace's bytes, beside the bound, the plain version and
-    SDPA; not a report row."""
-    import torch.nn.functional as F
-
-    from qqq_tpu_torch.kernels.attention import (
-        flash_decode_attention_int8, flash_decode_attention_int8_plain,
-        flash_decode_tile, flash_decode_workspace_bytes,
-    )
-
-    nh, nkv, hd, S = (QWEN2_ATTN[k] for k in ("nh", "nkv", "hd", "S"))
-    clen = QWEN2_ATTN["clen"]
-    B = len(clen)
-    tile = flash_decode_tile(nkv, S, hd, nh // nkv)
-    ws = flash_decode_workspace_bytes(B, nh, nkv, hd, tile)
-    if not ws > 0:
-        raise AssertionError(f"S-tiled decode at nh={nh} nkv={nkv} hd={hd} "
-                             f"tile {tile}: expected a score workspace, the "
-                             f"kernel asks for {ws} bytes")
+    B, g = 4, nh // nkv
+    tile = flash_decode_tile(nkv, S, hd, g)
+    ws = decode_workspace_bytes(B, nh, nkv, S, hd, tile)
     kc = torch.randint(-128, 128, (B, nkv, S, hd), generator=gen,
                        device=dev, dtype=torch.int8)
     vc = torch.randint(-128, 128, (B, nkv, S, hd), generator=gen,
                        device=dev, dtype=torch.int8)
     ks = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
     vs = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
-    cl = torch.tensor(clen, dtype=torch.int32, device=dev)
-    q = torch.randn((B, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
-    args = (q, kc, ks, vc, vs, cl)
-    out = flash_decode_attention_int8(*args)
-    ref = flash_decode_attention_int8_plain(*args)
-    torch.cuda.synchronize()
-    e, worst = ulp_rows(out, ref)
-    if not worst <= 1:
-        raise AssertionError(f"flash_decode_attention_int8 at Qwen2-0.5B's "
-                             f"geometry, cache_len {clen}: a (row, head) "
-                             f"differs by {worst:.3g} times its bound")
-    ms = timer.ms(lambda: flash_decode_attention_int8(*args))
-    plain = timer.ms(lambda: flash_decode_attention_int8_plain(*args))
-    kd = _dequant(kc, ks).repeat_interleave(nh // nkv, dim=1)
-    vd = _dequant(vc, vs).repeat_interleave(nh // nkv, dim=1)
-    mask = (torch.arange(S, device=dev)[None, :]
-            < cl[:, None])[:, None, None, :]
-    lib = timer.ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=mask))
-    n_pos = sum(clen)
-    nbytes = n_pos * nkv * (hd + 4) * 2 + 2 * B * nh * hd * 2 + B * 4
-    b, by = bound_ms(nbytes, 4.0 * nh * hd * n_pos)
-    log(f"  flash_decode_attention_int8 B={B} nh={nh} nkv={nkv} hd={hd} "
-        f"S={S} tile {tile} (scores in a {ws}-byte workspace) cache_len "
-        f"{clen}: max |diff| {e:.3g} (worst (row, head) {worst:.3g} of its "
-        f"bound); {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain:.4f}, "
-        f"sdpa {lib:.4f})")
-    del kc, vc, kd, vd, mask
+    out_rows = {}
+    for clen in clens:
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        q = torch.randn((B, nh, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        args = (q, kc, ks, vc, vs, cl)
+        out = flash_decode_attention_int8(*args)
+        ref = flash_decode_attention_int8_plain(*args)
+        torch.cuda.synchronize()
+        e, worst = ulp_rows(out, ref)
+        what = (f"flash_decode_attention_int8 B={B} nh={nh} nkv={nkv} "
+                f"hd={hd} S={S} tile {tile} cache_len {clen}")
+        if not worst <= 1:
+            raise AssertionError(f"{what}: a (row, head) differs by "
+                                 f"{worst:.3g} times its bound of "
+                                 f"{ATTN_ULPS} bf16 ulps")
+        ms = timer.ms(lambda: flash_decode_attention_int8(*args))
+        plain = timer.ms(lambda: flash_decode_attention_int8_plain(*args))
+        live = max(clen)
+        kd = _dequant(kc[:, :, :live], ks[:, :, :live]).repeat_interleave(
+            g, dim=1)
+        vd = _dequant(vc[:, :, :live], vs[:, :, :live]).repeat_interleave(
+            g, dim=1)
+        mask = (torch.arange(live, device=dev)[None, :]
+                < cl[:, None])[:, None, None, :]
+        lib = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=mask))
+        del kd, vd, mask
+        n_pos = sum(clen)
+        nbytes = n_pos * nkv * (hd + 4) * 2 + 2 * B * nh * hd * 2 + B * 4
+        b, by = bound_ms(nbytes, 4.0 * nh * hd * n_pos)
+        log(f"  {what} ({ws}-byte workspace): max |diff| {e:.3g} (worst "
+            f"(row, head) {worst:.3g} of its bound); {ms:.4f} ms (bound "
+            f"{b:.4f} by {by}, plain {plain:.4f}, sdpa {lib:.4f})")
+        out_rows[clen] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+            max_abs_err=e, shape=f"B={B} nh={nh} nkv={nkv} S={S}, "
+            f"cache_len {list(clen)}")
+    del kc, vc
     torch.cuda.empty_cache()
+    return out_rows
+
+
+def check_flash_decode(dev, gen, timer):
+    """The S-tiled decode at Llama-3.1-8B's shape over run 3e's 32768-token
+    slot cache (32 heads, 8 kv heads; JAX's tile, 2048 keys): cache lengths
+    of 1 key, on a tile boundary, past the 8192 switch mid-tile and the
+    whole cache; those of the served run's last tick (the report row); one
+    long row beside rows of one key; then g = 16 (32 heads over 2 kv
+    heads) at the served lengths."""
+    from qqq_tpu_torch.kernels.attention import flash_decode_tile
+
+    S = L31_MAX_LEN
+    tile = flash_decode_tile(NKV3, S, HD, NH // NKV3)
+    served = tuple(n + 63 for n in L31_PROMPT_LENS)  # its last tick
+    cases = _flash_decode_cases(dev, gen, timer, NH, NKV3, HD, S, (
+        (1, 3 * tile, 9001, S), served, (1, 1, 12063, 1)))
+    g16 = _flash_decode_cases(dev, gen, timer, 32, 2, HD, S, (served,))
+    report = cases[served]
+    report["max_abs_err"] = max(r["max_abs_err"]
+                                for r in (*cases.values(), *g16.values()))
+    return report
+
+
+def check_flash_decode_qwen2(dev, gen, timer):
+    """The S-tiled decode at Qwen2-0.5B's attention geometry
+    (:data:`QWEN2_ATTN`, B = 4, bf16 q): JAX's tile is 16384 keys, 128
+    chunks whose maxima meet in one running maximum; then g = 16 (32 heads
+    over 2 kv heads) at the same width and lengths.  Logged beside the
+    bound, the plain version and SDPA; not a report row."""
+    nh, nkv, hd, S = (QWEN2_ATTN[k] for k in ("nh", "nkv", "hd", "S"))
+    clen = QWEN2_ATTN["clen"]
+    _flash_decode_cases(dev, gen, timer, nh, nkv, hd, S, (clen,))
+    _flash_decode_cases(dev, gen, timer, 32, 2, hd, S, (clen,))
 
 
 def _scrambled_tables(dev, rows: int, seed: int):
@@ -693,15 +667,16 @@ def _scrambled_tables(dev, rows: int, seed: int):
     return perm.reshape(rows, NBMAX).to(torch.int32).to(dev)
 
 
-def _rand_pool(dev, gen):
-    """A Llama-2-7B layer's pool: 65 blocks × 32 kv heads × 128 × 128."""
-    kp = torch.randint(-128, 128, (NB_POOL, NKV, BS, HD), generator=gen,
+def _rand_pool(dev, gen, nkv=NKV):
+    """A Llama-2-7B layer's pool: 65 blocks × 32 kv heads (or ``nkv``) ×
+    128 × 128."""
+    kp = torch.randint(-128, 128, (NB_POOL, nkv, BS, HD), generator=gen,
                        device=dev, dtype=torch.int8)
-    vp = torch.randint(-128, 128, (NB_POOL, NKV, BS, HD), generator=gen,
+    vp = torch.randint(-128, 128, (NB_POOL, nkv, BS, HD), generator=gen,
                        device=dev, dtype=torch.int8)
-    ks = torch.rand((NB_POOL, NKV, BS), generator=gen, device=dev) * 0.02 \
+    ks = torch.rand((NB_POOL, nkv, BS), generator=gen, device=dev) * 0.02 \
         + 1e-3
-    vs = torch.rand((NB_POOL, NKV, BS), generator=gen, device=dev) * 0.02 \
+    vs = torch.rand((NB_POOL, nkv, BS), generator=gen, device=dev) * 0.02 \
         + 1e-3
     return [kp, ks, vp, vs]
 
@@ -839,45 +814,60 @@ def check_paged_flash(dev, gen, timer):
 
 
 def check_paged_decode(dev, gen, timer):
-    """Paged decode at B = 4, cache lengths near 2000 ending mid-block,
-    scrambled tables over all 64 blocks; two bf16 ulps.  Yardstick: SDPA on
-    the gathered K/V."""
+    """Paged decode at B = 4 over scrambled tables of all 64 blocks: cache
+    lengths near 2000 ending mid-block (the report row), one long row
+    beside rows of one key, then g = 16 (32 heads over a pool of 2 kv
+    heads) at the first lengths; each (row, head) within two bf16 ulps of
+    its own largest output (:func:`ulp_rows`).  Yardstick: SDPA on the
+    gathered K/V (kv heads repeated)."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels.attention import (
         paged_decode_attention_int8, paged_decode_attention_int8_plain,
     )
 
-    B, clen = 4, (1990, 2001, 1937, 2040)
-    pool = _rand_pool(dev, gen)
+    B = 4
     tables = _scrambled_tables(dev, B, seed=20)
-    cl = torch.tensor(clen, dtype=torch.int32, device=dev)
-    q = torch.randn((B, NH, HD), generator=gen, device=dev).to(torch.bfloat16)
-    args = (q, *pool, tables, cl)
-    out = paged_decode_attention_int8(*args)
-    ref = paged_decode_attention_int8_plain(*args)
-    torch.cuda.synchronize()
-    e = (out.float() - ref.float()).abs().max().item()
-    if not e <= ulp_tol(ref):
-        raise AssertionError(f"paged_decode_attention_int8: max |diff| {e} "
-                             f"> {ulp_tol(ref)}")
-    kd, vd = _gathered_bf16(pool, tables)
-    mask = (torch.arange(NBMAX * BS, device=dev)[None, :]
-            < cl[:, None])[:, None, None, :]
-    ms = timer.ms(lambda: paged_decode_attention_int8(*args))
-    plain = timer.ms(lambda: paged_decode_attention_int8_plain(*args))
-    lib = timer.ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=mask))
-    n_pos = sum(clen)
-    nbytes = (n_pos * NKV * (HD + 4) * 2 + 2 * B * NH * HD * 2 + B * 4
-              + sum(-(-c // BS) for c in clen) * 4)
-    b, by = bound_ms(nbytes, 4.0 * NH * HD * n_pos)
-    log(f"  paged_decode_attention_int8 B={B} cache_len {clen}: max |diff| "
-        f"{e:.3g}; {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain:.4f}, "
-        f"sdpa {lib:.4f})")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                bound_by=by, max_abs_err=e,
-                shape=f"B={B} cache_len {list(clen)}, scrambled tables")
+    served = (1990, 2001, 1937, 2040)
+    report, err = None, 0.0
+    for nkv, clen in ((NKV, served), (NKV, (1, 2040, 1, 1)), (2, served)):
+        pool = _rand_pool(dev, gen, nkv)
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        q = torch.randn((B, NH, HD), generator=gen, device=dev).to(
+            torch.bfloat16)
+        args = (q, *pool, tables, cl)
+        out = paged_decode_attention_int8(*args)
+        ref = paged_decode_attention_int8_plain(*args)
+        torch.cuda.synchronize()
+        e, worst = ulp_rows(out, ref)
+        what = f"paged_decode_attention_int8 B={B} nkv={nkv} cache_len {clen}"
+        if not worst <= 1:
+            raise AssertionError(f"{what}: a (row, head) differs by "
+                                 f"{worst:.3g} times its bound of "
+                                 f"{ATTN_ULPS} bf16 ulps")
+        err = max(err, e)
+        kd, vd = (x.repeat_interleave(NH // nkv, dim=1)
+                  for x in _gathered_bf16(pool, tables))
+        mask = (torch.arange(NBMAX * BS, device=dev)[None, :]
+                < cl[:, None])[:, None, None, :]
+        ms = timer.ms(lambda: paged_decode_attention_int8(*args))
+        plain = timer.ms(lambda: paged_decode_attention_int8_plain(*args))
+        lib = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=mask))
+        n_pos = sum(clen)
+        nbytes = (n_pos * nkv * (HD + 4) * 2 + 2 * B * NH * HD * 2 + B * 4
+                  + sum(-(-c // BS) for c in clen) * 4)
+        b, by = bound_ms(nbytes, 4.0 * NH * HD * n_pos)
+        log(f"  {what}: max |diff| {e:.3g} (worst (row, head) {worst:.3g} "
+            f"of its bound); {ms:.4f} ms (bound {b:.4f} by {by}, plain "
+            f"{plain:.4f}, sdpa {lib:.4f})")
+        if report is None:
+            report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                          bound_by=by, shape=f"B={B} cache_len "
+                          f"{list(clen)}, scrambled tables")
+        del pool, kd, vd
+    report["max_abs_err"] = err
+    return report
 
 
 def kernel_fns():
@@ -905,7 +895,7 @@ def kernel_fns():
                                   "qqq_tpu/kernels/attention.py:33"),
         "flash_decode_attention_int8": (
             flash_decode_attention_int8,
-            "qqq_tpu_torch/csrc/flash_decode_attention.cu",
+            "qqq_tpu_torch/csrc/split_decode_attention.cu",
             "qqq_tpu/kernels/attention.py:757"),
         "flash_attention_int8": (flash_attention_int8,
                                  "qqq_tpu_torch/csrc/flash_attention.cu",
@@ -922,7 +912,7 @@ def kernel_fns():
             "qqq_tpu/kernels/attention.py:404"),
         "paged_decode_attention_int8": (
             paged_decode_attention_int8,
-            "qqq_tpu_torch/csrc/paged_decode_attention.cu",
+            "qqq_tpu_torch/csrc/split_decode_attention.cu",
             "qqq_tpu/kernels/attention.py:543"),
     })
     return fns
@@ -1083,6 +1073,7 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
     log(f"  decode: {decode_tokens / st['decode_s']:.1f} tok/s over all "
         f"slots, {1e3 * st['decode_s'] / st['decode_ticks']:.2f} ms per tick")
     log(f"  launches on the served path: {json.dumps(launches)}")
+    log(f"  tokens: {json.dumps([r.output_tokens for r in reqs])}")
     return launches, prompts[0], [r.output_tokens for r in reqs], eng
 
 
@@ -1365,7 +1356,7 @@ def main() -> int:
     for k in build.KERNELS:
         for line in build.build_log(k).splitlines():
             if "registers" in line or "spill" in line or (
-                    k in TENSOR_CORE_SOURCES and "entry function" in line):
+                    k in NAMED_SOURCES and "entry function" in line):
                 log(f"  {k}: {line.strip()}")
 
     log("phase 2: kernels against their plain versions on the card")

@@ -3,9 +3,7 @@
 // An entry whose block size in shared memory depends on its arguments asks
 // smem_fit before it launches; where the block would not fit it returns
 // kSmemTooLarge, having launched nothing, and the Python wrapper
-// (kernels/build.py:check) raises a ValueError that names the shape.  An
-// entry that can move part of its block to global memory instead asks
-// smem_room first (the S-tiled decode's scores).
+// (kernels/build.py:check) raises a ValueError that names the shape.
 
 #pragma once
 
@@ -15,11 +13,11 @@
 // Not a cudaError_t: the entry refused a block too large for the card.
 constexpr int kSmemTooLarge = -2;
 
-// Sets *room to the dynamic shared memory one block of `kernel` may take
-// after opting in (the card's opt-in limit less the kernel's static shared
-// memory).  Returns the CUDA error of the queries (0 on success).
+// 0 when `dynamic_bytes` of dynamic shared memory plus the kernel's static
+// shared memory fit in one block after opting in (and the opt-in is set),
+// kSmemTooLarge when they do not, else the CUDA error of the query.
 template <typename Kernel>
-int smem_room(Kernel kernel, size_t* room) {
+int smem_fit(Kernel kernel, size_t dynamic_bytes) {
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -28,20 +26,8 @@ int smem_room(Kernel kernel, size_t* room) {
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
-  *room = attr.sharedSizeBytes < (size_t)limit
-              ? (size_t)limit - attr.sharedSizeBytes : 0;
-  return 0;
-}
-
-// 0 when `dynamic_bytes` of dynamic shared memory plus the kernel's static
-// shared memory fit in one block after opting in (and the opt-in is set),
-// kSmemTooLarge when they do not, else the CUDA error of the query.
-template <typename Kernel>
-int smem_fit(Kernel kernel, size_t dynamic_bytes) {
-  size_t room = 0;
-  const int err = smem_room(kernel, &room);
-  if (err != 0) return err;
-  if (dynamic_bytes > room) return kSmemTooLarge;
+  if (attr.sharedSizeBytes + dynamic_bytes > (size_t)limit)
+    return kSmemTooLarge;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic_bytes);
 }

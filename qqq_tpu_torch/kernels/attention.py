@@ -5,30 +5,33 @@ paged_flash_attention_int8 and paged_decode_attention_int8, with
 ``qk_int8=False``).
 
 On CUDA tensors the wrappers launch csrc/decode_attention.cu,
-csrc/flash_decode_attention.cu, csrc/flash_attention.cu and
-csrc/paged_decode_attention.cu; on CPU tensors they run the plain PyTorch
-versions below.  The slot decode version is the JAX kernel's one-pass f32
-softmax; the kernel takes it online over 128-key tiles, which only
-reassociates f32 sums.  The flash version repeats the CUDA kernels' online
-softmax over 32-key steps, because there the order matters beyond f32:
-probabilities are rounded to bf16 against the running row maximum, so the
-step changes which bf16 values feed P·V (the JAX kernel tiles by 1024
-keys, or by the block size over the pool).  The flash kernel steps its
-softmax 32 keys at a time whatever its load stage (64 keys for its tensor
-cores).  Over the pool it is the same kernel with each key row looked up
-through the tables, and the paged flash version gathers the pool through
-the tables and is then the flash version.  The S-tiled decode (caches past the whole-cache switch) and
-paged decode share numerics of their own (bf16 q, bf16 probabilities times
-v_scale) and walk JAX's own key tile, which their kernels walk too, the
-S-tiled one at any tile JAX takes (its scores in a workspace where they
-outgrow shared memory).  The tests state the tolerances that follow.
+csrc/split_decode_attention.cu and csrc/flash_attention.cu; on CPU tensors
+they run the plain PyTorch versions below.  The slot decode version is the
+JAX kernel's one-pass f32 softmax; the kernel takes it online over 128-key
+tiles, which only reassociates f32 sums.  The flash version repeats the
+CUDA kernels' online softmax over 32-key steps, because there the order
+matters beyond f32: probabilities are rounded to bf16 against the running
+row maximum, so the step changes which bf16 values feed P·V (the JAX
+kernel tiles by 1024 keys, or by the block size over the pool).  The flash
+kernel steps its softmax 32 keys at a time whatever its load stage (64
+keys for its tensor cores).  Over the pool it is the same kernel with each
+key row looked up through the tables, and the paged flash version gathers
+the pool through the tables and is then the flash version.  The S-tiled
+decode (caches past the whole-cache switch) and paged decode share
+numerics of their own (bf16 q, bf16 probabilities times v_scale, rounded
+against the running maximum after each of JAX's key tiles) and one
+kernel, which splits each row's keys across blocks in 128-key chunks;
+their plain version follows the split's order, which keeps JAX's rounding
+points.  The tests state the tolerances that follow.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from qqq_tpu_torch.kernels import build
 
@@ -122,15 +125,30 @@ def decode_attention_int8(
 decode_attention_int8.launches = 0  # kernel launches; only CUDA counts
 
 
+#: keys a block of the split decode kernel takes
+#: (csrc/split_decode_attention.cu:kChunk); the plain version cuts each JAX
+#: tile into segments of this many keys as the kernel does, so it must
+#: follow the kernel whenever the chunk changes
+_DECODE_KEY_CHUNK = 128
+
+
 def _tiled_decode_plain(q, kc, ks, vc, vs, cache_len, tile: int):
     """The JAX S-tiled and paged decode kernels' arithmetic over a
-    contiguous (B, nkv, S, hd) cache, tile for tile: q scaled in f32 and
-    rounded to bf16; per tile of ``tile`` keys, f32 scores ``(q·K_i8)·
-    k_scale`` masked at ``s ≥ cache_len``, an online softmax whose ``e·
-    v_scale`` is rounded to bf16 before P·V while the denominator sums the
-    unrounded ``e``; ``acc / max(l, 1e-30)``.  Tiles past the last live key
-    are skipped, and a tile past one row's last key changes nothing for
-    that row (its ``e`` is 0 and its ``alpha`` 1)."""
+    contiguous (B, nkv, S, hd) cache, in the split kernel's order: q scaled
+    in f32 and rounded to bf16; each tile of ``tile`` keys cut into
+    segments of at most ``_DECODE_KEY_CHUNK`` keys (a segment never
+    straddles a tile); f32 scores ``(q·K_i8)·k_scale`` masked at ``s ≥
+    cache_len`` and their maximum per segment; the tile's running maximum
+    m_t as the running max of those (a max is exact, so m_t is JAX's);
+    per segment the partial sum of the unrounded ``e = exp(s - m_t)`` and
+    the partial P·V of ``bf16(e·v_scale)``; then JAX's chain over the
+    tiles, ``acc = acc·alpha_t + acc_t`` with ``alpha_t = exp(m_{t-1} -
+    m_t)``, as the kernel's combine takes it: each tile's summed partials
+    times ``exp(m_t - M)``, M the row's last running maximum (the product
+    of the later alphas as one exponential, an f32 reassociation); ``acc /
+    max(l, 1e-30)``.  Tiles past the last live key are skipped, and a tile
+    or segment past one row's last key changes nothing for that row (its
+    ``e`` is 0 and its maximum the one before)."""
     B, nh, hd = q.shape
     nkv, S = kc.shape[1], kc.shape[2]
     g = nh // nkv
@@ -139,23 +157,38 @@ def _tiled_decode_plain(q, kc, ks, vc, vs, cache_len, tile: int):
           / _sqrt_hd(hd).to(q.device)).to(torch.bfloat16).to(f32)
     clen = cache_len.to(torch.int64)
     live = min(S, int(clen.max()))
+    seg = min(tile, _DECODE_KEY_CHUNK)
     m = torch.full((B, nkv, g, 1), _NEG_INF, dtype=f32, device=q.device)
-    l = torch.zeros((B, nkv, g, 1), dtype=f32, device=q.device)
-    acc = torch.zeros((B, nkv, g, hd), dtype=f32, device=q.device)
+    m_t, l_t, acc_t = [], [], []  # per tile
     for t0 in range(0, live, tile):
         t1 = min(t0 + tile, live)
+        ns = -(-(t1 - t0) // seg)
+        pad = ns * seg - (t1 - t0)
         key = torch.arange(t0, t1, device=q.device)
         valid = (key[None, :] < clen[:, None])[:, None, None, :]
         sc = (qg @ kc[:, :, t0:t1].to(f32).transpose(-1, -2)) \
             * ks[:, :, None, t0:t1]
         sc = torch.where(valid, sc, _NEG_INF)
-        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
+        seg_max = F.pad(sc, (0, pad), value=_NEG_INF) \
+            .reshape(B, nkv, g, ns, seg).amax(dim=-1)
+        m_new = torch.maximum(m, seg_max.amax(dim=-1, keepdim=True))
         e = torch.where(valid, torch.exp(sc - m_new), 0.0)
         ev = (e * vs[:, :, None, t0:t1]).to(torch.bfloat16).to(f32)
-        l = l * alpha + e.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + ev @ vc[:, :, t0:t1].to(f32)
+        l_seg = F.pad(e, (0, pad)).reshape(B, nkv, g, ns, seg).sum(dim=-1)
+        v_seg = F.pad(vc[:, :, t0:t1].to(f32), (0, 0, 0, pad)) \
+            .reshape(B, nkv, ns, seg, hd)
+        pv_seg = torch.einsum(
+            "bhgcs,bhcsd->bhgcd",
+            F.pad(ev, (0, pad)).reshape(B, nkv, g, ns, seg), v_seg)
+        m_t.append(m_new)
+        l_t.append(l_seg.sum(dim=-1, keepdim=True))
+        acc_t.append(pv_seg.sum(dim=-2))
         m = m_new
+    if not m_t:
+        return torch.zeros_like(q)
+    f = torch.exp(torch.stack(m_t) - m)  # each tile's later alphas
+    l = (torch.stack(l_t) * f).sum(dim=0)
+    acc = (torch.stack(acc_t) * f).sum(dim=0)
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(B, nh, hd).to(q.dtype)
 
@@ -222,11 +255,10 @@ def flash_decode_attention_int8(
     sblk: Optional[int] = None,
 ) -> torch.Tensor:
     """S-tiled decode for caches past the whole-cache kernel's switch (any
-    S).  Returns (B, n_heads, hd) in q.dtype.  Every tile JAX takes runs:
-    where a tile's scores for a kv head's query heads do not fit in the
-    shared memory of one block (the tile is never changed: it fixes the
-    numerics), the kernel keeps them in a workspace allocated here, of the
-    size its C entry asks for."""
+    S, any g = nh/nkv).  Returns (B, n_heads, hd) in q.dtype.  The kernel
+    splits each row's keys across blocks in three launches over a workspace
+    allocated here (:func:`_split_decode`); ``.launches`` counts calls, one
+    per call."""
     B, nh, hd = q.shape
     nkv, S = k_cache.shape[1], k_cache.shape[2]
     if q.device.type == "cpu":
@@ -234,48 +266,64 @@ def flash_decode_attention_int8(
             q, k_cache, k_scale, v_cache, v_scale, cache_len, sblk=sblk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attention_int8: device {q.device}")
-    if q.dtype not in _IO_DTYPES:
-        raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
-    if nh % nkv or nh // nkv > _DECODE_MAX_G or hd > 256 or hd % 16:
-        raise ValueError(f"S-tiled decode kernel takes nh/nkv ≤ "
-                         f"{_DECODE_MAX_G}, hd ≤ 256 and hd % 16 == 0 "
-                         f"(nh={nh}, nkv={nkv}, hd={hd})")
-    g = nh // nkv
-    tile = flash_decode_tile(nkv, S, hd, g, sblk)
+    _check_split_args(q, nkv, "S-tiled")
+    tile = flash_decode_tile(nkv, S, hd, nh // nkv, sblk)
     _check_args(q, k_cache, k_scale, v_cache, v_scale, cache_len, nkv, S)
-    what = (f"flash_decode_attention_int8 at nh={nh}, nkv={nkv}, S={S}, "
-            f"hd={hd}: a tile of {tile} keys for {g} query heads")
-    ws_bytes = flash_decode_workspace_bytes(B, nh, nkv, hd, tile)
-    if ws_bytes < 0:
-        raise RuntimeError(f"{what}: CUDA error {-ws_bytes} sizing the "
-                           "workspace")
-    ws = (torch.empty(ws_bytes // 4, dtype=torch.float32, device=q.device)
-          if ws_bytes else None)
-    out = torch.empty_like(q)
-    fn = build.bind("flash_decode_attention", "flash_decode_attention_int8",
-                    "ppppppppiiiiiiip")
-    build.check(fn(q.data_ptr(), k_cache.data_ptr(), k_scale.data_ptr(),
-                   v_cache.data_ptr(), v_scale.data_ptr(),
-                   cache_len.data_ptr(), out.data_ptr(),
-                   None if ws is None else ws.data_ptr(), B, nh, nkv, S, hd,
-                   tile, int(q.dtype == torch.bfloat16), build.stream_of(q)),
-                what)
+    out = _split_decode(
+        "flash_decode_attention_int8", "ppppppppiiiiiiip", q, S, tile,
+        (q, k_cache, k_scale, v_cache, v_scale, cache_len),
+        (B, nh, nkv, S, hd, tile))
     flash_decode_attention_int8.launches += 1
     return out
 
 
-def flash_decode_workspace_bytes(B: int, nh: int, nkv: int, hd: int,
-                                 sblk: int) -> int:
-    """Bytes of the f32 score workspace the S-tiled decode kernel needs on
-    the current card: 0 where a tile's scores fit in a block's shared memory
-    (the rule lives in csrc/flash_decode_attention.cu alone); negative:
-    minus a CUDA error."""
-    fn = build.bind("flash_decode_attention", "flash_decode_workspace_bytes",
-                    "iiiii", ret="q")
-    return int(fn(B, nh, nkv, hd, sblk))
+flash_decode_attention_int8.launches = 0  # wrapper calls on CUDA tensors
 
 
-flash_decode_attention_int8.launches = 0  # kernel launches; only CUDA counts
+def _check_split_args(q, nkv: int, which: str) -> None:
+    nh, hd = q.shape[1], q.shape[-1]
+    if q.dtype not in _IO_DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
+    if nh % nkv or hd > 256 or hd % 16:
+        raise ValueError(f"{which} decode kernel takes nh % nkv == 0, hd ≤ "
+                         f"256 and hd % 16 == 0 (nh={nh}, nkv={nkv}, "
+                         f"hd={hd})")
+
+
+@functools.lru_cache(maxsize=None)
+def decode_workspace_bytes(B: int, nh: int, nkv: int, smax: int, hd: int,
+                           tile: int) -> int:
+    """Bytes of the f32 workspace of the split decode kernel
+    (csrc/split_decode_attention.cu, the one place its layout lives) for
+    rows of ``smax`` keys walked in JAX tiles of ``tile``; negative: minus
+    a CUDA error for arguments it refuses.  Kept per shape: the decode
+    asks in every layer of every tick."""
+    fn = build.bind("split_decode_attention", "decode_workspace_bytes",
+                    "iiiiii", ret="q")
+    return int(fn(B, nh, nkv, smax, hd, tile))
+
+
+def _split_decode(entry: str, sig: str, q, smax: int, tile: int, tensors,
+                  ints):
+    """Allocates the output and the workspace and calls ``entry`` of the
+    split decode kernel: ``tensors`` (inputs, then the output and the
+    workspace are appended), then ``ints``, the dtype flag and the
+    stream.  The kernel makes three launches on the current stream."""
+    B, nh, hd = q.shape
+    nkv = ints[2]
+    what = (f"{entry} at nh={nh}, nkv={nkv}, hd={hd}, {smax} keys a row, "
+            f"tiles of {tile}")
+    ws_bytes = decode_workspace_bytes(B, nh, nkv, smax, hd, tile)
+    if ws_bytes < 0:
+        raise RuntimeError(f"{what}: CUDA error {-ws_bytes} sizing the "
+                           "workspace")
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    fn = build.bind("split_decode_attention", entry, sig)
+    build.check(fn(*(t.data_ptr() for t in (*tensors, out, ws)), *ints,
+                   int(q.dtype == torch.bfloat16), build.stream_of(q)),
+                what)
+    return out
 
 
 def decode_attention_auto(q, k_cache, k_scale, v_cache, v_scale, cache_len):
@@ -495,8 +543,10 @@ def paged_decode_attention_int8(
     tables: torch.Tensor,   # (B, nbmax) int32
     cache_len: torch.Tensor,  # (B,) int32: valid keys INCLUDING the current
 ) -> torch.Tensor:
-    """Decode attention over the block pool.  Returns (B, n_heads, hd) in
-    q.dtype."""
+    """Decode attention over the block pool (any g = nh/nkv).  Returns
+    (B, n_heads, hd) in q.dtype.  The S-tiled decode's split kernel with
+    each key row looked up through the table: three launches over a
+    workspace allocated here; ``.launches`` counts calls, one per call."""
     B, nh, hd = q.shape
     nkv, bs = k_pool.shape[1], k_pool.shape[2]
     nbmax = tables.shape[1]
@@ -505,27 +555,15 @@ def paged_decode_attention_int8(
             q, k_pool, k_scale, v_pool, v_scale, tables, cache_len)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_int8: device {q.device}")
-    if q.dtype not in _IO_DTYPES:
-        raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
+    _check_split_args(q, nkv, "paged")
     sub = paged_decode_tile(bs)
-    if (nh % nkv or nh // nkv > _DECODE_MAX_G or hd > 128 or hd % 16
-            or sub > 512):
-        raise ValueError(f"paged decode kernel takes nh/nkv ≤ "
-                         f"{_DECODE_MAX_G}, hd ≤ 128, hd % 16 == 0 and a "
-                         f"key tile ≤ 512 (nh={nh}, nkv={nkv}, hd={hd}, "
-                         f"bs={bs})")
     _check_paged(q, k_pool, k_scale, v_pool, v_scale, tables, cache_len)
-    out = torch.empty_like(q)
-    fn = build.bind("paged_decode_attention", "paged_decode_attention_int8",
-                    "ppppppppiiiiiiiip")
-    build.check(fn(q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
-                   v_pool.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-                   cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, bs,
-                   nbmax, hd, sub, int(q.dtype == torch.bfloat16),
-                   build.stream_of(q)),
-                "paged_decode_attention_int8")
+    out = _split_decode(
+        "paged_decode_attention_int8", "pppppppppiiiiiiiip", q, nbmax * bs,
+        sub, (q, k_pool, k_scale, v_pool, v_scale, tables, cache_len),
+        (B, nh, nkv, bs, nbmax, hd, sub))
     paged_decode_attention_int8.launches += 1
     return out
 
 
-paged_decode_attention_int8.launches = 0  # kernel launches; only CUDA counts
+paged_decode_attention_int8.launches = 0  # wrapper calls on CUDA tensors

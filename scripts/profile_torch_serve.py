@@ -16,8 +16,9 @@ dispatches (M = 1024 each).  It profiles the prefill and ``--ticks``
 steady decode ticks with ``torch.profiler`` (CPU + CUDA activities) and
 prints, for each: the host wall time (ending in a synchronize), the summed
 device time of all CUDA kernels, the device idle share, and the kernels
-ranked by device time, per dispatch and per tick.  The card's name and
-power limit come first.
+ranked by device time, per dispatch and per tick.  Before the profiled
+ticks, as many unprofiled ones are timed on the host clock (ending in a
+synchronize).  The card's name and power limit come first.
 
 With ``--llama31`` the model is Llama-3.1-8B (``ModelConfig.from_hf`` of
 chip_smoke.py's config: 8 kv heads, llama3 RoPE scaling) over a
@@ -165,6 +166,12 @@ def main() -> int:
     for _ in range(2):
         tick()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.ticks):
+        tick()
+    torch.cuda.synchronize()
+    print(f"decode, unprofiled: wall "
+          f"{(time.perf_counter() - t0) * 1e3 / args.ticks:.3f} ms (per tick)")
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.ticks):

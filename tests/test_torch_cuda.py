@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and odd shapes the checks of chip_smoke.py do not reach (hd = 64,
-GQA up to g = 8, f32 I/O, ragged M and N, odd S, chunks after cached keys;
-over the paged pool: block sizes 8, 16, 128 and 512, scrambled tables,
-chunks that straddle blocks, rows past their table and rows whose table is
-all null).
+GQA up to g = 8, the split decode also at g = 16, f32 I/O, ragged M and
+N, odd S, chunks after cached keys; over the paged pool: block sizes 8,
+16, 128 and 512, scrambled tables, chunks that straddle blocks, rows past
+their table and rows whose table is all null).
 
 Needs an NVIDIA GPU with nvcc; skips without one.  Run on the card with
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` (the suite's
@@ -16,7 +16,7 @@ ulps of their largest output (another exp in the epilogue); attention
 within two ulps of the output dtype at the largest output (bf16: 2^-6,
 f32: 2^-22 relative to max |ref|, plus the flash, paged decode and S-tiled
 decode kernels' bf16 probabilities: 2^-7 relative in f32), slot and paged
-flash and the S-tiled decode's whole-cache tile per output row, at its own
+flash, the S-tiled decode and paged decode per output row, at its own
 largest value; paged flash bit-equal to slot flash on the gathered pool.
 """
 
@@ -375,28 +375,46 @@ def test_paged_flash_is_slot_flash_on_gathered_pool(dev, dtype, bs):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("bs", [8, 16, 128, 512])
-def test_paged_decode_kernel(dev, dtype, bs):
-    """GQA g = 4; cache lengths of one key, mid-table and the whole table,
-    one row on an all-null table; bs = 512 walks two 256-key tiles per
-    block, as JAX does."""
+@pytest.mark.parametrize("bs,nh,nkv,hd,clen", [
+    (8, 8, 2, 64, None), (16, 8, 2, 64, None), (128, 8, 2, 128, None),
+    (512, 8, 2, 128, None),
+    # rows ending on a 128-key chunk and on a 256-key tile, one key past
+    (512, 8, 2, 128, (128, 129, 256, 257)),
+    # one long row beside rows of one key
+    (128, 8, 2, 128, (1, 2040, 1, 1)),
+    # g = 16
+    (128, 32, 2, 128, (200, 512, 1, 9)),
+    # blocks of 16 < the 128-key chunk: a chunk spans eight blocks
+    (16, 8, 2, 64, (1, 129, 320, 9)),
+    # hd = 96: six of a key row's eight 16-byte columns live
+    (128, 8, 2, 96, None),
+    # hd = 256: sixteen columns a key row
+    (128, 4, 2, 256, None),
+], ids=["8-8-2-None", "16-8-2-None", "128-8-2-None", "512-8-2-None",
+        "512-8-2-clen4", "128-8-2-clen5", "128-32-2-clen6", "16-8-2-clen7",
+        "128-8-2-hd96", "128-4-2-hd256"])
+def test_paged_decode_kernel(dev, dtype, bs, nh, nkv, hd, clen):
+    """GQA; by default cache lengths of one key, mid-table and the whole
+    table, and one row on an all-null table (bs = 512 walks two 256-key
+    tiles per block, as JAX does); then chunk and tile edges, one long row
+    beside one-key rows, g = 16, chunks spanning blocks, hd = 96 and 256.
+    One wrapper call, each (row, head) within two ulps of its own largest
+    output."""
     from qqq_tpu_torch.kernels.attention import (
         paged_decode_attention_int8, paged_decode_attention_int8_plain,
     )
 
-    B, nh, nkv = 4, 8, 2
-    hd = 128 if bs >= 128 else 64
-    nbmax = max(2, 640 // bs)
+    B = 4
+    nbmax = max(2, 640 // bs, -(-max(clen or (0,)) // bs))
+    if clen is None:
+        clen = (1, nbmax * bs // 2 + 3, nbmax * bs, 9)
     q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev).to(dtype)
     tables = _tables(dev, B, nbmax, null_row=3)
     args = (q, *_cache(dev, 1 + B * nbmax, nkv, bs, hd), tables,
-            torch.tensor([1, nbmax * bs // 2 + 3, nbmax * bs, 9],
-                         dtype=torch.int32, device=dev))
+            torch.tensor(clen, dtype=torch.int32, device=dev))
     out = _launch_once(paged_decode_attention_int8, *args)
     ref = paged_decode_attention_int8_plain(*args)
-    ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
-    assert float((out.float() - ref.float()).abs().max()) \
-        <= ulps * float(ref.float().abs().max())
+    assert _per_row_ulps(out, ref, dtype) <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -404,15 +422,26 @@ def test_paged_decode_kernel(dev, dtype, bs):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("nh,nkv,hd,S,sblk", [
-    (4, 4, 128, 1999, None),   # g = 1, odd S: JAX's walk-down gives S
-    (8, 2, 128, 4096, 512),    # g = 4, eight tiles
-    (7, 1, 64, 3001, None),    # g = 7
-    (16, 2, 128, 2048, 256),   # g = 8
+@pytest.mark.parametrize("nh,nkv,hd,S,sblk,clen", [
+    (4, 4, 128, 1999, None, None),   # g = 1, odd S: JAX's walk-down gives S
+    (8, 2, 128, 4096, 512, None),    # g = 4, eight tiles
+    (7, 1, 64, 3001, None, None),    # g = 7
+    (16, 2, 128, 2048, 256, None),   # g = 8
+    (32, 2, 128, 2048, 256, None),   # g = 16
+    # rows ending on a 128-key chunk and on a tile, one key past each
+    (8, 2, 128, 4096, 512, (128, 129, 512, 513)),
+    # one long row beside rows of one key
+    (8, 2, 128, 8192, 2048, (1, 8191, 1, 1)),
+    # hd = 96: six of a key row's eight 16-byte columns live
+    (8, 2, 96, 2048, 512, None),
+    # hd = 256: sixteen columns a key row
+    (4, 2, 256, 2048, 512, None),
 ])
-def test_flash_decode_kernel(dev, dtype, nh, nkv, hd, S, sblk):
-    """Cache lengths of one key, mid-tile, on a tile boundary and the whole
-    cache; two ulps as paged decode (bf16 probabilities)."""
+def test_flash_decode_kernel(dev, dtype, nh, nkv, hd, S, sblk, clen):
+    """By default cache lengths of one key, mid-tile, on a tile boundary
+    and the whole cache; then chunk and tile edges, one long row beside
+    one-key rows, hd = 96 and 256.  One wrapper call, each (row, head)
+    within two ulps of its own largest output (bf16 probabilities)."""
     from qqq_tpu_torch.kernels.attention import (
         flash_decode_attention_int8, flash_decode_attention_int8_plain,
         flash_decode_tile,
@@ -420,34 +449,31 @@ def test_flash_decode_kernel(dev, dtype, nh, nkv, hd, S, sblk):
 
     B = 4
     tile = flash_decode_tile(nkv, S, hd, nh // nkv, sblk)
+    if clen is None:
+        clen = (1, S // 2 + 3, min(2 * tile, S), S)
     q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev).to(dtype)
-    clen = torch.tensor([1, S // 2 + 3, min(2 * tile, S), S],
-                        dtype=torch.int32, device=dev)
-    args = (q, *_cache(dev, B, nkv, S, hd), clen)
-    n0 = flash_decode_attention_int8.launches
-    out = flash_decode_attention_int8(*args, sblk=sblk)
-    assert flash_decode_attention_int8.launches == n0 + 1
+    args = (q, *_cache(dev, B, nkv, S, hd),
+            torch.tensor(clen, dtype=torch.int32, device=dev))
+    out = _launch_once(flash_decode_attention_int8, *args, sblk=sblk)
     ref = flash_decode_attention_int8_plain(*args, sblk=sblk)
-    ulps = 2 * _ULP[dtype] if dtype == torch.bfloat16 else 2.0 ** -7
-    assert float((out.float() - ref.float()).abs().max()) \
-        <= ulps * float(ref.float().abs().max())
+    assert _per_row_ulps(out, ref, dtype) <= 1
 
 
 def test_flash_decode_whole_cache_tile(dev):
-    """hd = 64 at S = 16384 makes JAX's tile the whole cache: 16384 keys'
-    scores for 4 query heads do not fit a block's shared memory, so they
-    live in a workspace the wrapper allocates; one launch, each (row, head)
-    within two ulps of the plain version over the same tile.  A 2048-key
-    tile still keeps its scores in shared memory."""
+    """hd = 64 at S = 16384 makes JAX's tile the whole cache: its 128
+    chunks' maxima meet in one running maximum, and the scores of every
+    head live in the workspace the wrapper allocates; one launch, each
+    (row, head) within two ulps of the plain version over the same tile,
+    and over 2048-key tiles."""
     from qqq_tpu_torch.kernels.attention import (
-        flash_decode_attention_int8, flash_decode_attention_int8_plain,
-        flash_decode_tile, flash_decode_workspace_bytes,
+        decode_workspace_bytes, flash_decode_attention_int8,
+        flash_decode_attention_int8_plain, flash_decode_tile,
     )
 
     B, nh, nkv, S, hd = 1, 8, 2, 16384, 64
     assert flash_decode_tile(nkv, S, hd, nh // nkv) == S
-    assert flash_decode_workspace_bytes(B, nh, nkv, hd, S) == 4 * B * nh * S
-    assert flash_decode_workspace_bytes(B, nh, nkv, hd, 2048) == 0
+    assert decode_workspace_bytes(B, nh, nkv, S, hd, S) > 4 * B * nh * S
+    assert decode_workspace_bytes(B, nh, nkv, S, hd, 0) < 0
     q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev)
     for clen in (S, 9001):
         args = (q, *_cache(dev, B, nkv, S, hd),
@@ -456,6 +482,27 @@ def test_flash_decode_whole_cache_tile(dev):
             out = _launch_once(flash_decode_attention_int8, *args, sblk=sblk)
             ref = flash_decode_attention_int8_plain(*args, sblk=sblk)
             assert _per_row_ulps(out, ref, q.dtype) <= 1
+
+
+def test_split_decode_shapes_in_turn(dev):
+    """The entry keeps each kernel's grid size and shared-memory opt-in
+    per block size: at hd = 256 a block needs more than the default 48 KiB,
+    so a kept answer must still launch after a call that needed fewer
+    bytes (B = 4, then 1, then 4 again), each within two ulps a (row,
+    head)."""
+    from qqq_tpu_torch.kernels.attention import (
+        flash_decode_attention_int8, flash_decode_attention_int8_plain,
+    )
+
+    nh, nkv, S, hd = 4, 2, 1024, 256
+    for B in (4, 1, 4):
+        q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev)
+        args = (q, *_cache(dev, B, nkv, S, hd),
+                torch.tensor((S, 700, 129, 1)[:B], dtype=torch.int32,
+                             device=dev))
+        out = _launch_once(flash_decode_attention_int8, *args, sblk=512)
+        ref = flash_decode_attention_int8_plain(*args, sblk=512)
+        assert _per_row_ulps(out, ref, q.dtype) <= 1
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 128, 33), (3, 384, 96),

@@ -8,7 +8,9 @@ plain versions on the CPU, the JAX Pallas kernels run in interpret mode.
 Tolerances:
 * S-tiled decode: 1e-5 absolute, as paged decode (tests/test_torch_paged.py).
   Both sides walk JAX's key tile and round ``q/√hd`` and ``e·v_scale`` to
-  bf16 at the same points; only f32 sums in another order differ.
+  bf16 at the same points; only f32 sums in another order differ (the
+  port's sums go by the split kernel's 128-key chunks, its tile maxima are
+  JAX's exactly).
 * fused GEMMs and the fused route of ``w4a8_linear``: bit-exact.  XLA's
   compile on the CPU turns JAX's ``absmax / 127`` (a division by a
   constant) into a multiply by the reciprocal, which is an ulp off the
@@ -102,6 +104,18 @@ def _cache(rng, B, nkv, S, hd):
     (4, 4, 4, 768, 128, 256, (1, 256, 500, 768)),
     # GQA g = 4: the same four kinds of cache length
     (4, 8, 2, 1024, 64, 256, (1, 512, 777, 1024)),
+    # rows ending on a 128-key chunk and on a tile, and one key past each
+    (4, 8, 2, 1024, 64, 256, (128, 129, 256, 257)),
+    # one long row beside rows of one key (the split's imbalance)
+    (4, 8, 2, 2048, 64, 512, (1, 2047, 1, 1)),
+    # g = 16, which JAX serves and the port used to refuse
+    (2, 32, 2, 1024, 64, 256, (300, 1024)),
+    # JAX's walk-down gives the whole cache, 1999 keys: a short last chunk
+    (2, 4, 2, 1999, 64, None, (1999, 1030)),
+    # hd = 96: six of a key row's eight 16-byte columns are live
+    (4, 8, 2, 1024, 96, 256, (1, 129, 513, 1024)),
+    # hd = 256: sixteen columns a key row
+    (2, 4, 2, 1024, 256, 256, (300, 1024)),
 ])
 def test_flash_decode_plain_matches_jax(B, nh, nkv, S, hd, sblk, clen):
     rng = np.random.default_rng(S + nh)

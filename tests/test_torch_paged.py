@@ -210,12 +210,25 @@ def test_paged_flash_matches_jax(B, nh, nkv, bs, nbmax, T, causal):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-3)
 
 
-@pytest.mark.parametrize("bs,nbmax,clen", [
-    (8, 12, (1, 37, 96)),        # one key; mid-block; the whole table
-    (512, 2, (300, 777, 1024)),  # JAX's 256-key sub-tiles inside a block
-])
-def test_paged_decode_matches_jax(bs, nbmax, clen):
-    B, nh, nkv, hd = 3, 8, 2, 64
+@pytest.mark.parametrize("bs,nbmax,clen,nh,nkv,hd", [
+    (8, 12, (1, 37, 96), 8, 2, 64),        # one key; mid-block; whole table
+    (512, 2, (300, 777, 1024), 8, 2, 64),  # JAX's 256-key sub-tiles a block
+    # rows ending on a 128-key chunk and on a 256-key tile, one key past
+    (512, 2, (128, 129, 256, 257), 8, 2, 64),
+    # one long row beside rows of one key (the split's imbalance)
+    (128, 8, (1, 1000, 1), 8, 2, 64),
+    # g = 16, which JAX serves and the port used to refuse
+    (128, 4, (200, 512, 1), 32, 2, 64),
+    # blocks of 16 < the 128-key chunk: a chunk spans eight blocks (tiles)
+    (16, 20, (1, 129, 320), 8, 2, 64),
+    # hd = 96 (six of eight 16-byte columns a key row live) and hd = 256
+    (128, 4, (1, 129, 500), 8, 2, 96),
+    (128, 4, (257, 512), 4, 2, 256),
+], ids=["8-12-clen0", "512-2-clen1", "512-2-chunk-edges",
+        "128-8-imbalanced", "128-4-g16", "16-20-chunk-spans-blocks",
+        "128-4-hd96", "128-4-hd256"])
+def test_paged_decode_matches_jax(bs, nbmax, clen, nh, nkv, hd):
+    B = len(clen)
     rng = np.random.default_rng(bs)
     q = rng.standard_normal((B, nh, hd)).astype(np.float32)
     *pool, tables = _pool_inputs(rng, B, nkv, bs, nbmax, hd)
