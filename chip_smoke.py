@@ -14,13 +14,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (the GEMMs, the activation-quant-fused ones included, and the KV writes
    bit-exact, requant also at ragged M and N, the paged writes outside the
    null block; the GLU-fused GEMMs and the attention kernels within two
-   bf16 ulps of the largest output, slot and paged flash, the S-tiled
-   decode and paged decode per row of their output, slot flash also after
-   cached keys, paged flash also bit-equal to slot flash on the gathered
-   pool, the S-tiled and paged decode (one split-key kernel) also with one
-   long row beside one-key rows and at g = 16, the S-tiled decode also at
-   Qwen2-0.5B's attention geometry, whose tile is half the cache; the paged
-   ones over scrambled block tables), and time it beside its bound, its
+   bf16 ulps of the largest output, slot and paged flash and the three
+   decode kernels per row of their output, slot flash also after cached
+   keys, paged flash also bit-equal to slot flash on the gathered pool,
+   the whole-cache, S-tiled and paged decode (one split-key kernel) also
+   at g = 16, the S-tiled and paged decode also with one long row beside
+   one-key rows, the whole-cache decode also at hd = 256 (g = 4 and 16)
+   and at Qwen2-0.5B's attention geometry, the S-tiled decode also at that
+   geometry whose tile is half the cache; the paged ones over scrambled
+   block tables), and time it beside its bound, its
    plain version and a one-call PyTorch yardstick that the port never
    calls;
 3. serve 4 requests through the port's Engine, with its default arguments
@@ -433,39 +435,66 @@ def _dequant(c, s):
     return (c.float() * s[..., None]).to(torch.bfloat16)
 
 
+#: the whole-cache decode's extra geometries, each (nh, nkv, hd, S, cache
+#: lengths) below the 8192 switch: g = 4 and g = 16 at hd = 256 and the
+#: same lengths, and Qwen2-0.5B's heads
+DECODE_EXTRA = ((8, 2, 256, 4096, (1, 4096, 2001, 129)),
+                (32, 2, 256, 4096, (1, 4096, 2001, 129)),
+                (QWEN2_ATTN["nh"], QWEN2_ATTN["nkv"], QWEN2_ATTN["hd"], 8192,
+                 (1, 3001, 8192, 5000)))
+
+
 def check_decode(dev, gen, timer):
+    """The whole-cache decode (the split kernel with the JAX kernel's f32
+    numerics) at B = 1 and 4 over Llama-2-7B's slot cache of 1024, 2048
+    (the main path's max_len, prompt-like lengths: the report row) and
+    4096 keys, then :data:`DECODE_EXTRA`; each (row, head) within two bf16
+    ulps of its own largest output (:func:`ulp_rows`), timed beside its
+    bound, its plain version and SDPA on the dequantized bf16 K/V (kv heads
+    repeated, masked)."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels.attention import (
         decode_attention_int8, decode_attention_int8_plain,
     )
 
+    cases = [(B, NH, NKV, HD, S, None) for B, S in (
+        (1, 1024), (4, 1024), (1, 2048), (4, 2048), (1, 4096), (4, 4096))]
+    cases += [(4, nh, nkv, hd, S, clen)
+              for nh, nkv, hd, S, clen in DECODE_EXTRA]
     report, err = None, 0.0
-    for B, S in ((1, 1024), (4, 1024), (1, 2048), (4, 2048), (1, 4096),
-                 (4, 4096)):
-        if S == 2048:  # the main path's max_len, prompt-like lengths
+    for B, nh, nkv, hd, S, clen in cases:
+        if clen is not None:
+            clen = torch.tensor(clen, dtype=torch.int32, device=dev)
+        elif S == 2048:  # the main path's max_len, prompt-like lengths
             clen = torch.tensor([164, 364, 664, 964][:B], dtype=torch.int32,
                                 device=dev)
         else:
             clen = torch.randint(S // 2, S + 1, (B,), generator=gen,
                                  device=dev, dtype=torch.int32)
-        q = torch.randn((B, NH, HD), generator=gen, device=dev).to(torch.bfloat16)
-        kc = torch.randint(-128, 128, (B, NKV, S, HD), generator=gen,
+        q = torch.randn((B, nh, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kc = torch.randint(-128, 128, (B, nkv, S, hd), generator=gen,
                            device=dev, dtype=torch.int8)
-        vc = torch.randint(-128, 128, (B, NKV, S, HD), generator=gen,
+        vc = torch.randint(-128, 128, (B, nkv, S, hd), generator=gen,
                            device=dev, dtype=torch.int8)
-        ks = torch.rand((B, NKV, S), generator=gen, device=dev) * 0.02 + 1e-3
-        vs = torch.rand((B, NKV, S), generator=gen, device=dev) * 0.02 + 1e-3
+        ks = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
+        vs = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
         args = (q, kc, ks, vc, vs, clen)
         out = decode_attention_int8(*args)
         ref = decode_attention_int8_plain(*args)
         torch.cuda.synchronize()
-        e = (out.float() - ref.float()).abs().max().item()
-        if not e <= ulp_tol(ref):
-            raise AssertionError(f"decode_attention_int8 B={B} S={S}: max "
-                                 f"|diff| {e} > {ulp_tol(ref)}")
+        e, worst = ulp_rows(out, ref)
+        what = (f"decode_attention_int8 B={B} nh={nh} nkv={nkv} hd={hd} "
+                f"S={S} cache_len {clen.tolist()}")
+        if not worst <= 1:
+            raise AssertionError(f"{what}: a (row, head) differs by "
+                                 f"{worst:.3g} times its bound of "
+                                 f"{ATTN_ULPS} bf16 ulps")
         err = max(err, e)
-        kd, vd = _dequant(kc, ks), _dequant(vc, vs)
+        g = nh // nkv
+        kd = _dequant(kc, ks).repeat_interleave(g, dim=1)
+        vd = _dequant(vc, vs).repeat_interleave(g, dim=1)
         mask = (torch.arange(S, device=dev)[None, :]
                 < clen[:, None])[:, None, None, :]
         ms = timer.ms(lambda: decode_attention_int8(*args))
@@ -473,12 +502,12 @@ def check_decode(dev, gen, timer):
         lib = timer.ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], kd, vd, attn_mask=mask))
         n_pos = int(clen.clamp(max=S).sum())
-        nbytes = n_pos * NKV * (HD + 4) * 2 + 2 * B * NH * HD * 2 + B * 4
-        b, by = bound_ms(nbytes, 4.0 * NH * HD * n_pos)
-        log(f"  decode_attention_int8 B={B} S={S}: max |diff| {e:.3g}; "
-            f"{ms:.4f} ms (bound {b:.4f} by {by}, plain {plain:.4f}, "
-            f"sdpa {lib:.4f})")
-        if (B, S) == (4, 2048):
+        nbytes = n_pos * nkv * (hd + 4) * 2 + 2 * B * nh * hd * 2 + B * 4
+        b, by = bound_ms(nbytes, 4.0 * nh * hd * n_pos)
+        log(f"  {what}: max |diff| {e:.3g} (worst (row, head) {worst:.3g} "
+            f"of its bound); {ms:.4f} ms (bound {b:.4f} by {by}, plain "
+            f"{plain:.4f}, sdpa {lib:.4f})")
+        if (B, nh, S) == (4, NH, 2048):
             report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                           bound_by=by, shape="B=4 S=2048, cache_len "
                           "164/364/664/964")
@@ -890,9 +919,10 @@ def kernel_fns():
         "slot_decode_write_int8": (slot_decode_write_int8,
                                    "qqq_tpu_torch/csrc/kv_write.cu",
                                    "qqq_tpu/kernels/kv_write.py:36"),
-        "decode_attention_int8": (decode_attention_int8,
-                                  "qqq_tpu_torch/csrc/decode_attention.cu",
-                                  "qqq_tpu/kernels/attention.py:33"),
+        "decode_attention_int8": (
+            decode_attention_int8,
+            "qqq_tpu_torch/csrc/split_decode_attention.cu",
+            "qqq_tpu/kernels/attention.py:33"),
         "flash_decode_attention_int8": (
             flash_decode_attention_int8,
             "qqq_tpu_torch/csrc/split_decode_attention.cu",

@@ -48,7 +48,10 @@
 // spans several blocks when bs < 64), the table entry read through the
 // read-only cache.  Everything past the copies is the slot kernel's, so the
 // paged kernel on a pool is bit-identical to the slot kernel on the pool
-// gathered through the tables.
+// gathered through the tables.  The head dim is a template parameter,
+// instantiated at 64, 96, 128 and 256 (JAX's kernels take any); at 256 a
+// thread holds 128 f32 accumulators and 64 q' registers, and a block 164
+// KiB of shared memory, which smem_fit opts in to.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -178,11 +181,10 @@ __device__ __forceinline__ void load_stage(
   const uint32_t slot =
       (uint32_t)__cvta_generic_to_shared(smem + (st % kRing) * L::kSlot);
   constexpr int kChunks = BKS * HD / 16;  // 16-byte chunks of K (and of V)
-  static_assert(kChunks % kThreads == 0, "whole passes");
-  // each key row found once for its K and V copies
+  // each key row found once for its K and V copies (hd = 96: a last pass
+  // of half the threads)
 #pragma unroll
-  for (int i = 0; i < kChunks / kThreads; ++i) {
-    const int id = tid + i * kThreads;
+  for (int id = tid; id < kChunks; id += kThreads) {
     const int kk = id / (HD / 16), c = id % (HD / 16);
     const int s = st * BKS + kk;
     const bool ok = s < kend;
@@ -428,7 +430,7 @@ int launch_tc(const void* q, const void* kc, const void* ks, const void* vc,
 
 // q (B, nh, T, hd) bf16 (bf16_io = 1) or f32; caches (B, nkv, S, hd) int8
 // and scales (B, nkv, S) f32 holding the chunk at [cache_len, cache_len + T);
-// cache_len (B,) int32; out (B, nh, T, hd) like q.  hd in {64, 128}.
+// cache_len (B,) int32; out (B, nh, T, hd) like q.  hd in {64, 96, 128, 256}.
 extern "C" int flash_attention_int8(const void* q, const void* k_cache,
                                     const void* k_scale, const void* v_cache,
                                     const void* v_scale, const void* cache_len,
@@ -439,10 +441,14 @@ extern "C" int flash_attention_int8(const void* q, const void* k_cache,
 #define FL_LAUNCH(HD_, T_)                                                   \
   launch_tc<HD_, T_, false>(q, k_cache, k_scale, v_cache, v_scale, nullptr, \
                             cache_len, out, B, nh, nkv, T, S, 1, causal, st)
-  if (hd == 128)
-    return bf16_io ? FL_LAUNCH(128, __nv_bfloat16) : FL_LAUNCH(128, float);
-  if (hd == 64)
-    return bf16_io ? FL_LAUNCH(64, __nv_bfloat16) : FL_LAUNCH(64, float);
+  switch (hd) {
+    case 64: return bf16_io ? FL_LAUNCH(64, __nv_bfloat16) : FL_LAUNCH(64, float);
+    case 96: return bf16_io ? FL_LAUNCH(96, __nv_bfloat16) : FL_LAUNCH(96, float);
+    case 128:
+      return bf16_io ? FL_LAUNCH(128, __nv_bfloat16) : FL_LAUNCH(128, float);
+    case 256:
+      return bf16_io ? FL_LAUNCH(256, __nv_bfloat16) : FL_LAUNCH(256, float);
+  }
 #undef FL_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
@@ -450,7 +456,7 @@ extern "C" int flash_attention_int8(const void* q, const void* k_cache,
 // q (B, nh, T, hd) bf16 (bf16_io = 1) or f32; pools (nb, nkv, bs, hd) int8
 // and scales (nb, nkv, bs) f32 holding the chunk at positions [cache_len,
 // cache_len + T) of each row's table; tables (B, nbmax) int32; cache_len
-// (B,) int32; out (B, nh, T, hd) like q.  hd in {64, 128}.
+// (B,) int32; out (B, nh, T, hd) like q.  hd in {64, 96, 128, 256}.
 extern "C" int paged_flash_attention_int8(
     const void* q, const void* k_pool, const void* k_scale,
     const void* v_pool, const void* v_scale, const void* tables,
@@ -461,10 +467,14 @@ extern "C" int paged_flash_attention_int8(
 #define PG_LAUNCH(HD_, T_)                                                 \
   launch_tc<HD_, T_, true>(q, k_pool, k_scale, v_pool, v_scale, tables,    \
                            cache_len, out, B, nh, nkv, T, S, bs, causal, st)
-  if (hd == 128)
-    return bf16_io ? PG_LAUNCH(128, __nv_bfloat16) : PG_LAUNCH(128, float);
-  if (hd == 64)
-    return bf16_io ? PG_LAUNCH(64, __nv_bfloat16) : PG_LAUNCH(64, float);
+  switch (hd) {
+    case 64: return bf16_io ? PG_LAUNCH(64, __nv_bfloat16) : PG_LAUNCH(64, float);
+    case 96: return bf16_io ? PG_LAUNCH(96, __nv_bfloat16) : PG_LAUNCH(96, float);
+    case 128:
+      return bf16_io ? PG_LAUNCH(128, __nv_bfloat16) : PG_LAUNCH(128, float);
+    case 256:
+      return bf16_io ? PG_LAUNCH(256, __nv_bfloat16) : PG_LAUNCH(256, float);
+  }
 #undef PG_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,15 +1,30 @@
-// Decode (T = 1) GQA attention over the INT8 slot cache (S-tiled decode) and
-// over the paged INT8 block pool (paged decode), the keys of each row split
-// across blocks, for Hopper (sm_90a), CUDA cores.
+// Decode (T = 1) GQA attention over the INT8 slot cache (whole-cache and
+// S-tiled decode) and over the paged INT8 block pool (paged decode), the
+// keys of each row split across blocks, for Hopper (sm_90a), CUDA cores.
 //
-// Replaces: qqq_tpu/kernels/attention.py:_flash_decode_kernel (:757), reached
-// through flash_decode_attention_int8 (:866) from decode_attention_auto
-// (:952), and _paged_decode_slab_kernel (:543), reached through
-// paged_decode_attention_int8 (:665).  The key layout is a template
-// parameter (KeyRows): key p of (b, kv head h) is slot row (b * nkv + h) * S
-// + p, or pool row (tab[b][p / bs] * nkv + h) * bs + p % bs.
+// Replaces: qqq_tpu/kernels/attention.py:_decode_attn_kernel (:33), reached
+// through decode_attention_int8 (:977, call :1021) from
+// decode_attention_auto (:952) while S * (hd + 8) <= 8192 * 136;
+// _flash_decode_kernel (:757), reached through flash_decode_attention_int8
+// (:866) from decode_attention_auto past that; and
+// _paged_decode_slab_kernel (:543), reached through
+// paged_decode_attention_int8 (:665).  Two template parameters: the key
+// layout (KeyRows): key p of (b, kv head h) is slot row (b * nkv + h) * S +
+// p, or pool row (tab[b][p / bs] * nkv + h) * bs + p % bs; and the numerics
+// (kF32): the whole-cache kernel's, or the tiled kernels'.
 //
-// Computes the JAX kernels' numerics: per (b, h) and its g = nh / nkv query
+// The whole-cache kernel's numerics (kF32, slot layout), all in f32: q' =
+// q / sqrt(hd); score = (q' . K_i8) * k_scale, masked at s >= cache_len;
+// one softmax over the whole row, p = (e / sum(e)) * v_scale with e =
+// exp(score - M), M the row's maximum; out = p . V_i8.  The split walks the
+// row as one tile of S keys: pass 2's m_t is then M for every segment, e
+// stays unrounded, P.V takes e * v_scale in f32, and the combine divides
+// the sum of the partial P.V by the sum of the partial sums of e (each
+// factor exp(m_t - M) is exp(0) = 1).  Against JAX the only differences
+// are f32 reassociations: the dot products, the split sum, and (e *
+// v_scale) / l against (e / l) * v_scale.
+//
+// The tiled kernels' numerics: per (b, h) and its g = nh / nkv query
 // heads, q' = bf16(q / sqrt(hd)); the live keys 0 .. cache_len - 1 are
 // walked in JAX's tiles of `tile` keys (sblk of the S-tiled kernel, picked
 // by the wrapper; sub = 256 or bs of the paged one); score = (q' . K_i8) *
@@ -354,7 +369,7 @@ __device__ __forceinline__ void scores_fetch(
 
 // Pass 1, stage `buf` landed: scores of the chunk's live keys for the g heads
 // of kv head h, and each segment's maximum per head.
-template <typename T, int HG>
+template <typename T, int HG, bool kF32>
 __device__ __forceinline__ void scores_chunk(char* smem,
                                              const ScoresSmem& Y, int buf,
                                              const Work& w, const Geometry& G,
@@ -374,7 +389,8 @@ __device__ __forceinline__ void scores_chunk(char* smem,
   for (int f = t.tid; f < g * qw; f += kThreads) {
     const int j = f / qw;
     const int d = f - j * qw;
-    qs[f] = d < hd ? bf16r(to_f(qr[j * hd + d]) / sq) : 0.f;
+    const float x = d < hd ? to_f(qr[j * hd + d]) / sq : 0.f;
+    qs[f] = kF32 ? x : bf16r(x);
   }
   __syncthreads();
 
@@ -482,9 +498,9 @@ __device__ __forceinline__ void pv_fetch(
 }
 
 // Pass 2, stage `buf` landed: per segment of the chunk, e = exp(score -
-// m_t), its partial sum and the partial P.V of bf16(e * v_scale) for the g
-// heads of kv head h.
-template <int HG>
+// m_t), its partial sum and the partial P.V of bf16(e * v_scale) (kF32: of
+// e * v_scale) for the g heads of kv head h.
+template <int HG, bool kF32>
 __device__ __forceinline__ void pv_chunk(char* smem, const PvSmem& Y,
                                          int buf, const Work& w,
                                          const Geometry& G, int nkv, int b,
@@ -535,7 +551,7 @@ __device__ __forceinline__ void pv_chunk(char* smem, const PvSmem& Y,
       for (int k = a + t.lane; k < e; k += 32) {
         const float ex = expf(p[j * kChunk + k] - m);
         sum += ex;
-        p[j * kChunk + k] = bf16r(ex * vsc[k]);
+        p[j * kChunk + k] = kF32 ? ex * vsc[k] : bf16r(ex * vsc[k]);
       }
       sum = warp_sum(sum);
       if (t.lane == 0) w.pl[(bh * G.nseg + seg) * g + j] = sum;
@@ -599,7 +615,7 @@ __device__ __forceinline__ void pv_chunk(char* smem, const PvSmem& Y,
 
 // Passes 1 and 2 walk their items two stages deep: the copies of a block's
 // next item are in flight while it computes the current one.
-template <typename T, bool kPaged, int HG>
+template <typename T, bool kPaged, int HG, bool kF32>
 __global__ void __launch_bounds__(kThreads)
 scores_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
               const float* __restrict__ ks, const int* __restrict__ tab,
@@ -627,12 +643,13 @@ scores_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     cp_wait_prev();
     __syncthreads();
     items.at(i, &b, &h, &c);
-    scores_chunk<T, HG>(smem, Y, buf, w, G, nkv, b, h, c, items.L[b], t);
+    scores_chunk<T, HG, kF32>(smem, Y, buf, w, G, nkv, b, h, c, items.L[b],
+                              t);
     __syncthreads();  // stage buf and the single buffers are rewritten
   }
 }
 
-template <bool kPaged, int HG>
+template <bool kPaged, int HG, bool kF32>
 __global__ void __launch_bounds__(kThreads)
 pv_kernel(const int8_t* __restrict__ vc, const float* __restrict__ vs,
           const int* __restrict__ tab, const int* __restrict__ clen, Work w,
@@ -659,7 +676,7 @@ pv_kernel(const int8_t* __restrict__ vc, const float* __restrict__ vs,
     cp_wait_prev();
     __syncthreads();
     items.at(i, &b, &h, &c);
-    pv_chunk<HG>(smem, Y, buf, w, G, nkv, b, h, c, items.L[b], t);
+    pv_chunk<HG, kF32>(smem, Y, buf, w, G, nkv, b, h, c, items.L[b], t);
     __syncthreads();  // stage buf and the single buffers are rewritten
   }
 }
@@ -777,10 +794,10 @@ struct Call {
   Geometry G;
 };
 
-template <typename T, bool kPaged, int HG>
+template <typename T, bool kPaged, int HG, bool kF32>
 int run(const Call& c, cudaStream_t st) {
-  auto k1 = scores_kernel<T, kPaged, HG>;
-  auto k2 = pv_kernel<kPaged, HG>;
+  auto k1 = scores_kernel<T, kPaged, HG, kF32>;
+  auto k2 = pv_kernel<kPaged, HG, kF32>;
   const size_t staging = 8 * (size_t)c.B;  // Items' two ints a row
   const size_t sm1 = ScoresSmem(c.G, sizeof(T)).items + staging;
   const size_t sm2 = PvSmem(c.G, HG).items + staging;
@@ -809,17 +826,17 @@ int run(const Call& c, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <bool kPaged>
+template <bool kPaged, bool kF32>
 int dispatch(const Call& c, bool bf16_io, cudaStream_t st) {
   const int g = c.G.g;
   if (bf16_io) {
-    if (g == 1) return run<__nv_bfloat16, kPaged, 1>(c, st);
-    if (g == 2) return run<__nv_bfloat16, kPaged, 2>(c, st);
-    return run<__nv_bfloat16, kPaged, 4>(c, st);
+    if (g == 1) return run<__nv_bfloat16, kPaged, 1, kF32>(c, st);
+    if (g == 2) return run<__nv_bfloat16, kPaged, 2, kF32>(c, st);
+    return run<__nv_bfloat16, kPaged, 4, kF32>(c, st);
   }
-  if (g == 1) return run<float, kPaged, 1>(c, st);
-  if (g == 2) return run<float, kPaged, 2>(c, st);
-  return run<float, kPaged, 4>(c, st);
+  if (g == 1) return run<float, kPaged, 1, kF32>(c, st);
+  if (g == 2) return run<float, kPaged, 2, kF32>(c, st);
+  return run<float, kPaged, 4, kF32>(c, st);
 }
 
 bool bad_args(int B, int nh, int nkv, int smax, int hd, int tile) {
@@ -855,7 +872,27 @@ extern "C" int flash_decode_attention_int8(
   const Call c{q, k_cache, k_scale, v_cache, v_scale, nullptr, cache_len,
                out, static_cast<float*>(workspace), B, nh, nkv, S, 0,
                make_geometry(nh / nkv, hd, S, sblk)};
-  return dispatch<false>(c, bf16_io, static_cast<cudaStream_t>(stream));
+  return dispatch<false, false>(c, bf16_io,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// The whole-cache decode: arguments as flash_decode_attention_int8's, with
+// the f32 numerics over one tile of S keys; workspace: the bytes
+// decode_workspace_bytes(B, nh, nkv, S, hd, S) asks for.
+extern "C" int decode_attention_int8(const void* q, const void* k_cache,
+                                     const void* k_scale, const void* v_cache,
+                                     const void* v_scale,
+                                     const void* cache_len, void* out,
+                                     void* workspace, int B, int nh, int nkv,
+                                     int S, int hd, int bf16_io,
+                                     void* stream) {
+  if (bad_args(B, nh, nkv, S, hd, S) || workspace == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Call c{q, k_cache, k_scale, v_cache, v_scale, nullptr, cache_len,
+               out, static_cast<float*>(workspace), B, nh, nkv, S, 0,
+               make_geometry(nh / nkv, hd, S, S)};
+  return dispatch<false, true>(c, bf16_io,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // q (B, nh, hd) bf16 (bf16_io = 1) or f32; pools (nb, nkv, bs, hd) int8 and
@@ -874,5 +911,6 @@ extern "C" int paged_decode_attention_int8(
   const Call c{q, k_pool, k_scale, v_pool, v_scale, tables, cache_len,
                out, static_cast<float*>(workspace), B, nh, nkv, bs, nbmax,
                make_geometry(nh / nkv, hd, nbmax * bs, sub)};
-  return dispatch<true>(c, bf16_io, static_cast<cudaStream_t>(stream));
+  return dispatch<true, false>(c, bf16_io,
+                               static_cast<cudaStream_t>(stream));
 }

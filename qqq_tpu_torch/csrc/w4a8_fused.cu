@@ -18,8 +18,8 @@
 //   g128 exact:   D[m, n] = out( (sum_g f32((d_g - 8 * bsum_g) * s_g[g, n]))
 //                                * s[m] )
 // with the epilogues of the unfused kernels (w4a8_common.cuh:int_dot_kernel
-// and w4a8_group.cu:group_kernel): each product and sum rounded on its
-// own, the groups summed in order.  Kernel and plain PyTorch version
+// and the exact g128 route of w4a8_group.cu): each product and sum rounded
+// on its own, the groups summed in order.  Kernel and plain PyTorch version
 // (kernels/w4a8_gemm.py) are bit-identical.
 //
 // What bounds it on the H100: the weight stream at decode, K * N / 2 bytes

@@ -4,11 +4,12 @@ flash_decode_attention_int8, decode_attention_auto, flash_attention_int8,
 paged_flash_attention_int8 and paged_decode_attention_int8, with
 ``qk_int8=False``).
 
-On CUDA tensors the wrappers launch csrc/decode_attention.cu,
-csrc/split_decode_attention.cu and csrc/flash_attention.cu; on CPU tensors
-they run the plain PyTorch versions below.  The slot decode version is the
-JAX kernel's one-pass f32 softmax; the kernel takes it online over 128-key
-tiles, which only reassociates f32 sums.  The flash version repeats the
+On CUDA tensors the wrappers launch csrc/split_decode_attention.cu and
+csrc/flash_attention.cu; on CPU tensors they run the plain PyTorch versions
+below.  The whole-cache slot decode version is the JAX kernel's one-pass
+f32 softmax; the split kernel takes it as one tile of S keys cut into
+128-key segments across blocks, which only reassociates f32 sums.  The
+flash version repeats the
 CUDA kernels' online softmax over 32-key steps, because there the order
 matters beyond f32: probabilities are rounded to bf16 against the running
 row maximum, so the step changes which bf16 values feed P·V (the JAX
@@ -42,7 +43,6 @@ _IO_DTYPES = (torch.bfloat16, torch.float32)
 #: (qqq_tpu/kernels/attention.py:_DECODE_WHOLE_S_LIMIT); past it the S-tiled
 #: flash_decode_attention_int8 takes over
 _DECODE_WHOLE_S_LIMIT = 8192
-_DECODE_MAX_G = 8
 
 
 def _sqrt_hd(hd: int) -> torch.Tensor:
@@ -95,7 +95,11 @@ def decode_attention_int8(
     v_scale: torch.Tensor,
     cache_len: torch.Tensor,  # (B,) int32 ≥ 1: valid tokens incl. current
 ) -> torch.Tensor:
-    """Returns (B, n_heads, hd) attention output in q.dtype."""
+    """Whole-cache decode (any g = nh/nkv, hd ≤ 256 with hd % 16 == 0).
+    Returns (B, n_heads, hd) in q.dtype.  The split decode kernel with the
+    JAX kernel's f32 numerics over one tile of S keys: three launches over
+    a workspace allocated here (:func:`_split_decode`); ``.launches``
+    counts calls, one per call."""
     B, nh, hd = q.shape
     nkv, S = k_cache.shape[1], k_cache.shape[2]
     if q.device.type == "cpu":
@@ -103,26 +107,17 @@ def decode_attention_int8(
                                            v_scale, cache_len)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_int8: device {q.device}")
-    if q.dtype not in _IO_DTYPES:
-        raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
-    if nh % nkv or nh // nkv > _DECODE_MAX_G or hd > 128 or hd % 16:
-        raise ValueError(f"decode kernel takes nh/nkv ≤ {_DECODE_MAX_G}, "
-                         f"hd ≤ 128 and hd % 16 == 0 (nh={nh}, nkv={nkv}, "
-                         f"hd={hd})")
+    _check_split_args(q, nkv, "whole-cache")
     _check_args(q, k_cache, k_scale, v_cache, v_scale, cache_len, nkv, S)
-    out = torch.empty_like(q)
-    fn = build.bind("decode_attention", "decode_attention_int8",
-                    "pppppppiiiiiip")
-    build.check(fn(q.data_ptr(), k_cache.data_ptr(), k_scale.data_ptr(),
-                   v_cache.data_ptr(), v_scale.data_ptr(),
-                   cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, S, hd,
-                   int(q.dtype == torch.bfloat16), build.stream_of(q)),
-                "decode_attention_int8")
+    out = _split_decode(
+        "decode_attention_int8", "ppppppppiiiiiip", q, S, S,
+        (q, k_cache, k_scale, v_cache, v_scale, cache_len),
+        (B, nh, nkv, S, hd))
     decode_attention_int8.launches += 1
     return out
 
 
-decode_attention_int8.launches = 0  # kernel launches; only CUDA counts
+decode_attention_int8.launches = 0  # wrapper calls on CUDA tensors
 
 
 #: keys a block of the split decode kernel takes
@@ -343,6 +338,16 @@ def decode_attention_auto(q, k_cache, k_scale, v_cache, v_scale, cache_len):
 # chunked prefill
 
 
+#: the head dims csrc/flash_attention.cu is instantiated at
+_FLASH_HDS = (64, 96, 128, 256)
+
+
+def _check_flash_args(nh: int, nkv: int, hd: int) -> None:
+    if nh % nkv or hd not in _FLASH_HDS:
+        raise ValueError(f"flash kernel takes hd in {_FLASH_HDS} and nh % "
+                         f"nkv == 0 (nh={nh}, nkv={nkv}, hd={hd})")
+
+
 #: keys per online-softmax step of both kernels of csrc/flash_attention.cu
 #: (BK of the slot kernel, whatever its 64-key load stage; PK of the paged
 #: one); it must follow them whenever they change the step
@@ -417,9 +422,7 @@ def flash_attention_int8(
         raise ValueError(f"flash_attention_int8: device {q.device}")
     if q.dtype not in _IO_DTYPES:
         raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
-    if nh % nkv or hd not in (64, 128):
-        raise ValueError(f"flash kernel takes hd in (64, 128) and nh % nkv "
-                         f"== 0 (nh={nh}, nkv={nkv}, hd={hd})")
+    _check_flash_args(nh, nkv, hd)
     _check_args(q, k_cache, k_scale, v_cache, v_scale, cache_len, nkv, S)
     out = torch.empty_like(q)
     fn = build.bind("flash_attention", "flash_attention_int8",
@@ -493,9 +496,7 @@ def paged_flash_attention_int8(
         raise ValueError(f"paged_flash_attention_int8: device {q.device}")
     if q.dtype not in _IO_DTYPES:
         raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
-    if nh % nkv or hd not in (64, 128):
-        raise ValueError(f"flash kernel takes hd in (64, 128) and nh % nkv "
-                         f"== 0 (nh={nh}, nkv={nkv}, hd={hd})")
+    _check_flash_args(nh, nkv, hd)
     _check_paged(q, k_pool, k_scale, v_pool, v_scale, tables, cache_len)
     out = torch.empty_like(q)
     fn = build.bind("flash_attention", "paged_flash_attention_int8",

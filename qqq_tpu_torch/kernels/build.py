@@ -27,12 +27,10 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "qqq_tpu_to
 #: the sources of the W4A8 serving paths: the GEMM routes (per channel,
 #: g128 requant, g128 exact; each plain and GLU-fused; per channel and g128
 #: exact with the activation quantization fused in), the KV writes (slot
-#: and paged), whole-cache slot decode attention, the split-key decode
-#: (S-tiled over the slot cache and paged) and prefill flash attention
-#: (slot and paged)
+#: and paged), the split-key decode (whole-cache and S-tiled over the slot
+#: cache, and paged) and prefill flash attention (slot and paged)
 KERNELS = ("w4a8_gemm", "w4a8_requant", "w4a8_group", "w4a8_fused",
-           "kv_write", "decode_attention", "split_decode_attention",
-           "flash_attention")
+           "kv_write", "split_decode_attention", "flash_attention")
 
 #: what an entry returns, having launched nothing, when its block would need
 #: more shared memory than the card gives one block (csrc/smem_fit.cuh)

@@ -5,15 +5,16 @@ w4a8_glu_linear, FUSE_ACT_QUANT).
 
 Eight kernel routes, one wrapper each, each with a plain PyTorch twin and
 its own launch count (loop: ``int_dot`` is w4a8_common.cuh's CUDA-core
-int32-dot loop, ``own`` the kernel's own CUDA-core loop, ``wgmma`` the
-int8 tensor cores); sources under csrc/:
+int32-dot loop, ``own`` the kernel's own CUDA-core loop, ``mma`` the int8
+``mma.sync`` tensor cores over a cp.async ring of weight stages, ``wgmma``
+the int8 warpgroup tensor cores); sources under csrc/:
 
 =======================  ==============================  ==============  =======
 wrapper                  TPU kernel                      CUDA source     loop
 =======================  ==============================  ==============  =======
 w4a8_gemm_channel        _w4a8_channel_kernel            w4a8_gemm.cu    int_dot
 w4a8_glu_channel         _w4a8_channel_glu_kernel        w4a8_gemm.cu    int_dot
-w4a8_gemm_group          _w4a8_group_kernel              w4a8_group.cu   own
+w4a8_gemm_group          _w4a8_group_kernel              w4a8_group.cu   mma
 w4a8_glu_group           _w4a8_group_glu_kernel          w4a8_group.cu   own
 w4a8_gemm_requant        _w4a8_requant_group_kernel      w4a8_requant.cu wgmma
 w4a8_glu_requant         _w4a8_requant_group_glu_kernel  w4a8_requant.cu wgmma

@@ -45,7 +45,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 
-def kernel_table(prof, top: int = 12):
+def kernel_table(prof, top: int = 20):
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:

@@ -42,13 +42,20 @@ def _both(*arrs):
             [torch.from_numpy(np.array(a)) for a in arrs])
 
 
-@pytest.mark.parametrize("B,nh,nkv,S,hd", [(2, 4, 2, 128, 64),
-                                           (3, 8, 1, 256, 32)])
+@pytest.mark.parametrize("B,nh,nkv,S,hd", [
+    (2, 4, 2, 128, 64), (3, 8, 1, 256, 32),
+    (2, 16, 1, 200, 64),   # g = 16; S not a multiple of the 128-key chunk
+    (2, 4, 2, 160, 96),    # hd = 96
+    (2, 2, 1, 256, 256),   # hd = 256
+])
 def test_decode_attention_matches_jax(B, nh, nkv, S, hd):
+    """Any g and any hd ≤ 256 (hd % 16 == 0), as JAX's kernel takes them;
+    a row of only the current token beside a full-cache row."""
     rng = np.random.default_rng(S + nh)
     q = rng.standard_normal((B, nh, hd)).astype(np.float32)
     clen = rng.integers(1, S + 1, size=B).astype(np.int32)
     clen[0] = 1  # only the current token
+    clen[-1] = S  # the whole cache
     j, t = _both(q, *_cache(rng, B, nkv, S, hd), clen)
     ref = np.asarray(jax_decode(*j))
     out = decode_attention_int8(*t)
@@ -81,12 +88,16 @@ def test_decode_attention_auto_waits_for_s_tiled_kernel(monkeypatch):
     assert torch.equal(out, plain(q, *cache, clen))
 
 
-@pytest.mark.parametrize("B,nh,nkv,T,S,clen", [
-    (2, 4, 2, 16, 64, (0, 20)),   # GQA, prefill and a chunk after 20 keys
-    (1, 2, 2, 32, 128, (45,)),    # g = 1, chunk in the middle of the cache
+@pytest.mark.parametrize("B,nh,nkv,T,S,clen,hd", [
+    # GQA, prefill and a chunk after 20 keys
+    pytest.param(2, 4, 2, 16, 64, (0, 20), 64, id="2-4-2-16-64-clen0"),
+    # g = 1, chunk in the middle of the cache
+    pytest.param(1, 2, 2, 32, 128, (45,), 64, id="1-2-2-32-128-clen1"),
+    # the other head dims the CUDA kernel is instantiated at
+    pytest.param(2, 4, 2, 16, 64, (0, 20), 96, id="hd96"),
+    pytest.param(1, 2, 1, 16, 64, (30,), 256, id="hd256"),
 ])
-def test_flash_attention_matches_jax(B, nh, nkv, T, S, clen):
-    hd = 64
+def test_flash_attention_matches_jax(B, nh, nkv, T, S, clen, hd):
     rng = np.random.default_rng(T + S)
     q = rng.standard_normal((B, nh, T, hd)).astype(np.float32)
     j, t = _both(q, *_cache(rng, B, nkv, S, hd), np.array(clen, np.int32))

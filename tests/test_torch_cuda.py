@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and odd shapes the checks of chip_smoke.py do not reach (hd = 64,
-GQA up to g = 8, the split decode also at g = 16, f32 I/O, ragged M and
-N, odd S, chunks after cached keys; over the paged pool: block sizes 8,
-16, 128 and 512, scrambled tables, chunks that straddle blocks, rows past
-their table and rows whose table is all null).
+GQA up to g = 8, the split decode (whole-cache, S-tiled, paged) also at
+g = 16, f32 I/O, ragged M and N, odd S, hd = 96 and 256, chunks after
+cached keys; over the paged pool: block sizes 8, 16, 128 and 512,
+scrambled tables, chunks that straddle blocks, rows past their table and
+rows whose table is all null).
 
 Needs an NVIDIA GPU with nvcc; skips without one.  Run on the card with
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` (the suite's
@@ -69,8 +70,13 @@ def test_w4a8_gemm_kernel_bit_exact(dev, M, K, N, out_dtype):
                                                       out_dtype))
 
 
-# K = 1152: nine groups, more than the exact kernel's eight warps take at once
-_G128_SHAPES = [(1, 128, 32), (3, 384, 96), (70, 1152, 200), (17, 256, 64)]
+# K = 1152: nine groups, more than one stage of the exact kernel's ring;
+# K = 128: one group; K = 14336: Llama-3.1's down, 28 stages through the
+# 6-stage ring; N = 200 and 24: ragged and narrower than one 32-column
+# tile; M = 17, 64 and 128: ragged and whole 16-row tiles
+_G128_SHAPES = [(1, 128, 32), (3, 384, 96), (70, 1152, 200), (17, 256, 64),
+                (1, 14336, 256), (5, 128, 24), (64, 1152, 200),
+                (128, 384, 96)]
 
 
 @pytest.mark.parametrize("M,K,N", _G128_SHAPES)
@@ -90,6 +96,49 @@ def test_w4a8_g128_kernels_bit_exact(dev, route, M, K, N, sg_dtype,
     plain = getattr(k, f"w4a8_gemm_{route}_plain")
     out = _launch_once(fn, a, s_tok, w, sg, out_dtype)
     assert torch.equal(out, plain(a, s_tok, w, sg, out_dtype))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return flat[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 256, 33), (9, 384, 70), (2, 128, 6),
+                                   (4, 256, 64)])
+@pytest.mark.parametrize("sg_dtype", [torch.bfloat16, torch.float32])
+def test_w4a8_group_kernel_odd_widths(dev, M, K, N, sg_dtype):
+    """N not a multiple of 4 (8 for bf16 s_group), or a weight and scales
+    that do not start on a 16-byte boundary: the exact g128 kernel copies
+    the codes a word at a time and the scales element by element, zero past
+    N; rows 8-15 of a tile live (M = 9).  Bit-exact, one launch each."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    a, s_tok, w, sg = _gemm_operands(dev, M, K, N, K // 128)
+    sg = sg.to(sg_dtype)
+    out = _launch_once(k.w4a8_gemm_group, a, s_tok, w, sg, torch.float32)
+    assert torch.equal(out, k.w4a8_gemm_group_plain(a, s_tok, w, sg,
+                                                    torch.float32))
+    w2, sg2 = _misaligned(w), _misaligned(sg)
+    assert w2.data_ptr() % 16 and sg2.data_ptr() % 16
+    out2 = _launch_once(k.w4a8_gemm_group, a, s_tok, w2, sg2, torch.float32)
+    assert torch.equal(out2, out)
+
+
+def test_w4a8_group_kernel_shapes_in_turn(dev):
+    """The entry opts each kernel in to its shared memory once per device
+    and keeps that: launches at decode, prefill and decode shapes in turn,
+    with both s_group dtypes, each bit-exact."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    for M, K, N in ((4, 1152, 256), (128, 384, 96), (4, 1152, 256),
+                    (1, 128, 32)):
+        for sg_dtype in (torch.bfloat16, torch.float32):
+            a, s_tok, w, sg = _gemm_operands(dev, M, K, N, K // 128)
+            sg = sg.to(sg_dtype)
+            out = _launch_once(k.w4a8_gemm_group, a, s_tok, w, sg)
+            assert torch.equal(out, k.w4a8_gemm_group_plain(a, s_tok, w, sg))
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 128, 32), (130, 384, 200),
@@ -198,22 +247,34 @@ def _per_row_ulps(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("nh,nkv,hd", [(4, 2, 64), (8, 1, 128), (2, 2, 32)])
-def test_decode_attention_kernel(dev, dtype, nh, nkv, hd):
+@pytest.mark.parametrize("nh,nkv,hd,S", [
+    pytest.param(4, 2, 64, 384, id="4-2-64"),
+    pytest.param(8, 1, 128, 384, id="8-1-128"),
+    pytest.param(2, 2, 32, 384, id="2-2-32"),
+    pytest.param(16, 1, 128, 300, id="g16-S300"),   # S not a multiple of 128
+    pytest.param(8, 2, 96, 1000, id="hd96-S1000"),
+    pytest.param(4, 2, 256, 2047, id="hd256-S2047"),
+])
+def test_decode_attention_kernel(dev, dtype, nh, nkv, hd, S):
+    """The whole-cache decode on the split kernel (f32 numerics, one tile
+    of S keys): a one-key row beside a mid row and a full-cache row, one
+    launch; each (row, head) within two ulps of the output dtype at its own
+    largest output, plus 1e-6 in f32 (reassociation over up to S terms)."""
     from qqq_tpu_torch.kernels.attention import (
         decode_attention_int8, decode_attention_int8_plain,
     )
 
-    B, S = 3, 384
+    B = 3
     q = torch.randn((B, nh, hd), generator=_gen(dev), device=dev).to(dtype)
     clen = torch.tensor([1, 200, S], dtype=torch.int32, device=dev)
     args = (q, *_cache(dev, B, nkv, S, hd), clen)
-    out = decode_attention_int8(*args)
+    out = _launch_once(decode_attention_int8, *args)
     ref = decode_attention_int8_plain(*args)
-    tol = 2 * _ULP[dtype] * float(ref.float().abs().max())
+    d = (out.float() - ref.float()).abs().amax(dim=-1)
+    tol = 2 * _ULP[dtype] * ref.float().abs().amax(dim=-1)
     if dtype == torch.float32:
-        tol += 1e-6  # f32 reassociation over up to S terms
-    assert float((out.float() - ref.float()).abs().max()) <= tol
+        tol = tol + 1e-6
+    assert bool((d <= tol).all())
 
 
 @pytest.mark.parametrize("kernel", ["kv_write", "decode", "flash",
@@ -258,11 +319,13 @@ def test_cpu_cache_len_beside_cuda_tensors_raises(dev, kernel):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("nh,nkv,hd,T,clen", [(4, 2, 64, 16, (0, 20)),
                                               (2, 2, 128, 100, (0, 37)),
-                                              (8, 2, 128, 100, (0, 37))])
+                                              (8, 2, 128, 100, (0, 37)),
+                                              (4, 2, 96, 100, (0, 37)),
+                                              (4, 2, 256, 100, (0, 37))])
 def test_flash_attention_kernel(dev, dtype, nh, nkv, hd, T, clen):
     """GQA up to g = 4, chunks after cached keys, T not a multiple of the
-    kernel's 64-row block; each output row within two ulps of its own
-    largest value (bf16 probabilities in f32: 2^-7)."""
+    kernel's 64-row block, hd = 64, 96, 128 and 256; each output row within
+    two ulps of its own largest value (bf16 probabilities in f32: 2^-7)."""
     from qqq_tpu_torch.kernels.attention import (
         flash_attention_int8, flash_attention_int8_plain,
     )
@@ -328,16 +391,19 @@ def test_paged_write_kernels_bit_exact(dev, dtype, bs):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("bs", [8, 16, 128])
-def test_paged_flash_kernel(dev, dtype, bs):
+@pytest.mark.parametrize("bs,hd", [
+    pytest.param(8, 64, id="8"), pytest.param(16, 64, id="16"),
+    pytest.param(128, 128, id="128"), pytest.param(16, 96, id="16-hd96"),
+    pytest.param(128, 256, id="128-hd256"),
+])
+def test_paged_flash_kernel(dev, dtype, bs, hd):
     """GQA g = 4, a chunk of 2·bs + 5 keys (over three blocks or more) after
-    cached keys, one row on an all-null table."""
+    cached keys, one row on an all-null table; hd = 64, 96, 128, 256."""
     from qqq_tpu_torch.kernels.attention import (
         paged_flash_attention_int8, paged_flash_attention_int8_plain,
     )
 
     B, nh, nkv, nbmax = 3, 8, 2, 6
-    hd = 128 if bs == 128 else 64
     T = 2 * bs + 5
     q = torch.randn((B, nh, T, hd), generator=_gen(dev), device=dev).to(dtype)
     args = (q, *_cache(dev, 1 + B * nbmax, nkv, bs, hd),
