@@ -7,14 +7,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. build the CUDA kernels from the sources in this checkout, printing
    ``-Xptxas -v`` (registers, shared memory, spills) of each entry of the
-   two tensor-core kernels (slot flash, g128 requant) and of the split
-   decode;
+   tensor-core kernels (slot flash, g128 requant, the per-channel GEMM's
+   weight stream and wgmma tiles) and of the split decode;
 2. check each of the sixteen kernels against its plain PyTorch version on
    the card at the Llama-2-7B and Llama-3.1-8B shapes of the served paths
    (the GEMMs, the activation-quant-fused ones included, and the KV writes
-   bit-exact, requant also at ragged M and N, the paged writes outside the
-   null block; the GLU-fused GEMMs and the attention kernels within two
-   bf16 ulps of the largest output, slot and paged flash and the three
+   bit-exact, requant also at ragged M and N, the per-channel GEMM and GLU
+   at rows on both sides of their regime switch (the weight stream, the
+   int8 wgmma tiles) and timed at run 3b's decode and prefill rows and in
+   each regime, forced, at the rows around the switch, the
+   paged writes outside the null block; the GLU-fused GEMMs and the
+   attention kernels within two bf16 ulps of the largest output, slot and
+   paged flash and the three
    decode kernels per row of their output, slot flash also after cached
    keys, paged flash also bit-equal to slot flash on the gathered pool,
    the whole-cache, S-tiled and paged decode (one split-key kernel) also
@@ -68,9 +72,10 @@ HERE = pathlib.Path(__file__).resolve().parent
 # Llama-2-7B geometry (the repo's headline configuration)
 V, H, I, L, NH, NKV, HD = 32000, 4096, 11008, 32, 32, 32, 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
-#: the sources whose entries phase 1 names: the tensor-core kernels and the
-#: split decode
-NAMED_SOURCES = ("w4a8_requant", "flash_attention", "split_decode_attention")
+#: the sources whose entries phase 1 names: the tensor-core kernels (the
+#: per-channel GEMM's two regimes among them) and the split decode
+NAMED_SOURCES = ("w4a8_gemm", "w4a8_requant", "flash_attention",
+                 "split_decode_attention")
 # the paged pool of the served runs: 128-token blocks, 16 per slot
 # (max_len 2048), 65 blocks = max_batch 4 × 16 + the null block
 BS, NBMAX, NB_POOL = 128, 16, 65
@@ -189,31 +194,53 @@ GLU_SHAPES = [(H, 2 * I)]                # fused gate/up
 # Llama-3.1-8B: q/o, k/v, down; fused gate/up
 L31_SHAPES = [(H3, H3), (H3, NKV3 * HD), (I3, H3)]
 L31_GLU_SHAPES = [(H3, 2 * I3)]
+#: the per-channel kernels' rows: both sides of each regime switch (the
+#: weight stream below kernels/w4a8_gemm.py:CHANNEL_TILES_MIN_M, the int8
+#: wgmma tiles from it; whole and ragged 16-row and 256-row tiles), as the
+#: card tests take them, and the served ones
+CHANNEL_MS = (1, 4, 16, 17, 64, 65, 128, 256, 512, 513, 4096)
+#: the served rows of run 3b's per-channel dispatches: decode at batch 4,
+#: one row of slot bucket 128, one of bucket 512, two of bucket 2048
+CHANNEL_SERVED_MS = (4, 128, 512, 4096)
 #: per kernel: the rows M it is checked at (those the served runs give it:
 #: decode at batch 1 and 4, one row of slot bucket 128, one of bucket 512,
 #: two of bucket 2048, and the paged runs' (2, 512) chunk dispatches, M =
-#: 1024, plus M = 2048 for the requant GEMM), its (K, N) shapes, and the
-#: (M, K, N) its report row shows
+#: 1024, plus M = 2048 for the requant GEMM), its (K, N) shapes, the (M,
+#: K, N) its report row shows, and the rows it is timed at (None: all)
 GEMM_CHECKS = {
-    "w4a8_gemm_channel": ((1, 4, 128, 512, 4096), PLAIN_SHAPES, (4, I, H)),
-    "w4a8_glu_channel": ((4, 128, 512, 4096), GLU_SHAPES, (4, H, 2 * I)),
-    "w4a8_gemm_group": ((1, 4, 128), PLAIN_SHAPES, (4, I, H)),
-    "w4a8_glu_group": ((1, 4, 128), GLU_SHAPES, (4, H, 2 * I)),
+    "w4a8_gemm_channel": (CHANNEL_MS, PLAIN_SHAPES, (4, I, H),
+                          CHANNEL_SERVED_MS),
+    "w4a8_glu_channel": (CHANNEL_MS, GLU_SHAPES, (4, H, 2 * I),
+                         CHANNEL_SERVED_MS),
+    "w4a8_gemm_group": ((1, 4, 128), PLAIN_SHAPES, (4, I, H), None),
+    "w4a8_glu_group": ((1, 4, 128), GLU_SHAPES, (4, H, 2 * I), None),
     # and ragged row tiles of the 256-row tensor-core kernels: M = 513, 1000
     "w4a8_gemm_requant": ((512, 513, 1000, 1024, 2048, 4096), PLAIN_SHAPES,
-                          (512, I, H)),
+                          (512, I, H), None),
     "w4a8_glu_requant": ((512, 513, 1024, 4096), GLU_SHAPES,
-                         (512, H, 2 * I)),
+                         (512, H, 2 * I), None),
 }
+#: the per-channel kernels' report rows besides the decode one: each served
+#: prefill row at the (K, N) that run 3b gives it (q/k/v/o and down; the
+#: fused gate/up)
+CHANNEL_PREFILL_ROWS = {
+    "w4a8_gemm_channel": [(M, K, N) for M in CHANNEL_SERVED_MS[1:]
+                          for K, N in ((H, H), (I, H))],
+    "w4a8_glu_channel": [(M, H, 2 * I) for M in CHANNEL_SERVED_MS[1:]],
+}
+#: the rows at which each per-channel kernel is timed in each regime, forced,
+#: to place its switch (kernels/w4a8_gemm.py:CHANNEL_TILES_MIN_M and
+#: GLU_CHANNEL_TILES_MIN_M) where the two times cross
+CROSSOVER_MS = (8, 16, 32, 64, 128, 256)
 #: the same at the Llama-3.1-8B shapes of every dispatch of run 3e and of
 #: its phase-4 cut: the exact kernels at decode (M = 1 in phase 4, 4 in 3e)
 #: and at bucket 128 (M = 128), the requant ones at buckets 512, 2048 and
 #: 16384 (one row each); logged only
 L31_GEMM_CHECKS = {
-    "w4a8_gemm_group": ((1, 4, 128), L31_SHAPES, None),
-    "w4a8_glu_group": ((1, 4, 128), L31_GLU_SHAPES, None),
-    "w4a8_gemm_requant": ((512, 2048, 16384), L31_SHAPES, None),
-    "w4a8_glu_requant": ((512, 2048, 16384), L31_GLU_SHAPES, None),
+    "w4a8_gemm_group": ((1, 4, 128), L31_SHAPES, None, None),
+    "w4a8_glu_group": ((1, 4, 128), L31_GLU_SHAPES, None, None),
+    "w4a8_gemm_requant": ((512, 2048, 16384), L31_SHAPES, None, None),
+    "w4a8_glu_requant": ((512, 2048, 16384), L31_GLU_SHAPES, None, None),
 }
 #: run 3e's prefill dispatches of slot flash: one row of each bucket
 L31_FLASH_CASES = ((1, 128), (1, 512), (1, 2048), (1, 16384))
@@ -257,21 +284,23 @@ def check_gemm_family(dev, gen, timer, checks=GEMM_CHECKS):
     (another exp than PyTorch's sigmoid) is held to two bf16 ulps of the
     largest output at bf16 output and, so that an epilogue that rounded gate
     and up to bf16 before silu·mul would show, to GLU_F32_TOL·max|ref| at
-    f32 output.  Timed beside its bound, its plain version and bf16
-    ``torch.matmul`` on the dequantized weights (for GLU: two matmuls and
-    ``silu·mul``).  Returns the report row of each kernel whose ``at``
-    shape is given."""
+    f32 output.  Timed (at every row, or at the rows ``checks`` names)
+    beside its bound, its plain version and bf16 ``torch.matmul`` on the
+    dequantized weights (for GLU: two matmuls and ``silu·mul``).  Returns
+    the report row of each kernel whose ``at`` shape is given, with the
+    per-channel kernels' served prefill rows (CHANNEL_PREFILL_ROWS) under
+    ``"prefill"``."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels import w4a8_gemm as k
 
     rows = {}
-    for name, (m_list, shapes, at) in checks.items():
+    for name, (m_list, shapes, at, timed) in checks.items():
         fn = k.KERNEL_WRAPPERS[name]
         plain_fn = getattr(k, name + "_plain")
         glu = "_glu_" in name
         per_channel = name.endswith("_channel")
-        err, row = 0.0, None
+        err, row, prefill = 0.0, None, []
         for M in m_list:
             for K, N in shapes:
                 a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
@@ -311,6 +340,10 @@ def check_gemm_family(dev, gen, timer, checks=GEMM_CHECKS):
                                              f"out: max |diff| {d32:.3g} > "
                                              f"{tol32:.3g}")
                     what += f" (f32 out: {d32:.3g}, bound {tol32:.3g})"
+                if timed is not None and M not in timed:
+                    log(f"  {name} M={M:4d} K={K:5d} N={N:5d}: {what}")
+                    del a, w, out, ref
+                    continue
                 x = (a.float() * s_tok).to(torch.bfloat16)
                 wd = _dequant_weight(w, s)
                 if glu:
@@ -329,14 +362,70 @@ def check_gemm_family(dev, gen, timer, checks=GEMM_CHECKS):
                 log(f"  {name} M={M:4d} K={K:5d} N={N:5d}: {what}; "
                     f"{ms:.4f} ms (bound {b:.4f} by {by}, plain {plain:.4f}, "
                     f"bf16 matmul {lib:.4f})")
+                timing = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=b, bound_by=by,
+                              shape=f"M={M} K={K} N={N}")
                 if (M, K, N) == at:
-                    row = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=b, bound_by=by,
-                               shape=f"M={M} K={K} N={N}")
+                    row = timing
+                if (M, K, N) in CHANNEL_PREFILL_ROWS.get(name, ()):
+                    prefill.append(timing)
                 del a, w, x, out, ref, lib_fn
         if row is not None:
             row["max_abs_err"] = err
+            if prefill:
+                row["prefill"] = prefill
             rows[name] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_channel_crossover(dev, gen, timer):
+    """The per-channel GEMM (at both (K, N) of run 3b) and its GLU at each
+    row of CROSSOVER_MS in each regime, forced through the route's
+    ``regime``: checked against the plain version as in check_gemm_family
+    (bf16 out) and timed.  Returns, per kernel, its rows: (M, K, N), both
+    times and the regime the wrapper picks there."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    rows = {}
+    for name, shapes in (("w4a8_gemm_channel", PLAIN_SHAPES),
+                         ("w4a8_glu_channel", GLU_SHAPES)):
+        fn = k.KERNEL_WRAPPERS[name]
+        plain_fn = getattr(k, name + "_plain")
+        glu = "_glu_" in name
+        rows[name] = []
+        for K, N in shapes:
+            w = torch.randint(-2**31, 2**31 - 1, (K // 8, N), generator=gen,
+                              device=dev, dtype=torch.int32)
+            s = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
+            for M in CROSSOVER_MS:
+                a = torch.randint(-128, 128, (M, K), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                s_tok = torch.rand((M, 1), generator=gen, device=dev) * 0.05 \
+                    + 1e-3
+                ref = plain_fn(a, s_tok, w, s)
+                row = dict(M=M, K=K, N=N, picked=k.channel_regime(M, glu))
+                for regime in ("stream", "tiles"):
+                    def call():
+                        return k._channel(fn, a, s_tok, w, s, torch.bfloat16,
+                                          glu, regime=regime)
+                    out = call()
+                    torch.cuda.synchronize()
+                    d = (out.float() - ref.float()).abs().max().item()
+                    if not (d <= ulp_tol(ref) if glu
+                            else torch.equal(out, ref)):
+                        raise AssertionError(
+                            f"{name} M={M} K={K} N={N} {regime}: max |diff| "
+                            f"{d:.3g}, bound "
+                            f"{'2 ulps' if glu else 'bit-exact'}")
+                    row[f"{regime}_ms"] = timer.ms(call)
+                    del out
+                log(f"  {name} M={M:4d} K={K:5d} N={N:5d} forced: stream "
+                    f"{row['stream_ms']:.4f} ms, tiles {row['tiles_ms']:.4f} "
+                    f"ms (the wrapper picks {row['picked']})")
+                rows[name].append(row)
+                del a, s_tok, ref
+            del w, s
         torch.cuda.empty_cache()
     return rows
 
@@ -1403,6 +1492,9 @@ def main() -> int:
         **check_fused(dev, gen, timer),
         "flash_decode_attention_int8": check_flash_decode(dev, gen, timer),
     }
+    log("  the per-channel kernels in each regime across the switch:")
+    for kname, cross in check_channel_crossover(dev, gen, timer).items():
+        rows[kname]["crossover"] = cross
     check_flash(dev, gen, timer, cases=FLASH_OFFSET_CASES, nkv=NKV3,
                 report_at=None)
     check_flash_decode_qwen2(dev, gen, timer)
@@ -1514,6 +1606,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
+            **{key: r[key] for key in ("prefill", "crossover") if key in r},
         })
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -17,10 +17,10 @@
 //                                * s[m] )
 //   g128 exact:   D[m, n] = out( (sum_g f32((d_g - 8 * bsum_g) * s_g[g, n]))
 //                                * s[m] )
-// with the epilogues of the unfused kernels (w4a8_common.cuh:int_dot_kernel
-// and the exact g128 route of w4a8_group.cu): each product and sum rounded
-// on its own, the groups summed in order.  Kernel and plain PyTorch version
-// (kernels/w4a8_gemm.py) are bit-identical.
+// with the epilogues of the unfused kernels (the per-channel route of
+// w4a8_gemm.cu and the exact g128 route of w4a8_group.cu): each product and
+// sum rounded on its own, the groups summed in order.  Kernel and plain
+// PyTorch version (kernels/w4a8_gemm.py) are bit-identical.
 //
 // What bounds it on the H100: the weight stream at decode, K * N / 2 bytes
 // of codes (plus K / 128 * N * 2 of bf16 group scales) at 3.35 TB/s; the x

@@ -4,23 +4,25 @@ w4a8_gemm, w4a8_gemm_fused, w4a8_linear, fuse_glu_layout, w4a8_glu_gemm,
 w4a8_glu_linear, FUSE_ACT_QUANT).
 
 Eight kernel routes, one wrapper each, each with a plain PyTorch twin and
-its own launch count (loop: ``int_dot`` is w4a8_common.cuh's CUDA-core
-int32-dot loop, ``own`` the kernel's own CUDA-core loop, ``mma`` the int8
-``mma.sync`` tensor cores over a cp.async ring of weight stages, ``wgmma``
-the int8 warpgroup tensor cores); sources under csrc/:
+its own launch count (loop: ``own`` the kernel's own CUDA-core loop,
+``mma`` the int8 ``mma.sync`` tensor cores fed by the TMA weight stream of
+w4a8_stream.cuh, ``wgmma`` the int8 warpgroup tensor-core tiles of
+w4a8_tc.cuh; ``mma|wgmma``: the stream below ``CHANNEL_TILES_MIN_M`` rows
+(GLU: ``GLU_CHANNEL_TILES_MIN_M``), the tiles from there); sources under
+csrc/:
 
-=======================  ==============================  ==============  =======
+=======================  ==============================  ==============  ==========
 wrapper                  TPU kernel                      CUDA source     loop
-=======================  ==============================  ==============  =======
-w4a8_gemm_channel        _w4a8_channel_kernel            w4a8_gemm.cu    int_dot
-w4a8_glu_channel         _w4a8_channel_glu_kernel        w4a8_gemm.cu    int_dot
+=======================  ==============================  ==============  ==========
+w4a8_gemm_channel        _w4a8_channel_kernel            w4a8_gemm.cu    mma|wgmma
+w4a8_glu_channel         _w4a8_channel_glu_kernel        w4a8_gemm.cu    mma|wgmma
 w4a8_gemm_group          _w4a8_group_kernel              w4a8_group.cu   mma
 w4a8_glu_group           _w4a8_group_glu_kernel          w4a8_group.cu   own
 w4a8_gemm_requant        _w4a8_requant_group_kernel      w4a8_requant.cu wgmma
 w4a8_glu_requant         _w4a8_requant_group_glu_kernel  w4a8_requant.cu wgmma
 w4a8_gemm_fused_channel  _w4a8_fused_channel_kernel      w4a8_fused.cu   own
 w4a8_gemm_fused_group    _w4a8_fused_group_kernel        w4a8_fused.cu   own
-=======================  ==============================  ==============  =======
+=======================  ==============================  ==============  ==========
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs its plain version.  :func:`w4a8_gemm` and :func:`w4a8_glu_gemm`
@@ -31,7 +33,8 @@ kernel's prologue; :func:`w4a8_linear` takes them as JAX does, when
 ``FUSE_ACT_QUANT`` is set, M ≤ 64 and :func:`_fused_bn` admits (K, N).
 
 Numerics.  Per channel and requant are exact in int32 up to two f32
-multiplies in the JAX order: kernel and plain version are bit-identical.
+multiplies in the JAX order: kernel and plain version are bit-identical
+(per channel in both regimes).
 The exact g128 route sums the groups' f32 terms in group order, each
 product and sum rounded on its own, on both sides: bit-identical too.  The
 fused routes add the JAX kernels' quantization, ``s = max(absmax, 1e-30) /
@@ -63,6 +66,16 @@ GLU_INTERLEAVE = 256  # gate/up column-tile width baked into the fused layout
 
 #: rows (M) from which the g128 GEMM takes the requant route by default
 REQUANT_MIN_M = 512
+
+#: rows (M) from which the per-channel GEMM takes the int8 wgmma tiles
+#: instead of the weight stream, and the same for its GLU: where the two
+#: regimes' measured times cross on the H100 (PERF.md, chip_smoke.py's
+#: crossover rows; between M = 64 and 128 for the plain GEMM at
+#: Llama-2-7B's (K, N), past 128 for the GLU, whose 172 column tiles of
+#: 2I = 22016 fill the card without a split).  Both regimes are bit-exact,
+#: so the switch never changes a result
+CHANNEL_TILES_MIN_M = 128
+GLU_CHANNEL_TILES_MIN_M = 256
 
 #: the JAX module's switch (off there: slower on v5e): :func:`w4a8_linear`
 #: reads it at call time and, when set, quantizes decode-size activations
@@ -194,18 +207,51 @@ def _common_cuda(a_q, s_token, w_packed, M, K, N, out_dtype, glu):
     return s_tok, out
 
 
-def _channel(counter, a_q, s_token, w_packed, s_channel, out_dtype, glu):
+def _workspace(lib: str, sizer: str, M: int, K: int, N: int, dev,
+               what: str) -> Optional[torch.Tensor]:
+    """The int32 split-K workspace a tile kernel asks for through its sizing
+    entry (``torch.empty``; None when it asks for none)."""
+    size = build.bind(lib, sizer, "iii", ret="q")
+    ws_bytes = int(size(M, K, N))
+    if ws_bytes < 0:
+        raise RuntimeError(f"{what}: CUDA error {-ws_bytes} sizing the "
+                           "split-K workspace")
+    return (torch.empty(ws_bytes // 4, dtype=torch.int32, device=dev)
+            if ws_bytes else None)
+
+
+def channel_regime(M: int, glu: bool = False) -> str:
+    """The regime of the per-channel kernel (GLU with ``glu``) for M rows:
+    ``"tiles"`` (the int8 wgmma tiles) from ``CHANNEL_TILES_MIN_M`` rows
+    (GLU: ``GLU_CHANNEL_TILES_MIN_M``), else ``"stream"`` (the TMA weight
+    stream on int8 ``mma.sync``)."""
+    min_m = GLU_CHANNEL_TILES_MIN_M if glu else CHANNEL_TILES_MIN_M
+    return "tiles" if M >= min_m else "stream"
+
+
+def _channel(counter, a_q, s_token, w_packed, s_channel, out_dtype, glu,
+             regime: Optional[str] = None):
+    """The per-channel route; ``regime`` ("stream" or "tiles") overrides
+    :func:`channel_regime` (the card tests and chip_smoke.py's crossover
+    rows force each regime through it; the wrappers never pass it)."""
     M, K, N, kind = _shapes(a_q, w_packed, out_dtype, glu)
     if kind == "cpu":
         plain = w4a8_glu_channel_plain if glu else w4a8_gemm_channel_plain
         return plain(a_q, s_token, w_packed, s_channel, out_dtype)
     s_tok, out = _common_cuda(a_q, s_token, w_packed, M, K, N, out_dtype, glu)
     build.require(s_channel, torch.float32, (N,), "s_channel", a_q.device)
-    fn = build.bind("w4a8_gemm", "w4a8_gemm_channel", "pppppiiiiip")
+    regime = regime or channel_regime(M, glu)
+    if regime not in ("stream", "tiles"):
+        raise ValueError(f"regime {regime!r} not in ('stream', 'tiles')")
+    what = f"{counter.__name__} at M={M}, K={K}, N={N} ({regime})"
+    ws = (_workspace("w4a8_gemm", "w4a8_channel_workspace_bytes", M, K, N,
+                     a_q.device, what) if regime == "tiles" else None)
+    fn = build.bind("w4a8_gemm", "w4a8_gemm_channel", "ppppppiiiiiip")
     build.check(fn(a_q.data_ptr(), s_tok.data_ptr(), w_packed.data_ptr(),
-                   s_channel.data_ptr(), out.data_ptr(), M, K, N, int(glu),
-                   int(out_dtype == torch.bfloat16), build.stream_of(a_q)),
-                counter.__name__)
+                   s_channel.data_ptr(), out.data_ptr(),
+                   None if ws is None else ws.data_ptr(), M, K, N, int(glu),
+                   int(out_dtype == torch.bfloat16), int(regime == "tiles"),
+                   build.stream_of(a_q)), what)
     counter.launches += 1
     return out
 
@@ -242,14 +288,8 @@ def _requant(counter, a_q, s_token, w_packed, s_group, out_dtype, glu):
     s_frac, s_extra = requant_scales(s_group)
     build.require(s_frac, torch.float32, (K // PACK_BLOCK, N), "s_frac",
                   a_q.device)
-    size = build.bind("w4a8_requant", "w4a8_requant_workspace_bytes", "iii",
-                      ret="q")
-    ws_bytes = int(size(M, K, N))
-    if ws_bytes < 0:
-        raise RuntimeError(f"{counter.__name__}: CUDA error {-ws_bytes} "
-                           "sizing the split-K workspace")
-    ws = (torch.empty(ws_bytes // 4, dtype=torch.int32, device=a_q.device)
-          if ws_bytes else None)
+    ws = _workspace("w4a8_requant", "w4a8_requant_workspace_bytes", M, K, N,
+                    a_q.device, counter.__name__)
     fn = build.bind("w4a8_requant", "w4a8_gemm_requant", "pppppppiiiiip")
     build.check(fn(a_q.data_ptr(), s_tok.data_ptr(), w_packed.data_ptr(),
                    s_frac.data_ptr(), s_extra.data_ptr(), out.data_ptr(),

@@ -87,7 +87,10 @@ def test_rtn_layer_codes_and_packing_bit_exact():
     assert np.array_equal(lin["s_channel"].numpy(), np.asarray(js[0]))
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 256, 64), (5, 384, 96), (33, 128, 32)])
+# M = 130: past both per-channel kernels' regime switches on the card (the
+# tensor-core tiles' rows), a ragged 256-row tile
+@pytest.mark.parametrize("M,K,N", [(1, 256, 64), (5, 384, 96), (33, 128, 32),
+                                   (130, 256, 96)])
 def test_w4a8_gemm_int32_core_and_output_bit_exact(M, K, N):
     rng = np.random.default_rng(M * K + N)
     a = rng.integers(-128, 128, size=(M, K)).astype(np.int8)
@@ -148,6 +151,34 @@ def test_w4a8_gemm_g128_waits_for_next_slice():
         w4a8_linear(_t(x), _t(wp), torch.ones(64), group_size=128)
     with pytest.raises(ValueError, match="group_size 64"):
         w4a8_linear(_t(x), _t(wp), None, t_sg, group_size=64)
+
+
+def test_channel_regime_switch():
+    """The per-channel kernels' regime on the card: the weight stream at
+    decode rows, the int8 wgmma tiles from each kernel's threshold on, so
+    that the served prefill buckets of 512 and 2048 rows a request take
+    the tiles.  On the CPU every M runs the plain version and no kernel
+    launch is counted."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    for glu, t in ((False, k.CHANNEL_TILES_MIN_M),
+                   (True, k.GLU_CHANNEL_TILES_MIN_M)):
+        assert 8 < t <= 512
+        assert [k.channel_regime(M, glu) for M in (1, 4, t - 1, t, 512,
+                                                   4096)] == (
+            ["stream"] * 3 + ["tiles"] * 3)
+    rng = np.random.default_rng(3)
+    wp = _t(jpack.pack_int4(jnp.asarray(_codes(rng, 128, 512))))
+    s_ch = torch.rand(512) * 0.01 + 1e-4
+    before = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+    for M in (4, 127, 128, 256):
+        a = torch.randint(-128, 128, (M, 128), dtype=torch.int8)
+        s_tok = torch.rand(M, 1) * 0.05 + 1e-3
+        assert torch.equal(k.w4a8_gemm_channel(a, s_tok, wp, s_ch),
+                           k.w4a8_gemm_channel_plain(a, s_tok, wp, s_ch))
+        assert torch.equal(k.w4a8_glu_channel(a, s_tok, wp, s_ch),
+                           k.w4a8_glu_channel_plain(a, s_tok, wp, s_ch))
+    assert {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()} == before
 
 
 _KV_CFG = dict(vocab_size=16, hidden_size=256, intermediate_size=256,

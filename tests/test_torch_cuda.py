@@ -4,7 +4,8 @@ GQA up to g = 8, the split decode (whole-cache, S-tiled, paged) also at
 g = 16, f32 I/O, ragged M and N, odd S, hd = 96 and 256, chunks after
 cached keys; over the paged pool: block sizes 8, 16, 128 and 512,
 scrambled tables, chunks that straddle blocks, rows past their table and
-rows whose table is all null).
+rows whose table is all null; the per-channel GEMM and GLU in each of
+their two regimes, forced, at rows on both sides of the switch).
 
 Needs an NVIDIA GPU with nvcc; skips without one.  Run on the card with
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` (the suite's
@@ -59,15 +60,72 @@ def _launch_once(fn, *args, **kw):
     return out
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 128, 32), (3, 384, 96), (70, 256, 200)])
+def _launch_channel(regime, glu, a, s_tok, w, s_ch, out_dtype):
+    """The per-channel GEMM (GLU with ``glu``) with its regime forced
+    through the route's ``regime``: one launch, counted on its wrapper."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    fn = k.w4a8_glu_channel if glu else k.w4a8_gemm_channel
+    n0 = fn.launches
+    out = k._channel(fn, a, s_tok, w, s_ch, out_dtype, glu, regime=regime)
+    assert fn.launches == n0 + 1
+    return out
+
+
+#: rows on both sides of the per-channel regime switch, whole and ragged
+#: 16-row stream tiles and 256-row tensor-core tiles
+_SWITCH_MS = (1, 4, 16, 17, 64, 65, 128, 256, 513)
+# K = 128: one group; 1152: nine groups, more than one stage of the stream's
+# ring and of the tiles' K steps; 14336: Llama-3.1's down, 14 stages.  N =
+# 24 narrower than a 32-column stream tile, 200 ragged, 96 narrower than a
+# 128-column tensor-core tile; every grid here has fewer tiles than the
+# card has SMs, so the tiles split K
+_CHANNEL_SHAPES = ([(1, 128, 32), (3, 384, 96), (70, 256, 200)]
+                   + [(M, K, N) for M in _SWITCH_MS
+                      for K, N in ((128, 24), (1152, 200), (14336, 96))])
+
+
+@pytest.mark.parametrize("M,K,N", _CHANNEL_SHAPES)
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_w4a8_gemm_kernel_bit_exact(dev, M, K, N, out_dtype):
+@pytest.mark.parametrize("regime", ["stream", "tiles"])
+def test_w4a8_gemm_kernel_bit_exact(dev, regime, M, K, N, out_dtype):
+    """The per-channel GEMM in each regime (the weight stream, the int8
+    wgmma tiles), forced through the route's ``regime``: bit-exact, one
+    launch."""
     from qqq_tpu_torch.kernels import w4a8_gemm as k
 
     a, s_tok, w, s_ch = _gemm_operands(dev, M, K, N, 0)
-    out = _launch_once(k.w4a8_gemm_channel, a, s_tok, w, s_ch, out_dtype)
+    out = _launch_channel(regime, False, a, s_tok, w, s_ch, out_dtype)
     assert torch.equal(out, k.w4a8_gemm_channel_plain(a, s_tok, w, s_ch,
                                                       out_dtype))
+
+
+@pytest.mark.parametrize("glu", [False, True])
+def test_channel_cuda_calls_launch_the_kernel(dev, monkeypatch, glu):
+    """Through ``w4a8_gemm`` / ``w4a8_glu_gemm`` (group_size -1), a CUDA
+    call at every M of the switch launches the per-channel kernel once
+    (the regime ``channel_regime`` names) and never the plain version: the
+    plain functions are replaced by ones that fail."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA call ran the plain version")
+
+    monkeypatch.setattr(k, "w4a8_gemm_channel_plain", refuse)
+    monkeypatch.setattr(k, "w4a8_glu_channel_plain", refuse)
+    route = k.w4a8_glu_gemm if glu else k.w4a8_gemm
+    name = "w4a8_glu_channel" if glu else "w4a8_gemm_channel"
+    a, s_tok, w, s_ch = _gemm_operands(dev, max(_SWITCH_MS), 1152, 512, 0)
+    regimes = set()
+    for M in _SWITCH_MS:
+        before = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+        out = route(a[:M], s_tok[:M], w, s_ch, group_size=-1)
+        after = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+        assert {n: after[n] - before[n] for n in after} == {
+            n: int(n == name) for n in after}
+        assert out.shape == (M, 256 if glu else 512) and out.is_cuda
+        regimes.add(k.channel_regime(M, glu))
+    assert regimes == {"stream", "tiles"}
 
 
 # K = 1152: nine groups, more than one stage of the exact kernel's ring;
@@ -157,19 +215,31 @@ def test_w4a8_requant_tensor_core_tiles(dev, M, K, N, out_dtype):
                                                       out_dtype))
 
 
-@pytest.mark.parametrize("M,K,I", [(1, 128, 256), (5, 384, 512),
-                                   (70, 1152, 256), (512, 4096, 512),
-                                   (513, 256, 2816), (513, 1152, 256)])
+_GLU_SHAPES = [(1, 128, 256), (5, 384, 512), (70, 1152, 256),
+               (512, 4096, 512), (513, 256, 2816), (513, 1152, 256)]
+# the per-channel GLU in each regime, across the switch's rows
+_GLU_CHANNEL_SHAPES = (_GLU_SHAPES
+                       + [(M, K, 256) for M in _SWITCH_MS
+                          for K in (128, 1152)]
+                       + [(M, 14336, 256) for M in (4, 65, 513)])
+
+
+@pytest.mark.parametrize(
+    "route,regime,M,K,I",
+    [(r, None, *sh) for r in ("group", "requant") for sh in _GLU_SHAPES]
+    + [("channel", g, *sh) for g in ("stream", "tiles")
+       for sh in _GLU_CHANNEL_SHAPES])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("route", ["channel", "group", "requant"])
-def test_w4a8_glu_kernels(dev, route, M, K, I, out_dtype):
+def test_w4a8_glu_kernels(dev, route, regime, M, K, I, out_dtype):
     """GLU epilogue g·σ(g)·u: the kernel's expf and PyTorch's sigmoid may
     differ in the last bit.  bf16: two ulps at the largest output; f32:
-    2^-20 of it (σ's own error and three roundings).  For the requant
-    route's tensor-core tiles (256 rows x 64 outputs): M = 512, K = 4096, I
-    = 512 has 16 tiles, fewer than the card's SMs, and splits K; M = 513
-    is ragged, with I = 2816 on 132 tiles (no split) and with I = 256
-    split."""
+    2^-20 of it (σ's own error and three roundings).  For the tensor-core
+    tiles (256 rows x 64 outputs; requant, and per channel in its tile
+    regime): M = 512, K = 4096, I = 512 has 16 tiles, fewer than the card's
+    SMs, and splits K; M = 513 is ragged, with I = 2816 on 132 tiles (no
+    split) and with I = 256 split.  The per-channel GLU runs in each regime
+    (the weight stream's tile: 32 gate and 32 up columns), forced through
+    the route's ``regime``."""
     from qqq_tpu_torch.kernels import w4a8_gemm as k
 
     a, s_tok, w, s = _gemm_operands(dev, M, K, 2 * I,
@@ -178,7 +248,8 @@ def test_w4a8_glu_kernels(dev, route, M, K, I, out_dtype):
         s = s.to(torch.bfloat16)
     fn = getattr(k, f"w4a8_glu_{route}")
     plain = getattr(k, f"w4a8_glu_{route}_plain")
-    out = _launch_once(fn, a, s_tok, w, s, out_dtype)
+    out = (_launch_once(fn, a, s_tok, w, s, out_dtype) if regime is None
+           else _launch_channel(regime, True, a, s_tok, w, s, out_dtype))
     ref = plain(a, s_tok, w, s, out_dtype)
     assert out.shape == (M, I) and out.dtype == out_dtype
     tol = (2 * _ULP[torch.bfloat16] if out_dtype == torch.bfloat16

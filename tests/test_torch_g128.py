@@ -157,10 +157,16 @@ def test_g128_auto_route_follows_m():
 # (d) ------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("route", ["channel", "group", "requant"])
-def test_glu_layout_and_gemm_match_jax(route):
+# M = 130 on the channel route: past the per-channel GLU's regime switch
+# on the card, a ragged tensor-core tile
+@pytest.mark.parametrize("route,M", [
+    pytest.param("channel", 24, id="channel"),
+    pytest.param("group", 24, id="group"),
+    pytest.param("requant", 24, id="requant"),
+    pytest.param("channel", 130, id="channel-M130")])
+def test_glu_layout_and_gemm_match_jax(route, M):
     rng = np.random.default_rng(11)
-    M, K, I = 24, 384, 512
+    K, I = 384, 512
     a_q, s_tok, _, wg = _operands(rng, M, K, I)
     wu = jpack.pack_int4(jnp.asarray(
         rng.integers(-8, 8, size=(K, I)).astype(np.int8)))
