@@ -8,11 +8,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. build the CUDA kernels from the sources in this checkout, printing
    ``-Xptxas -v`` (registers, shared memory, spills) of each entry of the
    tensor-core kernels (slot flash, g128 requant, the per-channel GEMM's
-   weight stream and wgmma tiles) and of the split decode;
+   weight stream and wgmma tiles, the exact g128 GEMMs' weight stream:
+   plain, GLU and activation-quant-fused) and of the split decode;
 2. check each of the sixteen kernels against its plain PyTorch version on
    the card at the Llama-2-7B and Llama-3.1-8B shapes of the served paths
-   (the GEMMs, the activation-quant-fused ones included, and the KV writes
-   bit-exact, requant also at ragged M and N, the per-channel GEMM and GLU
+   (the GEMMs, the activation-quant-fused ones included (the g128 one at M
+   = 1, 4 and 64), and the KV writes bit-exact, requant also at ragged M
+   and N, the per-channel GEMM and GLU
    at rows on both sides of their regime switch (the weight stream, the
    int8 wgmma tiles) and timed at run 3b's decode and prefill rows and in
    each regime, forced, at the rows around the switch, the
@@ -73,9 +75,10 @@ HERE = pathlib.Path(__file__).resolve().parent
 V, H, I, L, NH, NKV, HD = 32000, 4096, 11008, 32, 32, 32, 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 #: the sources whose entries phase 1 names: the tensor-core kernels (the
-#: per-channel GEMM's two regimes among them) and the split decode
-NAMED_SOURCES = ("w4a8_gemm", "w4a8_requant", "flash_attention",
-                 "split_decode_attention")
+#: per-channel GEMM's two regimes and the exact g128 GEMMs' weight stream
+#: among them) and the split decode
+NAMED_SOURCES = ("w4a8_gemm", "w4a8_group", "w4a8_fused", "w4a8_requant",
+                 "flash_attention", "split_decode_attention")
 # the paged pool of the served runs: 128-token blocks, 16 per slot
 # (max_len 2048), 65 blocks = max_batch 4 × 16 + the null block
 BS, NBMAX, NB_POOL = 128, 16, 65
@@ -203,17 +206,18 @@ CHANNEL_MS = (1, 4, 16, 17, 64, 65, 128, 256, 512, 513, 4096)
 #: one row of slot bucket 128, one of bucket 512, two of bucket 2048
 CHANNEL_SERVED_MS = (4, 128, 512, 4096)
 #: per kernel: the rows M it is checked at (those the served runs give it:
-#: decode at batch 1 and 4, one row of slot bucket 128, one of bucket 512,
-#: two of bucket 2048, and the paged runs' (2, 512) chunk dispatches, M =
-#: 1024, plus M = 2048 for the requant GEMM), its (K, N) shapes, the (M,
-#: K, N) its report row shows, and the rows it is timed at (None: all)
+#: decode at batch 1 and 4 (the g128 GLU also at 8, the Engine's default
+#: max_batch), one row of slot bucket 128, one of bucket 512, two of bucket
+#: 2048, and the paged runs' (2, 512) chunk dispatches, M = 1024, plus M =
+#: 2048 for the requant GEMM), its (K, N) shapes, the (M, K, N) its report
+#: row shows, and the rows it is timed at (None: all)
 GEMM_CHECKS = {
     "w4a8_gemm_channel": (CHANNEL_MS, PLAIN_SHAPES, (4, I, H),
                           CHANNEL_SERVED_MS),
     "w4a8_glu_channel": (CHANNEL_MS, GLU_SHAPES, (4, H, 2 * I),
                          CHANNEL_SERVED_MS),
     "w4a8_gemm_group": ((1, 4, 128), PLAIN_SHAPES, (4, I, H), None),
-    "w4a8_glu_group": ((1, 4, 128), GLU_SHAPES, (4, H, 2 * I), None),
+    "w4a8_glu_group": ((1, 4, 8, 128), GLU_SHAPES, (4, H, 2 * I), None),
     # and ragged row tiles of the 256-row tensor-core kernels: M = 513, 1000
     "w4a8_gemm_requant": ((512, 513, 1000, 1024, 2048, 4096), PLAIN_SHAPES,
                           (512, I, H), None),
@@ -233,12 +237,12 @@ CHANNEL_PREFILL_ROWS = {
 #: GLU_CHANNEL_TILES_MIN_M) where the two times cross
 CROSSOVER_MS = (8, 16, 32, 64, 128, 256)
 #: the same at the Llama-3.1-8B shapes of every dispatch of run 3e and of
-#: its phase-4 cut: the exact kernels at decode (M = 1 in phase 4, 4 in 3e)
-#: and at bucket 128 (M = 128), the requant ones at buckets 512, 2048 and
-#: 16384 (one row each); logged only
+#: its phase-4 cut: the exact kernels at decode (M = 1 in phase 4, 4 in 3e;
+#: the GLU also at 8) and at bucket 128 (M = 128), the requant ones at
+#: buckets 512, 2048 and 16384 (one row each); logged only
 L31_GEMM_CHECKS = {
     "w4a8_gemm_group": ((1, 4, 128), L31_SHAPES, None, None),
-    "w4a8_glu_group": ((1, 4, 128), L31_GLU_SHAPES, None, None),
+    "w4a8_glu_group": ((1, 4, 8, 128), L31_GLU_SHAPES, None, None),
     "w4a8_gemm_requant": ((512, 2048, 16384), L31_SHAPES, None, None),
     "w4a8_glu_requant": ((512, 2048, 16384), L31_GLU_SHAPES, None, None),
 }
@@ -253,6 +257,11 @@ QWEN2_ATTN = dict(nh=14, nkv=2, hd=64, S=32768, clen=(1, 9001, 16385, 32768))
 #: (K, N) of the fused GEMMs: Llama-2-7B's q/k/v/o and down (runs 3f, 3g)
 #: and Llama-3.1-8B's k/v and down (its q/o are (4096, 4096) too)
 FUSED_SHAPES = [(H, H), (I, H), (H3, NKV3 * HD), (I3, H3)]
+#: the rows each fused GEMM is checked and timed at: decode at batch 4 (runs
+#: 3f, 3g) and, for the g128 one, batch 1 and the largest M that
+#: w4a8_linear sends it (64)
+FUSED_MS = {"w4a8_gemm_fused_channel": (4,),
+            "w4a8_gemm_fused_group": (1, 4, 64)}
 
 
 def _dequant_weight(w, s):
@@ -431,18 +440,19 @@ def check_channel_crossover(dev, gen, timer):
 
 
 def check_fused(dev, gen, timer):
-    """The activation-quant-fused GEMMs at M = 4 (decode at batch 4) and
-    every (K, N) the served runs give them: bit-exact against their plain
+    """The activation-quant-fused GEMMs at the rows of FUSED_MS and every
+    (K, N) the served runs give them: bit-exact against their plain
     versions, from bf16 activations with a few outliers; timed beside the
     bound (x, weights and scales read once, the output written once), the
-    plain version and bf16 ``torch.matmul`` on the dequantized weights."""
+    plain version and bf16 ``torch.matmul`` on the dequantized weights.
+    The report row is M = 4 (decode at batch 4) at (I, H)."""
     from qqq_tpu_torch.kernels import w4a8_gemm as k
 
-    rows, M = {}, 4
-    for name in ("w4a8_gemm_fused_channel", "w4a8_gemm_fused_group"):
+    rows = {}
+    for name, m_list in FUSED_MS.items():
         fn, plain_fn = k.KERNEL_WRAPPERS[name], getattr(k, name + "_plain")
         row = None
-        for K, N in FUSED_SHAPES:
+        for M, (K, N) in ((M, sh) for M in m_list for sh in FUSED_SHAPES):
             x = torch.randn((M, K), generator=gen, device=dev)
             x[:, ::997] *= 20  # outlier channels, as LLM activations have
             x = x.to(torch.bfloat16)
@@ -467,10 +477,10 @@ def check_fused(dev, gen, timer):
             nbytes = (M * K * 2 + K * N // 2 + s.numel() * s.element_size()
                       + M * N * 2)
             b, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
-            log(f"  {name} M={M} K={K:5d} N={N:5d}: bit-exact; {ms:.4f} ms "
-                f"(bound {b:.4f} by {by}, plain {plain:.4f}, bf16 matmul "
+            log(f"  {name} M={M:2d} K={K:5d} N={N:5d}: bit-exact; {ms:.4f} "
+                f"ms (bound {b:.4f} by {by}, plain {plain:.4f}, bf16 matmul "
                 f"{lib:.4f})")
-            if (K, N) == (I, H):
+            if (M, K, N) == (4, I, H):
                 row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                            bound_by=by, max_abs_err=0.0,
                            shape=f"M={M} K={K} N={N} bf16 x")

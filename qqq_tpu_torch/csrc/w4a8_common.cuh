@@ -2,8 +2,8 @@
 // w4a8_group.cu, w4a8_fused.cu, and the tile and stream kernels of
 // w4a8_tc.cuh and w4a8_stream.cuh): the nibble-plane operand layout, the GLU
 // column map and epilogue, the INT4 -> INT8 regrid of one code, and the
-// block shape of the CUDA-core kernels that remain (the group-GLU of
-// w4a8_group.cu and the activation-quant-fused ones of w4a8_fused.cu).
+// block shape of the CUDA-core kernel that remains (the per-channel
+// activation-quant-fused one of w4a8_fused.cu).
 //
 // Operand layout (core/packing.py).  Word row 16b+r of a column holds, in
 // its low nibbles, the codes k = 128b+4r+{0..3} and, in its high nibbles,
@@ -19,7 +19,7 @@
 // the accurate expf and an IEEE division, and rounds once; the (M, I) gate
 // and up intermediates never reach global memory.
 //
-// The CUDA-core kernels' block shape: 8 warps own 32 output columns, one
+// The CUDA-core kernel's block shape: 8 warps own 32 output columns, one
 // per lane, so every weight load is one coalesced 128-byte row of a column
 // tile; the warps split the 128-row K blocks among themselves, and each
 // thread keeps BM rows (rows_per_block) of accumulators so that a weight
@@ -59,21 +59,6 @@ __device__ __forceinline__ void store(void* out, size_t idx, float v) {
     reinterpret_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
   else
     reinterpret_cast<float*>(out)[idx] = v;
-}
-
-// One 128-wide slice of activation row `row` as 32 int32 words.
-__device__ __forceinline__ void load_a(const int8_t* __restrict__ a, int K,
-                                       int row, int kb, int av[32]) {
-  const int4* ap =
-      reinterpret_cast<const int4*>(a + (size_t)row * K + (size_t)kb * 128);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int4 v = __ldg(ap + j);
-    av[4 * j + 0] = v.x;
-    av[4 * j + 1] = v.y;
-    av[4 * j + 2] = v.z;
-    av[4 * j + 3] = v.w;
-  }
 }
 
 // INT4 → INT8 regrid of one code: w8 = clip(rint(q·s_frac), ±127) for q =

@@ -1,6 +1,5 @@
 // W4A8 GEMM with the per-token activation quantization fused into the
-// prologue, per channel and g128 exact, for Hopper (sm_90a), CUDA cores
-// through __dp4a.
+// prologue, per channel and g128 exact, for Hopper (sm_90a).
 //
 // Replaces: qqq_tpu/kernels/w4a8_gemm.py:_w4a8_fused_channel_kernel (:207)
 // and _w4a8_fused_group_kernel (:239), reached through w4a8_gemm_fused
@@ -23,22 +22,44 @@
 // PyTorch version (kernels/w4a8_gemm.py) are bit-identical.
 //
 // What bounds it on the H100: the weight stream at decode, K * N / 2 bytes
-// of codes (plus K / 128 * N * 2 of bf16 group scales) at 3.35 TB/s; the x
-// rows add M * K * 2 bytes.
+// of codes (plus K / 128 * N * 2 of bf16 group scales) at 3.35 TB/s (7.0 us
+// at K = 11008, N = 4096); the x rows add M * K * 2 bytes.
 //
-// Design: the unfused kernels' block (8 warps own 32 output columns, one
-// per lane, and split the K blocks), with a prologue in which the block
-// quantizes its BM <= 8 rows of x into shared memory: a first pass over x
-// for each row's absmax, a second for the codes and, per channel, their row
-// sums.  The main loop reads the codes from shared memory (all lanes of a
-// warp read the same 16-byte vectors: a broadcast) instead of from device
-// memory.  BM * K code bytes must fit a block's shared memory: 8 rows of
-// K <= 24576, the largest K that _fused_bn admits.  Every column block
-// quantizes its rows again, as every n-tile of the JAX kernel does; at
-// K = 4096, N = 4096 that is 128 blocks re-reading the same x from L2.
+// g128 (stream::fused_kernel): the exact g128 route's weight stream
+// (w4a8_stream.cuh:group_gemm, as w4a8_group.cu's stream::kernel), whose
+// producer streams raw x in place of int8 A: a TMA box a group of the
+// block's 8 (bf16) or 4 (f32) rows of 128 values, 2 KB, the size of the
+// slot's A tile, so the slot and the ring stay #2's.  Meanwhile the
+// consumer warps take the block's row scales s[m] (and their reciprocals)
+// from one pass over its rows of x, L2-resident after the first column
+// block.  Each stage, consumer warp w reads its group's x from the tile,
+// quantizes it four values a lane and row (every lane busy at any row
+// count), writes the codes over the tile in the TMA unit's swizzle, and
+// runs #2's MMAs on it; bsum_g comes from the same fragments.  The
+// quotients come from the row's correctly rounded reciprocal and two FMA
+// corrections (div_rn: the IEEE quotient).  On the H100 that takes #5 at
+// (4, 11008, 4096) from 0.035 ms with __fdiv_rn alone to 0.030, and at
+// (64, 11008, 4096) from 0.34–0.36 to 0.255 (PERF.md §6).
+// Bring-up showed why x rides with the stage: loaded by the consumers a
+// stage ahead, x queued behind the ring's TMA traffic and doubled the time.
+// Whole rows of A could not be staged beside the ring (16 x 24576 bytes is
+// 393 KB); every column block quantizes its rows again, as every n-tile of
+// the JAX kernel does.
+//
+// Per channel (fused_kernel; to be moved onto stream::channel_kernel the
+// same way): the older CUDA-core block, 8 warps that own 32 output columns,
+// one per lane, and split the K blocks through __dp4a, with a prologue in
+// which the block quantizes its BM <= 8 rows of x into shared memory: a
+// first pass over x for each row's absmax, a second for the codes and their
+// row sums.  The main loop reads the codes from shared memory (all lanes of
+// a warp read the same 16-byte vectors: a broadcast).  BM * K code bytes
+// must fit a block's shared memory: 8 rows of K <= 24576, the largest K
+// that _fused_bn admits.  Every column block quantizes its rows again, as
+// every n-tile of the JAX kernel does.
 
 #include "smem_fit.cuh"
 #include "w4a8_common.cuh"
+#include "w4a8_stream.cuh"
 
 namespace {
 
@@ -46,47 +67,77 @@ using namespace w4a8;
 
 constexpr int kMaxBM = 8;
 
+// 16 bytes of x as floats: N of them (8 bf16 or 4 f32), loaded and
+// converted (load) or converted from the raw bytes (cvt); and four values
+// from their Quad of raw bytes (8 bf16 or 16 f32 bytes).
 template <typename TX>
 struct XVec;
 
 template <>
 struct XVec<float> {
   static constexpr int N = 4;
+  using Quad = int4;
+  __device__ static void cvt(const int4& r, float v[4]) {
+    v[0] = __int_as_float(r.x);
+    v[1] = __int_as_float(r.y);
+    v[2] = __int_as_float(r.z);
+    v[3] = __int_as_float(r.w);
+  }
   __device__ static void load(const float* p, float v[4]) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
+    cvt(__ldg(reinterpret_cast<const int4*>(p)), v);
   }
 };
 
 template <>
 struct XVec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float v[8]) {
-    const int4 r = __ldg(reinterpret_cast<const int4*>(p));
+  using Quad = uint2;
+  __device__ static void cvt(const uint2& r, float v[4]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      v[2 * j] = f.x;
-      v[2 * j + 1] = f.y;
-    }
+    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+    v[0] = f0.x;
+    v[1] = f0.y;
+    v[2] = f1.x;
+    v[3] = f1.y;
+  }
+  __device__ static void cvt(const int4& r, float v[8]) {
+    cvt(make_uint2(r.x, r.y), v);
+    cvt(make_uint2(r.z, r.w), v + 4);
+  }
+  __device__ static void load(const __nv_bfloat16* p, float v[8]) {
+    cvt(__ldg(reinterpret_cast<const int4*>(p)), v);
   }
 };
 
-template <bool kSgBf16>
-__device__ __forceinline__ float group_scale(const void* sg, size_t idx) {
-  if (kSgBf16)
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(sg)[idx]);
-  return __ldg(reinterpret_cast<const float*>(sg) + idx);
+// The quotient q = x / s rounded half to even and clipped to int8, as a
+// byte: the JAX kernels' order (divide, round, then clip).
+__device__ __forceinline__ unsigned code_byte(float q) {
+  const float r = fminf(fmaxf(rintf(q), -128.f), 127.f);
+  return (unsigned)(int)r & 0xFFu;
+}
+__device__ __forceinline__ unsigned quant_byte(float v, float s) {
+  return code_byte(__fdiv_rn(v, s));
 }
 
+// x / s as the IEEE division rounds it, from rc = RN(1/s) (__frcp_rn): q =
+// x·rc, then twice q += (x − s·q)·rc, each residual exact in an FMA.  The
+// first correction brings q within an ulp of x / s; from there the second
+// gives the correctly rounded quotient (Markstein's theorem) wherever the
+// residual does not underflow, which holds for every x with |x / s| >= 1/4
+// when s >= 2^-100; below that |x / s| rounds to code 0 either way.  The
+// callers take __fdiv_rn for a row whose s is smaller.  Five FP operations
+// against __fdiv_rn's checked sequence, whose slow path zeros also take.
+__device__ __forceinline__ float div_rn(float x, float s, float rc) {
+  float q = __fmul_rn(x, rc);
+  q = __fmaf_rn(__fmaf_rn(-s, q, x), rc, q);
+  return __fmaf_rn(__fmaf_rn(-s, q, x), rc, q);
+}
+constexpr float kDivRnMinS = 0x1p-100f;  // div_rn's smallest divisor
+
 // Quantizes rows m0 .. m0 + BM - 1 (those below M) of x into aq (BM, K)
-// int8, their scales into s_sh and, with kRowSums, their code sums into
-// asum_sh.  Ends with a barrier.
-template <int BM, typename TX, bool kRowSums>
+// int8, their scales into s_sh and their code sums into asum_sh.  Ends with
+// a barrier.
+template <int BM, typename TX>
 __device__ void quantize_rows(const TX* __restrict__ x, int M, int K, int m0,
                               int8_t* aq, float* s_sh, int* asum_sh) {
   constexpr int V = XVec<TX>::N;
@@ -122,7 +173,7 @@ __device__ void quantize_rows(const TX* __restrict__ x, int M, int K, int m0,
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) a = fmaxf(a, red[w][threadIdx.x]);
     s_sh[threadIdx.x] = __fdiv_rn(fmaxf(a, 1e-30f), 127.0f);
-    if (kRowSums) asum_sh[threadIdx.x] = 0;
+    asum_sh[threadIdx.x] = 0;
   }
   __syncthreads();
 
@@ -141,11 +192,9 @@ __device__ void quantize_rows(const TX* __restrict__ x, int M, int K, int m0,
         for (int w = 0; w < V / 4; ++w) packed[w] = 0u;
 #pragma unroll
         for (int u = 0; u < V; ++u) {
-          const float r = fminf(fmaxf(rintf(__fdiv_rn(v[u], s)), -128.f),
-                                127.f);
-          const int c = (int)r;
-          rsum[i] += c;
-          packed[u / 4] |= ((unsigned)c & 0xFFu) << (8 * (u % 4));
+          const unsigned c = quant_byte(v[u], s);
+          rsum[i] += (int)(int8_t)c;
+          packed[u / 4] |= c << (8 * (u % 4));
         }
         unsigned* dst = reinterpret_cast<unsigned*>(aq + (size_t)i * K +
                                                     (size_t)j * V);
@@ -154,13 +203,11 @@ __device__ void quantize_rows(const TX* __restrict__ x, int M, int K, int m0,
       }
     }
   }
-  if (kRowSums) {
 #pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      int t = rsum[i];
-      for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-      if (lane == 0 && m0 + i < M) atomicAdd(&asum_sh[i], t);
-    }
+  for (int i = 0; i < BM; ++i) {
+    int t = rsum[i];
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    if (lane == 0 && m0 + i < M) atomicAdd(&asum_sh[i], t);
   }
   __syncthreads();
 }
@@ -180,178 +227,252 @@ __device__ __forceinline__ void load_a_shared(const int8_t* aq, int K, int i,
   }
 }
 
-// kGroup = false: per channel, scales = s_channel (N,) f32.
-// kGroup = true: g128 exact, scales = s_group (K / 128, N) bf16 or f32.
-template <int BM, bool kGroup, typename TX, bool kSgBf16, bool kBf16Out>
+// The per-channel fused GEMM of BM rows and 32 columns; scales = s_channel
+// (N,) f32.
+template <int BM, typename TX, bool kBf16Out>
 __global__ void __launch_bounds__(kThreads)
 fused_kernel(const TX* __restrict__ x, const int32_t* __restrict__ w,
-             const void* __restrict__ scales, void* __restrict__ out, int M,
+             const float* __restrict__ s_ch, void* __restrict__ out, int M,
              int K, int N) {
   extern __shared__ int4 aq_raw[];
   int8_t* aq = reinterpret_cast<int8_t*>(aq_raw);  // [BM][K] codes
   __shared__ float s_sh[BM];
   __shared__ int asum_sh[BM];
-  // per channel: each warp's int32 partial sums; g128: each warp's group
-  // term, added in group order
-  __shared__ int red[kGroup ? 1 : kWarps][BM][kCols];
-  __shared__ float term[kGroup ? kWarps : 1][BM][kCols];
+  __shared__ int red[kWarps][BM][kCols];  // each warp's int32 partial sums
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int o = blockIdx.x * kCols + lane;
   const int m0 = blockIdx.y * BM;
   const int G = K / 128;
 
-  quantize_rows<BM, TX, !kGroup>(x, M, K, m0, aq, s_sh, asum_sh);
+  quantize_rows<BM, TX>(x, M, K, m0, aq, s_sh, asum_sh);
 
-  if constexpr (!kGroup) {
-    int acc[BM];
+  int acc[BM];
 #pragma unroll
-    for (int i = 0; i < BM; ++i) acc[i] = 0;
-    if (o < N) {
-      for (int kb = warp; kb < G; kb += kWarps) {
-        unsigned raw[16];
-        const int32_t* wp = w + (size_t)kb * 16 * N + o;
+  for (int i = 0; i < BM; ++i) acc[i] = 0;
+  if (o < N) {
+    for (int kb = warp; kb < G; kb += kWarps) {
+      unsigned raw[16];
+      const int32_t* wp = w + (size_t)kb * 16 * N + o;
 #pragma unroll
-        for (int r = 0; r < 16; ++r) raw[r] = (unsigned)__ldg(wp + (size_t)r * N);
+      for (int r = 0; r < 16; ++r) raw[r] = (unsigned)__ldg(wp + (size_t)r * N);
 #pragma unroll
-        for (int i = 0; i < BM; ++i) {
-          if (m0 + i < M) {
-            int av[32];
-            load_a_shared(aq, K, i, kb, av);
-            int t = acc[i];
+      for (int i = 0; i < BM; ++i) {
+        if (m0 + i < M) {
+          int av[32];
+          load_a_shared(aq, K, i, kb, av);
+          int t = acc[i];
 #pragma unroll
-            for (int r = 0; r < 16; ++r) {
-              t = __dp4a((int)(raw[r] & kNib), av[r], t);
-              t = __dp4a((int)((raw[r] >> 4) & kNib), av[16 + r], t);
-            }
-            acc[i] = t;
+          for (int r = 0; r < 16; ++r) {
+            t = __dp4a((int)(raw[r] & kNib), av[r], t);
+            t = __dp4a((int)((raw[r] >> 4) & kNib), av[16 + r], t);
           }
+          acc[i] = t;
         }
       }
     }
+  }
 #pragma unroll
-    for (int i = 0; i < BM; ++i) red[warp][i][lane] = acc[i];
-    __syncthreads();
-    const float* s_ch = static_cast<const float*>(scales);
-    for (int idx = threadIdx.x; idx < BM * kCols; idx += kThreads) {
-      const int i = idx / kCols;
-      const int c = idx % kCols;
-      const int m = m0 + i;
-      const int oo = blockIdx.x * kCols + c;
-      if (m < M && oo < N) {
-        int tot = 0;
+  for (int i = 0; i < BM; ++i) red[warp][i][lane] = acc[i];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BM * kCols; idx += kThreads) {
+    const int i = idx / kCols;
+    const int c = idx % kCols;
+    const int m = m0 + i;
+    const int oo = blockIdx.x * kCols + c;
+    if (m < M && oo < N) {
+      int tot = 0;
 #pragma unroll
-        for (int q = 0; q < kWarps; ++q) tot += red[q][i][c];
-        tot -= 8 * asum_sh[i];  // undo the +8 code offset
-        float v = __fmul_rn((float)tot, s_ch[oo]);
-        v = __fmul_rn(v, s_sh[i]);
-        store<kBf16Out>(out, (size_t)m * N + oo, v);
-      }
-    }
-  } else {
-    constexpr int R = (BM * kCols + kThreads - 1) / kThreads;
-    float facc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) facc[r] = 0.f;
-    for (int g0 = 0; g0 < G; g0 += kWarps) {
-      const int g = g0 + warp;
-      if (g < G && o < N) {
-        unsigned raw[16];
-        const int32_t* wp = w + (size_t)g * 16 * N + o;
-#pragma unroll
-        for (int r = 0; r < 16; ++r) raw[r] = (unsigned)__ldg(wp + (size_t)r * N);
-        const float sg = group_scale<kSgBf16>(scales, (size_t)g * N + o);
-#pragma unroll
-        for (int i = 0; i < BM; ++i) {
-          if (m0 + i < M) {
-            int av[32];
-            load_a_shared(aq, K, i, g, av);
-            int bsum = 0;
-#pragma unroll
-            for (int j = 0; j < 32; ++j) bsum = __dp4a(av[j], 0x01010101, bsum);
-            int d = 0;
-#pragma unroll
-            for (int r = 0; r < 16; ++r) {
-              d = __dp4a((int)(raw[r] & kNib), av[r], d);
-              d = __dp4a((int)((raw[r] >> 4) & kNib), av[16 + r], d);
-            }
-            term[warp][i][lane] = __fmul_rn((float)(d - 8 * bsum), sg);
-          }
-        }
-      }
-      __syncthreads();
-      const int ng = min(kWarps, G - g0);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int p = threadIdx.x + r * kThreads;
-        if (p < BM * kCols) {
-          const int i = p / kCols;
-          const int c = p % kCols;
-          if (m0 + i < M && blockIdx.x * kCols + c < N)
-            for (int q = 0; q < ng; ++q)
-              facc[r] = __fadd_rn(facc[r], term[q][i][c]);
-        }
-      }
-      __syncthreads();  // terms read before the next groups overwrite them
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int p = threadIdx.x + r * kThreads;
-      if (p < BM * kCols) {
-        const int i = p / kCols;
-        const int c = p % kCols;
-        const int m = m0 + i;
-        const int oo = blockIdx.x * kCols + c;
-        if (m < M && oo < N)
-          store<kBf16Out>(out, (size_t)m * N + oo, __fmul_rn(facc[r], s_sh[i]));
-      }
+      for (int q = 0; q < kWarps; ++q) tot += red[q][i][c];
+      tot -= 8 * asum_sh[i];  // undo the +8 code offset
+      float v = __fmul_rn((float)tot, s_ch[oo]);
+      v = __fmul_rn(v, s_sh[i]);
+      store<kBf16Out>(out, (size_t)m * N + oo, v);
     }
   }
 }
 
-template <int BM, bool kGroup, typename TX, bool kSgBf16, bool kBf16Out>
-int launch_bm(const void* x, const int32_t* w, const void* scales, void* out,
+template <int BM, typename TX, bool kBf16Out>
+int launch_bm(const void* x, const int32_t* w, const float* s_ch, void* out,
               int M, int K, int N, cudaStream_t st) {
-  auto kernel = fused_kernel<BM, kGroup, TX, kSgBf16, kBf16Out>;
+  auto kernel = fused_kernel<BM, TX, kBf16Out>;
   const size_t smem = (size_t)BM * K;
   const int fit = smem_fit(kernel, smem);
   if (fit != 0) return fit;
   kernel<<<grid_for(M, N, BM), kThreads, smem, st>>>(
-      static_cast<const TX*>(x), w, scales, out, M, K, N);
+      static_cast<const TX*>(x), w, s_ch, out, M, K, N);
   return (int)cudaGetLastError();
 }
 
-template <bool kGroup, typename TX, bool kSgBf16, bool kBf16Out>
-int launch(const void* x, const int32_t* w, const void* scales, void* out,
-           int M, int K, int N, cudaStream_t st) {
-  const int bm = rows_per_block(M) < kMaxBM ? rows_per_block(M) : kMaxBM;
-  switch (bm) {
-    case 1: return launch_bm<1, kGroup, TX, kSgBf16, kBf16Out>(x, w, scales, out, M, K, N, st);
-    case 2: return launch_bm<2, kGroup, TX, kSgBf16, kBf16Out>(x, w, scales, out, M, K, N, st);
-    case 4: return launch_bm<4, kGroup, TX, kSgBf16, kBf16Out>(x, w, scales, out, M, K, N, st);
-    default: return launch_bm<8, kGroup, TX, kSgBf16, kBf16Out>(x, w, scales, out, M, K, N, st);
+template <typename TX, bool kBf16Out>
+int launch_rows(const void* x, const int32_t* w, const float* s_ch, void* out,
+                int M, int K, int N, cudaStream_t st) {
+  switch (rows_per_block(M) < kMaxBM ? rows_per_block(M) : kMaxBM) {
+    case 1: return launch_bm<1, TX, kBf16Out>(x, w, s_ch, out, M, K, N, st);
+    case 2: return launch_bm<2, TX, kBf16Out>(x, w, s_ch, out, M, K, N, st);
+    case 4: return launch_bm<4, TX, kBf16Out>(x, w, s_ch, out, M, K, N, st);
+    default: return launch_bm<8, TX, kBf16Out>(x, w, s_ch, out, M, K, N, st);
   }
 }
 
-template <bool kGroup, bool kSgBf16>
-int launch_x(const void* x, const int32_t* w, const void* scales, void* out,
-             int M, int K, int N, int x_bf16, int bf16_out, cudaStream_t st) {
-  if (x_bf16)
-    return bf16_out
-        ? launch<kGroup, __nv_bfloat16, kSgBf16, true>(x, w, scales, out, M, K, N, st)
-        : launch<kGroup, __nv_bfloat16, kSgBf16, false>(x, w, scales, out, M, K, N, st);
-  return bf16_out
-      ? launch<kGroup, float, kSgBf16, true>(x, w, scales, out, M, K, N, st)
-      : launch<kGroup, float, kSgBf16, false>(x, w, scales, out, M, K, N, st);
+template <typename TX>
+int launch_per_channel(const void* x, const int32_t* w, const float* s_ch,
+                       void* out, int M, int K, int N, int bf16_out,
+                       cudaStream_t st) {
+  return bf16_out ? launch_rows<TX, true>(x, w, s_ch, out, M, K, N, st)
+                  : launch_rows<TX, false>(x, w, s_ch, out, M, K, N, st);
 }
+
+namespace stream {
+
+// A of the g128 fused kernel: the producer streams the block's rows of x
+// into the A tiles (block_rows(sizeof(TX)) rows of 128 values a group, 2
+// KB: the tile's size), and each consumer warp quantizes its group's tile
+// in place.  begin() takes the block's row scales (and their reciprocals)
+// from one pass over its rows of x, each thread keeping 16 of its 16-byte
+// loads in flight, while the producer fills the ring.  frags() reads this
+// lane's four values of each row (k = 4·lane ..), and, once the warp has
+// read them all, writes their codes over the tile in the TMA unit's
+// swizzle (one word a lane and row: all 32 lanes busy at any row count);
+// then reads the fragments back as a streamed tile is read.  Rows of the
+// tile past the block's feed only outputs that are never stored.
+template <typename TX>
+struct QuantizedX {
+  static constexpr int kAEs = sizeof(TX);
+  static constexpr int kBR = block_rows(kAEs);  // rows a block
+  const TX* x;
+  float* s_sh;  // [2][kRows] the rows' scales, then their reciprocals
+  float* red;   // [kWarps][kRows] the warps' partial maxima
+  int K, m0, rows;
+
+  // amax[i] = max |x| over this thread's share of row m0 + i, i < rows <=
+  // R, U vectors of each row in flight
+  template <int R, int U>
+  __device__ void row_max(float (&amax)[kBR]) const {
+    constexpr int V = XVec<TX>::N;
+    const int nv = K / V;
+    for (int j0 = threadIdx.x; j0 < nv; j0 += U * kThreads) {
+      int4 r[R][U];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (i < rows && j0 + u * kThreads < nv)
+            r[i][u] = __ldg(reinterpret_cast<const int4*>(
+                                x + (size_t)(m0 + i) * K) + j0 + u * kThreads);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (i < rows && j0 + u * kThreads < nv) {
+            float v[V];
+            XVec<TX>::cvt(r[i][u], v);
+#pragma unroll
+            for (int e = 0; e < V; ++e) amax[i] = fmaxf(amax[i], fabsf(v[e]));
+          }
+    }
+  }
+
+  __device__ void begin(const Args& p, int m0_, int rows_) {
+    K = p.K;
+    m0 = m0_;
+    rows = rows_;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    float amax[kBR];
+#pragma unroll
+    for (int i = 0; i < kBR; ++i) amax[i] = 0.f;
+    if (rows <= 1)
+      row_max<1, 16>(amax);
+    else if (rows <= 2)
+      row_max<2, 8>(amax);
+    else if (rows <= 4)
+      row_max<4, 4>(amax);
+    else
+      row_max<kBR, 16 / kBR>(amax);
+#pragma unroll
+    for (int i = 0; i < kBR; ++i) {
+      float a = amax[i];
+      for (int o = 16; o > 0; o >>= 1)
+        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+      if (lane == 0) red[warp * kRows + i] = a;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+    if (threadIdx.x < rows) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        a = fmaxf(a, red[w * kRows + threadIdx.x]);
+      const float s = __fdiv_rn(fmaxf(a, 1e-30f), 127.0f);
+      s_sh[threadIdx.x] = s;
+      s_sh[kRows + threadIdx.x] = __frcp_rn(s);
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+  }
+
+  __device__ void frags(char* ab, int gi, bool two, uint2 (&a)[4],
+                        uint2 (&a8)[4]) const {
+    const int lane = threadIdx.x & 31;
+    char* tile = ab + gi * kRows * 128;
+    float v[kBR][4];
+#pragma unroll
+    for (int r = 0; r < kBR; ++r)
+      if (r < rows)
+        XVec<TX>::cvt(*reinterpret_cast<const typename XVec<TX>::Quad*>(
+                          tile + r * 128 * kAEs + 4 * kAEs * lane),
+                      v[r]);
+    __syncwarp();  // the tile's x is read before its codes overwrite it
+#pragma unroll
+    for (int r = 0; r < kBR; ++r)
+      if (r < rows) {
+        const float s = s_sh[r], rc = s_sh[kRows + r];
+        unsigned word = 0;
+        if (s >= kDivRnMinS)  // the same for the whole warp
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            word |= code_byte(div_rn(v[r][u], s, rc)) << (8 * u);
+        else
+#pragma unroll
+          for (int u = 0; u < 4; ++u) word |= quant_byte(v[r][u], s) << (8 * u);
+        *reinterpret_cast<unsigned*>(tile + swz(r, 4 * lane)) = word;
+      }
+    __syncwarp();
+    a_frags(ab, gi, two, a, a8);
+  }
+
+  __device__ float scale(int row, int) const { return s_sh[row]; }
+};
+
+template <typename TX, bool kSgBf16, bool kBf16Out>
+__global__ void __launch_bounds__(kThreads + 32)
+fused_kernel(const __grid_constant__ Maps maps, Args p) {
+  __shared__ float s_sh[2 * kRows];
+  __shared__ float red[kWarps * kRows];
+  QuantizedX<TX> src;
+  src.x = static_cast<const TX*>(p.a);
+  src.s_sh = s_sh;
+  src.red = red;
+  group_gemm<1, kSgBf16, kBf16Out>(maps, p, src);
+}
+
+template <typename TX, bool kSgBf16>
+int launch_fused(const Args& p, int bf16_out, cudaStream_t st) {
+  constexpr int es = sizeof(TX);
+  return bf16_out ? launch_group<1, es, kSgBf16>(
+                        fused_kernel<TX, kSgBf16, true>, p, st)
+                  : launch_group<1, es, kSgBf16>(
+                        fused_kernel<TX, kSgBf16, false>, p, st);
+}
+
+}  // namespace stream
 
 }  // namespace
 
 // x (M, K) bf16 (x_bf16 = 1) or f32, 16-byte aligned; w (K/8, N) int32;
 // scales: s_channel (N,) f32 (group = 0) or s_group (K/128, N) bf16
 // (sg_bf16 = 1) or f32 (group = 1); out (M, N) bf16 (bf16_out = 1) or f32.
-// K % 128 == 0 (else cudaErrorInvalidValue); kSmemTooLarge, nothing
-// launched, where min(M, 8) rows of K codes exceed a block's shared memory.
+// K % 128 == 0 (else cudaErrorInvalidValue).  Per channel: kSmemTooLarge,
+// nothing launched, where min(M, 8) rows of K codes exceed a block's shared
+// memory; g128 (the weight stream) has no such limit.
 extern "C" int w4a8_gemm_fused(const void* x, const void* w,
                                const void* scales, void* out, int M, int K,
                                int N, int group, int x_bf16, int sg_bf16,
@@ -359,12 +480,18 @@ extern "C" int w4a8_gemm_fused(const void* x, const void* w,
   if (K % 128 || M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   auto W = static_cast<const int32_t*>(w);
   auto st = static_cast<cudaStream_t>(stream);
-  if (!group)
-    return launch_x<false, false>(x, W, scales, out, M, K, N, x_bf16,
-                                  bf16_out, st);
-  if (sg_bf16)
-    return launch_x<true, true>(x, W, scales, out, M, K, N, x_bf16, bf16_out,
-                                st);
-  return launch_x<true, false>(x, W, scales, out, M, K, N, x_bf16, bf16_out,
-                               st);
+  if (!group) {
+    auto SC = static_cast<const float*>(scales);
+    return x_bf16 ? launch_per_channel<__nv_bfloat16>(x, W, SC, out, M, K, N,
+                                                      bf16_out, st)
+                  : launch_per_channel<float>(x, W, SC, out, M, K, N,
+                                              bf16_out, st);
+  }
+  const stream::Args p{x, nullptr, W, scales, out, M, K, N, false};
+  using BF = __nv_bfloat16;
+  if (x_bf16)
+    return sg_bf16 ? stream::launch_fused<BF, true>(p, bf16_out, st)
+                   : stream::launch_fused<BF, false>(p, bf16_out, st);
+  return sg_bf16 ? stream::launch_fused<float, true>(p, bf16_out, st)
+                 : stream::launch_fused<float, false>(p, bf16_out, st);
 }

@@ -1,27 +1,41 @@
-// The weight stream of the W4A8 GEMMs at decode (sm_90a): a producer warp
-// keeps TMA boxes of packed codes and of A in flight through a ring of
-// shared-memory stages, and eight consumer warps form each 128-row group's
-// exact int32 dot on int8 mma.sync.  Two kernels share it:
-//   - kernel (w4a8_group.cu, the exact g128 route): each group's int32 terms
-//     scaled by s_group and summed in f32 in group order, after a barrier of
-//     the consumer warps each stage;
+// The weight stream of the W4A8 GEMMs at decode and short prefill (sm_90a):
+// a producer warp keeps TMA boxes of packed codes (and of A, and of the g128
+// scales) in flight through a ring of shared-memory stages, and eight
+// consumer warps form each 128-row group's exact int32 dot on int8
+// mma.sync.  Four kernels share it (TPU kernels replaced:
+// qqq_tpu/kernels/w4a8_gemm.py, lines as in each source's header):
+//   - the exact g128 route's group_gemm, each group's int32 terms scaled by
+//     s_group and summed in f32 in group order, after a barrier of the
+//     consumer warps each stage, in three instantiations:
+//       stream::kernel (w4a8_group.cu, #2 _w4a8_group_kernel): one box of
+//       32 columns a stage, A streamed, a 4-stage ring;
+//       stream::glu_kernel (w4a8_group.cu, #7 _w4a8_group_glu_kernel): two
+//       boxes a stage, the 32 gate and the 32 up columns of 32 output
+//       columns (weight_col), each with its own s_group rows, two f32
+//       chains a (row, column) and silu_mul in the epilogue; a 3-stage
+//       ring (two 50 KB slots and the doubled terms would not fit four);
+//       stream::fused_kernel (w4a8_fused.cu, #5 _w4a8_fused_group_kernel):
+//       #2's, with raw activations x streamed into the A tiles (8 rows of
+//       bf16 or 4 of f32 a block), which the consumers quantize in place
+//       with the rows' scales from a pass over x;
 //   - channel_kernel (w4a8_gemm.cu, the per-channel route's decode regime,
-//     plain and GLU): the int32 sums stay in each warp's registers across
-//     all K, the warps meet once in shared memory at the end, and the
-//     epilogue  out((float)(acc − 8·asum)·s_ch[n]·s_tok[m])  runs once.  No
-//     scale box, no per-stage barrier.  Its GLU tile streams two boxes a
-//     stage, the 32 gate and the 32 up columns of 32 output columns
-//     (weight_col), and applies silu_mul in the epilogue; the exact g128
-//     GLU can stream the same two boxes with their s_group rows.
+//     #1 and #6): the int32 sums stay in each warp's registers across all
+//     K, the warps meet once in shared memory at the end, and the epilogue
+//     out((float)(acc − 8·asum)·s_ch[n]·s_tok[m])  runs once.  No scale
+//     box, no per-stage barrier.  Its GLU tile streams two boxes a stage,
+//     as the g128 GLU does, and applies silu_mul in the epilogue.
+// What bounds them on the H100: the bytes of codes (K·N/2) and scales at
+// 3.35 TB/s; PERF.md §6 has their times against that bound.
 //
 // A block owns 32 columns a box (one 128-byte segment of each packed word
 // row) and 16 rows of A, and walks all K/128 groups through the ring, kGps =
 // 8 groups a stage.
 //   - Lane 0 of the producer warp asks the TMA unit for the stage's boxes:
-//     128 word rows of codes a box, a box of A per group and (g128) the
-//     stage's s_group rows (the entry describes the tensors in tensor maps;
-//     the unit zero-fills past their edges).  A `full` mbarrier per slot
-//     counts their bytes, an `empty` one the eight consumer warps that have
+//     128 word rows of codes a box, a box of A (or of raw activations) per
+//     group and (g128) the stage's s_group rows of each box (the entry
+//     describes the tensors in tensor maps; the unit zero-fills past their
+//     edges).  A `full` mbarrier per slot counts their bytes, an `empty`
+//     one the eight consumer warps that have
 //     released the slot, so the copies run up to a ring of stages ahead of
 //     the math and never wait for it.  Where N or a pointer does not suit
 //     the TMA unit, the producer lanes copy word by word into the same
@@ -61,8 +75,10 @@ constexpr int kRows = 16;              // rows of A a block: one m16 tile
 constexpr int kGps = 8;                // groups a stage
 static_assert(kGps == kWarps, "a consumer warp a group of a stage");
 // A slot: NB boxes of the stage's 16·kGps word rows of codes (kTile words,
-// 128 bytes each), kGps tiles of A (kRows rows of 128 bytes) and, for g128
-// weights, kGps s_group rows (kTile elements, f32 room).  The codes and A
+// 128 bytes each), kGps tiles of A (kRows rows of 128 bytes; streamed, or
+// written by the consumer warp of each group where the consumers quantize
+// x themselves) and, for g128 weights, the kGps s_group rows of each box's
+// columns (kTile elements, f32 room, a box after box).  The codes and A
 // are stored as the TMA unit's 128-byte swizzle stores them: 16-byte chunk
 // c of 128-byte row r at chunk c ^ (r % 8); so slots start 1024-byte
 // aligned.
@@ -73,7 +89,7 @@ template <int NB, bool kGroup>
 struct Slot {
   static constexpr int kA = NB * kWBytes;  // after the boxes of codes
   static constexpr int kS = kA + kABytes;  // s_group rows
-  static constexpr int kBytes = kS + (kGroup ? kSBytes : 0);
+  static constexpr int kBytes = kS + (kGroup ? NB * kSBytes : 0);
   static_assert(kBytes % 1024 == 0, "1024-byte aligned slots");
 };
 
@@ -156,10 +172,11 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], unsigned a0, unsigned a1,
 // The operands of one call.  With `tma`, the entry has described the
 // codes, A and s_group to the TMA unit (maps below); else (N or a pointer
 // the TMA unit cannot take) the producer lanes copy them a word at a time
-// (bf16 s_group: an element at a time, by plain loads).  sg: s_group
-// (K/128, N) or s_channel (N,).
+// (bf16 s_group: an element at a time, by plain loads).  a: A (M, K) int8,
+// or the raw activations x (M, K) bf16 or f32 of the fused kernel; sg:
+// s_group (K/128, N) or s_channel (N,).
 struct Args {
-  const int8_t* a;
+  const void* a;
   const float* s_tok;
   const int32_t* w;
   const void* sg;
@@ -168,22 +185,31 @@ struct Args {
   bool tma;
 };
 // the codes (K/8 x N int32, boxes of 16·kGps x kTile), A (M x K int8,
-// boxes of kRows x 128) and s_group (K/128 x N, boxes of kGps x kTile)
+// boxes of kRows x 128; or x, boxes of block_rows(es) x 128) and s_group
+// (K/128 x N, boxes of kGps x kTile)
 struct Maps {
   CUtensorMap w, a, s;
 };
 
 // Rows of A in a TMA box: 8 when the call has at most 8 rows.
 __host__ __device__ inline int a_box_rows(int M) { return M <= 8 ? 8 : kRows; }
+// Rows a block owns when the slot's A tiles (kRows x 128 bytes a group) are
+// streamed as A (aes = 1 byte an element: kRows) or as raw activations of
+// aes bytes an element (2 KB a group: 8 rows of bf16, 4 of f32).
+__host__ __device__ constexpr int block_rows(int aes) {
+  return aes == 1 ? kRows : 16 / aes;
+}
 
 // The producer warp's copies of stage st (groups st·kGps ..) into ring slot
 // `slot`, all counted on `full`: NB boxes of codes, of the columns from
-// wc[b] on, A and, with kGroup, the s_group rows of box 0's columns.  Lane
-// 0 arrives stating the stage's TMA bytes before any copy starts (the unit
-// writes whole boxes, zeros past the tensors' edges); every lane then
-// arrives once after its plain stores and once more when its cp.async
-// copies have landed, so `full` counts 65 arrivals and the TMA bytes.
-template <int NB, bool kGroup, bool kSgBf16>
+// wc[b] on, a tile of A per group (int8, swizzled; or, with kAEs > 1, the
+// group's block_rows(kAEs) rows of raw activations, row-major) and, with
+// kGroup, the s_group rows of each box's columns.  Lane 0 arrives stating
+// the stage's TMA bytes before any copy starts (the unit writes whole
+// boxes, zeros past the tensors' edges); every lane then arrives once after
+// its plain stores and once more when its cp.async copies have landed, so
+// `full` counts 65 arrivals and the TMA bytes.
+template <int NB, bool kGroup, bool kSgBf16, int kAEs = 1>
 __device__ __forceinline__ void issue(char* slot, uint64_t* full,
                                       const Args& p, const Maps& maps,
                                       int st, int G, const int (&wc)[NB],
@@ -195,14 +221,18 @@ __device__ __forceinline__ void issue(char* slot, uint64_t* full,
   constexpr int es = kSgBf16 ? 2 : 4;
   if (p.tma) {
     if (lane == 0) {
-      mbar_arrive_tx(full, NB * kWBytes + kGps * a_box_rows(p.M) * 128 +
-                               (kGroup ? kGps * kTile * es : 0));
+      mbar_arrive_tx(full, NB * kWBytes +
+                               kGps * (kAEs == 1 ? a_box_rows(p.M) : 16) * 128 +
+                               (kGroup ? NB * kGps * kTile * es : 0));
 #pragma unroll
       for (int b = 0; b < NB; ++b)
         tma2d(slot + b * kWBytes, &maps.w, wc[b], g0 * 16, full);
       for (int gi = 0; gi < kGps; ++gi)
         tma2d(ab + gi * kRows * 128, &maps.a, (g0 + gi) * 128, m0, full);
-      if (kGroup) tma2d(sb, &maps.s, wc[0], g0, full);
+      if (kGroup)
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          tma2d(sb + b * kSBytes, &maps.s, wc[b], g0, full);
     }
   } else {
     if (lane == 0) mbar_arrive(full);
@@ -217,49 +247,45 @@ __device__ __forceinline__ void issue(char* slot, uint64_t* full,
               p.w + (size_t)(g0 * 16 + r) * p.N + wc[b] + c);
       }
     }
-    for (int i = lane; i < ng * rows * 32; i += 32) {
-      const int gi = i / (rows * 32), q = (i / 32) % rows, c = i % 32;
-      cp4(ab + gi * kRows * 128 + swz(q, 4 * c),
-          p.a + (size_t)(m0 + q) * p.K + (size_t)(g0 + gi) * 128 + 4 * c);
+    // a row of a group is 32 words of int8 A (swizzled) or 32·kAEs of x
+    constexpr int wr = 32 * kAEs;
+    for (int i = lane; i < ng * rows * wr; i += 32) {
+      const int gi = i / (rows * wr), q = (i / wr) % rows, c = i % wr;
+      const size_t src = ((size_t)(m0 + q) * p.K + (size_t)(g0 + gi) * 128);
+      cp4(ab + gi * kRows * 128 +
+              (kAEs == 1 ? swz(q, 4 * c) : q * 4 * wr + 4 * c),
+          static_cast<const char*>(p.a) + src * kAEs + 4 * c);
     }
-    if (kGroup) {
-      const int cols = min(kTile, p.N - wc[0]);
-      for (int i = lane; i < ng * kTile; i += 32) {
-        const int gi = i / kTile, c = i % kTile;
-        if (c >= cols) continue;
-        const size_t src = (size_t)(g0 + gi) * p.N + wc[0] + c;
-        if (kSgBf16)  // 2-byte elements: no cp.async this small
-          reinterpret_cast<__nv_bfloat16*>(sb)[gi * kTile + c] =
-              static_cast<const __nv_bfloat16*>(p.sg)[src];
-        else
-          cp4(reinterpret_cast<float*>(sb) + gi * kTile + c,
-              static_cast<const float*>(p.sg) + src);
+    if (kGroup)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int cols = min(kTile, p.N - wc[b]);
+        char* sbb = sb + b * kSBytes;
+        for (int i = lane; i < ng * kTile; i += 32) {
+          const int gi = i / kTile, c = i % kTile;
+          if (c >= cols) continue;
+          const size_t src = (size_t)(g0 + gi) * p.N + wc[b] + c;
+          if (kSgBf16)  // 2-byte elements: no cp.async this small
+            reinterpret_cast<__nv_bfloat16*>(sbb)[gi * kTile + c] =
+                static_cast<const __nv_bfloat16*>(p.sg)[src];
+          else
+            cp4(reinterpret_cast<float*>(sbb) + gi * kTile + c,
+                static_cast<const float*>(p.sg) + src);
+        }
       }
-    }
   }
   mbar_arrive(full);
   mbar_arrive_cp(full);
 }
 
-// The int32 dot of group gi of a landed stage for all NSL n8 slices of the
-// tile (slice s: columns 8·(s mod kSlices) .. of box s / kSlices), added to
-// d: this lane's {row q: columns 2t, 2t + 1; row q + 8: the same} of each
-// slice, rows q + 8 zero when `two` is false (the block has at most 8
-// rows).  bs and bs8 are set to the group's sums of A over rows q and q + 8.
-// Lane (q, t) reads word rows 2t, 2t + 1, 8 + 2t and 9 + 2t of column 8·s +
-// q: their low nibbles are the codes k = 8t .. 8t + 7 and 32 + 8t .., their
-// high nibbles the same + 64, which match the A bytes it reads; in the
-// swizzle the four t of a load fall in four different bank octets.  The
-// slices' MMAs are interleaved step by step, so that their latencies
-// overlap, and A is read once for all slices.
-template <int NSL>
-__device__ __forceinline__ void group_mma(const char* codes, const char* ab,
-                                          int gi, bool two,
-                                          int (&d)[NSL][4], int& bs,
-                                          int& bs8) {
+// This lane's A fragments of group gi of a landed stage's A tiles `ab`:
+// rows q and q + 8 (zeros when `two` is false: the block has at most 8
+// rows), bytes k = 8t .., 32 + 8t .., 64 + 8t .. and 96 + 8t .. of the
+// group's 128.
+__device__ __forceinline__ void a_frags(const char* ab, int gi, bool two,
+                                        uint2 (&a)[4], uint2 (&a8)[4]) {
   const int lane = threadIdx.x & 31;
   const int t = lane & 3, q = lane >> 2;
-  uint2 a[4], a8[4];  // rows q and q + 8: k = 8t, 32 + 8t, 64 + 8t, 96 + 8t
   const char* ar = ab + gi * kRows * 128;
 #pragma unroll
   for (int h = 0; h < 4; ++h) {
@@ -268,6 +294,27 @@ __device__ __forceinline__ void group_mma(const char* codes, const char* ab,
                       ar + swz(q + 8, 32 * h + 8 * t))
                 : make_uint2(0, 0);
   }
+}
+
+// The int32 dot of group gi of a landed stage for all NSL n8 slices of the
+// tile (slice s: columns 8·(s mod kSlices) .. of box s / kSlices), added to
+// d: this lane's {row q: columns 2t, 2t + 1; row q + 8: the same} of each
+// slice, from this lane's A fragments (a_frags' layout).  bs and bs8 are
+// set to the group's sums of A over rows q and q + 8.  Lane (q, t) reads
+// word rows 2t, 2t + 1, 8 + 2t and 9 + 2t of column 8·s + q: their low
+// nibbles are the codes k = 8t .. 8t + 7 and 32 + 8t .., their high
+// nibbles the same + 64, which match the A bytes it holds; in the swizzle
+// the four t of a load fall in four different bank octets.  The slices'
+// MMAs are interleaved step by step, so that their latencies overlap, and
+// A is read once for all slices.
+template <int NSL>
+__device__ __forceinline__ void group_mma(const char* codes,
+                                          const uint2 (&a)[4],
+                                          const uint2 (&a8)[4], int gi,
+                                          int (&d)[NSL][4], int& bs,
+                                          int& bs8) {
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3, q = lane >> 2;
   unsigned wd[NSL][4];
 #pragma unroll
   for (int s = 0; s < NSL; ++s)
@@ -375,8 +422,10 @@ channel_kernel(const __grid_constant__ Maps maps, Args p) {
     mbar_wait(full + s, (st / kStages) & 1);
     if (st * kGps + warp < G) {  // a group past G is never read
       const char* slot = smem + s * C::L::kBytes;
+      uint2 a[4], a8[4];
+      a_frags(slot + C::L::kA, warp, two, a, a8);
       int gb, gb8;
-      group_mma<NSL>(slot, slot + C::L::kA, warp, two, d, gb, gb8);
+      group_mma<NSL>(slot, a, a8, warp, d, gb, gb8);
       bs += gb;
       bs8 += gb8;
     }
@@ -417,6 +466,215 @@ channel_kernel(const __grid_constant__ Maps maps, Args p) {
     }
     w4a8::store<kBf16Out>(p.out, (size_t)m * No + o,
                           kGlu ? w4a8::silu_mul(v[0], v[NB - 1]) : v[0]);
+  }
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// The exact g128 stream's shape: NB boxes of codes a stage (2 for the GLU:
+// gate and up), the ring's depth, a stage's int32 terms (kEBytes) and the
+// shared memory: alignment slack, the ring, two buffers of terms, and a
+// full and an empty barrier a slot.  The GLU's slot (two boxes of codes
+// and their s_group rows, 50 KB) and its doubled terms leave room for three
+// stages in a block's 227 KB, not four.
+template <int NB>
+struct Group {
+  static constexpr int NSL = NB * kSlices;
+  using L = Slot<NB, true>;
+  static constexpr int kStages = NB == 1 ? 4 : 3;
+  static constexpr int kEBytes = kGps * NSL * 32 * 16;
+  static constexpr int kSmem =
+      1024 + kStages * L::kBytes + 2 * kEBytes + 2 * kStages * 8;
+};
+
+// The int32 terms d_g − 8·bsum_g of group gi of a landed stage (its dot by
+// group_mma), written to terms: per slice (box after box) and lane {row q:
+// columns 2t, 2t + 1; row q + 8: the same}, only row q's when `two` is
+// false (the block has at most 8 rows).
+template <int NSL>
+__device__ __forceinline__ void dots(const char* codes, const uint2 (&a)[4],
+                                     const uint2 (&a8)[4], int gi, bool two,
+                                     int* terms) {
+  const int lane = threadIdx.x & 31;
+  int d[NSL][4];
+#pragma unroll
+  for (int s = 0; s < NSL; ++s) d[s][0] = d[s][1] = d[s][2] = d[s][3] = 0;
+  int bs, bs8;
+  group_mma<NSL>(codes, a, a8, gi, d, bs, bs8);
+#pragma unroll
+  for (int s = 0; s < NSL; ++s) {
+    const int at = (gi * NSL + s) * 32 + lane;
+    if (two)
+      reinterpret_cast<int4*>(terms)[at] =
+          make_int4(d[s][0] - 8 * bs, d[s][1] - 8 * bs, d[s][2] - 8 * bs8,
+                    d[s][3] - 8 * bs8);
+    else
+      reinterpret_cast<int2*>(terms)[at] =
+          make_int2(d[s][0] - 8 * bs, d[s][1] - 8 * bs);
+  }
+}
+
+// The (row, column) pairs of the tile a thread adds up: pair p = tid + j ·
+// kThreads is int32 term `comp` of lane `le` of slice p / (32 · nc) of a
+// box's terms (nc = 4 terms a lane, or 2 when `two` is false), so that a
+// warp reads consecutive words: one pair a thread for up to 8 rows, two
+// for 16.
+struct Pair {
+  int slice, le, comp, row, col, at;
+  __device__ Pair(int p, bool two) {
+    const int lc = two ? 2 : 1;  // log2 of the terms a lane
+    slice = p >> (5 + lc);
+    le = (p >> lc) & 31;
+    comp = p & ((1 << lc) - 1);
+    row = (le >> 2) + 8 * (comp >> 1);
+    col = slice * 8 + 2 * (le & 3) + (comp & 1);
+    at = ((slice * 32 + le) << lc) + comp;
+  }
+};
+constexpr int kPairs = kRows * kTile / kThreads;  // pairs a thread at most
+
+// A of the plain and GLU kernels: int8 tiles the producer streams into the
+// slots, and the caller's per-token scales.  A source of A has: kAEs (the
+// bytes of an element the producer streams into the A tiles: 1 for int8 A),
+// begin() (the consumers' prologue), frags() (this lane's fragments of the
+// warp's group of a landed stage, whose A tiles are at `ab`) and scale()
+// (row m's token scale).  (The activation-quant-fused kernel's source,
+// w4a8_fused.cu, streams x and quantizes it in the consumers.)
+struct StreamedA {
+  static constexpr int kAEs = 1;
+  const float* s_tok;
+  __device__ void begin(const Args&, int, int) {}
+  __device__ void frags(char* ab, int gi, bool two, uint2 (&a)[4],
+                        uint2 (&a8)[4]) const {
+    a_frags(ab, gi, two, a, a8);
+  }
+  __device__ float scale(int, int m) const { return s_tok[m]; }
+};
+
+// The exact g128 GEMM of one block: block_rows(Src::kAEs) rows from m0
+// (16, or 8 / 4 for the fused kernel's bf16 / f32 x) and 32 output columns
+// from o0, all K, A from `src`.  NB = 1: out (M, N), columns o0 ..;
+// NB = 2 (GLU): the 32 gate and the 32 up columns of output columns o0 ..
+// (weight_col), out (M, N/2) of silu(gate)·up.  Consumer warp w writes the
+// int32 terms of group w of each stage to shared memory; after a barrier of
+// the consumer warps, the thread that owns a (row, column) adds the stage's
+// f32 terms to its running sum (one a box) in group order, each product and
+// sum rounded on its own.
+template <int NB, bool kSgBf16, bool kBf16Out, class Src>
+__device__ __forceinline__ void group_gemm(const Maps& maps, const Args& p,
+                                           Src& src) {
+  using C = Group<NB>;
+  using L = typename C::L;
+  using S = typename std::conditional<kSgBf16, __nv_bfloat16, float>::type;
+  constexpr int NSL = C::NSL, kStages = C::kStages;
+  constexpr int kBR = block_rows(Src::kAEs);
+  constexpr bool kGlu = NB == 2;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  smem += (1024 - smem_addr(smem) % 1024) % 1024;
+  int* terms = reinterpret_cast<int*>(smem + kStages * L::kBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * L::kBytes +
+                                               2 * C::kEBytes);
+  uint64_t* empty = full + kStages;
+  const int No = kGlu ? p.N / 2 : p.N;
+  const int m0 = blockIdx.x * kBR;
+  const int o0 = blockIdx.y * kTile;
+  const int rows = min(kBR, p.M - m0);
+  const int G = p.K / 128;
+  const int nst = (G + kGps - 1) / kGps;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 65);  // see issue()
+      mbar_init(empty + s, kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {  // the producer warp
+    int wc[NB];  // first weight column of each box (o0 % 32 == 0: one run)
+#pragma unroll
+    for (int b = 0; b < NB; ++b) wc[b] = w4a8::weight_col<kGlu>(o0, b);
+    for (int st = 0; st < nst; ++st) {
+      const int s = st % kStages;
+      if (st >= kStages) mbar_wait(empty + s, (st / kStages - 1) & 1);
+      issue<NB, true, kSgBf16, Src::kAEs>(smem + s * L::kBytes, full + s, p,
+                                          maps, st, G, wc, m0, rows, lane);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  src.begin(p, m0, rows);
+  const bool two = rows > 8;
+  const int pairs = two ? kPairs : 1;
+  const int bstride = kSlices * 32 * (two ? 4 : 2);  // terms a box
+  const int gstride = NB * bstride;                   // terms a group
+  float facc[NB][kPairs];
+  bool live[kPairs];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) facc[b][j] = 0.f;
+    const Pair pr(threadIdx.x + j * kThreads, two);
+    live[j] = j < pairs && pr.row < rows && o0 + pr.col < No;
+  }
+  for (int st = 0; st < nst; ++st) {
+    const int s = st % kStages;
+    mbar_wait(full + s, (st / kStages) & 1);
+    char* slot = smem + s * L::kBytes;
+    int* tb = terms + (st & 1) * (C::kEBytes / 4);
+    // the stage's dots, group `warp` (a group past G holds zeros or a
+    // stale slot and is never added)
+    uint2 a[4], a8[4];
+    src.frags(slot + L::kA, warp, two, a, a8);
+    dots<NSL>(slot, a, a8, warp, two, tb);
+    // the consumer warps' terms are all written (the producer goes on)
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+    // then each pair's f32 terms in group order, loads first
+    const int ng = min(kGps, G - st * kGps);
+    const S* sgs = reinterpret_cast<const S*>(slot + L::kS);
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      if (!live[j]) continue;
+      const Pair pr(threadIdx.x + j * kThreads, two);
+      int e[NB][kGps];
+      float sc[NB][kGps];
+#pragma unroll
+      for (int gi = 0; gi < kGps; ++gi)
+        if (gi < ng)
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            e[b][gi] = tb[gi * gstride + b * bstride + pr.at];
+            sc[b][gi] = to_f(sgs[b * (kSBytes / (int)sizeof(S)) +
+                                 gi * kTile + pr.col]);
+          }
+#pragma unroll
+      for (int gi = 0; gi < kGps; ++gi)
+        if (gi < ng)
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            facc[b][j] =
+                __fadd_rn(facc[b][j], __fmul_rn((float)e[b][gi], sc[b][gi]));
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);  // this warp is done with slot s
+  }
+
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    if (!live[j]) continue;
+    const Pair pr(threadIdx.x + j * kThreads, two);
+    const int m = m0 + pr.row;
+    const float ts = src.scale(pr.row, m);
+    const float v = __fmul_rn(facc[0][j], ts);
+    w4a8::store<kBf16Out>(
+        p.out, (size_t)m * No + o0 + pr.col,
+        kGlu ? w4a8::silu_mul(v, __fmul_rn(facc[NB - 1][j], ts)) : v);
   }
 }
 
@@ -481,14 +739,34 @@ int opt_in(Kernel kernel, int bytes) {
   return err;
 }
 
-// The TMA maps of the codes and of A, when the pointers and N suit the unit
-// (16-byte aligned bases and row strides).
-inline bool map_codes_and_a(Maps* maps, const Args& p) {
-  return ((uintptr_t)p.w | (uintptr_t)p.a) % 16 == 0 && (4LL * p.N) % 16 == 0 &&
+// The TMA maps of the codes, of A and of s_group (elements of es bytes),
+// each when its pointer and N suit the unit (16-byte aligned bases and row
+// strides).
+inline bool map_codes(Maps* maps, const Args& p) {
+  return (uintptr_t)p.w % 16 == 0 && (4LL * p.N) % 16 == 0 &&
          map2d(&maps->w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, p.w, p.K / 8, p.N,
-               16 * kGps, kTile, true) &&
+               16 * kGps, kTile, true);
+}
+inline bool map_a(Maps* maps, const Args& p) {
+  return (uintptr_t)p.a % 16 == 0 &&
          map2d(&maps->a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.a, p.M, p.K,
                a_box_rows(p.M), 128, true);
+}
+// x (M, K) of es-byte elements as the fused kernel streams it: boxes of
+// block_rows(es) x 128, row-major
+inline bool map_x(Maps* maps, const Args& p, int es) {
+  return (uintptr_t)p.a % 16 == 0 &&
+         map2d(&maps->a,
+               es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               es, p.a, p.M, p.K, block_rows(es), 128, false);
+}
+inline bool map_scales(Maps* maps, const Args& p, int es) {
+  return (uintptr_t)p.sg % 16 == 0 && (1LL * es * p.N) % 16 == 0 &&
+         map2d(&maps->s,
+               es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               es, p.sg, p.K / 128, p.N, kGps, kTile, false);
 }
 
 // The per-channel stream: p.sg = s_channel (N,) f32; N weight columns (2I
@@ -500,10 +778,30 @@ int launch_channel(Args p, cudaStream_t st) {
   const int err = opt_in(k, C::kSmem);
   if (err != 0) return err;
   Maps maps;
-  p.tma = map_codes_and_a(&maps, p);
+  p.tma = map_codes(&maps, p) && map_a(&maps, p);
   const int No = kGlu ? p.N / 2 : p.N;
   const dim3 grid((p.M + kRows - 1) / kRows, (No + kTile - 1) / kTile);
   k<<<grid, kThreads + 32, C::kSmem, st>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+// A g128 kernel of the stream (k: NB boxes a stage, its A tiles streamed
+// as elements of kAEs bytes; s_group elements of 2 or 4 bytes), opted in
+// to its shared memory, over (M / block_rows(kAEs), No/32) blocks.  Where
+// a pointer or N does not suit the TMA unit, the producer copies.
+template <int NB, int kAEs, bool kSgBf16, typename Kernel>
+int launch_group(Kernel k, Args p, cudaStream_t st) {
+  constexpr int kSmem = Group<NB>::kSmem;
+  constexpr int kBR = block_rows(kAEs);
+  const int err = opt_in(k, kSmem);
+  if (err != 0) return err;
+  Maps maps;
+  p.tma = map_codes(&maps, p) &&
+          (kAEs == 1 ? map_a(&maps, p) : map_x(&maps, p, kAEs)) &&
+          map_scales(&maps, p, kSgBf16 ? 2 : 4);
+  const int No = NB == 2 ? p.N / 2 : p.N;
+  const dim3 grid((p.M + kBR - 1) / kBR, (No + kTile - 1) / kTile);
+  k<<<grid, kThreads + 32, kSmem, st>>>(maps, p);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@ w4a8_glu_linear, FUSE_ACT_QUANT).
 Eight kernel routes, one wrapper each, each with a plain PyTorch twin and
 its own launch count (loop: ``own`` the kernel's own CUDA-core loop,
 ``mma`` the int8 ``mma.sync`` tensor cores fed by the TMA weight stream of
-w4a8_stream.cuh, ``wgmma`` the int8 warpgroup tensor-core tiles of
+w4a8_stream.cuh (the fused g128 kernel quantizes x into its A fragments
+itself), ``wgmma`` the int8 warpgroup tensor-core tiles of
 w4a8_tc.cuh; ``mma|wgmma``: the stream below ``CHANNEL_TILES_MIN_M`` rows
 (GLU: ``GLU_CHANNEL_TILES_MIN_M``), the tiles from there); sources under
 csrc/:
@@ -17,11 +18,11 @@ wrapper                  TPU kernel                      CUDA source     loop
 w4a8_gemm_channel        _w4a8_channel_kernel            w4a8_gemm.cu    mma|wgmma
 w4a8_glu_channel         _w4a8_channel_glu_kernel        w4a8_gemm.cu    mma|wgmma
 w4a8_gemm_group          _w4a8_group_kernel              w4a8_group.cu   mma
-w4a8_glu_group           _w4a8_group_glu_kernel          w4a8_group.cu   own
+w4a8_glu_group           _w4a8_group_glu_kernel          w4a8_group.cu   mma
 w4a8_gemm_requant        _w4a8_requant_group_kernel      w4a8_requant.cu wgmma
 w4a8_glu_requant         _w4a8_requant_group_glu_kernel  w4a8_requant.cu wgmma
 w4a8_gemm_fused_channel  _w4a8_fused_channel_kernel      w4a8_fused.cu   own
-w4a8_gemm_fused_group    _w4a8_fused_group_kernel        w4a8_fused.cu   own
+w4a8_gemm_fused_group    _w4a8_fused_group_kernel        w4a8_fused.cu   mma
 =======================  ==============================  ==============  ==========
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor

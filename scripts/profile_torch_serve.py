@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_serve.py [--layers 32] [--ticks 8]
                                            [--group-size 128] [--paged]
-                                           [--llama31]
+                                           [--llama31] [--fuse-act-quant]
 
 Builds the Llama-2-7B-geometry port model (random weights from a seeded
 generator, RTN-packed in groups of 128, or per channel with
@@ -18,7 +18,11 @@ prints, for each: the host wall time (ending in a synchronize), the summed
 device time of all CUDA kernels, the device idle share, and the kernels
 ranked by device time, per dispatch and per tick.  Before the profiled
 ticks, as many unprofiled ones are timed on the host clock (ending in a
-synchronize).  The card's name and power limit come first.
+synchronize).  The card's name and power limit come first.  With
+``--fuse-act-quant`` the run sets ``FUSE_ACT_QUANT`` (the decode ticks'
+plain linears on the activation-quant-fused kernel, as chip_smoke.py's
+runs 3f and 3g).  The W4A8 GEMMs whose kernels share a name stem are
+labelled with their row of PERF.md's kernel table (#1 .. #7).
 
 With ``--llama31`` the model is Llama-3.1-8B (``ModelConfig.from_hf`` of
 chip_smoke.py's config: 8 kv heads, llama3 RoPE scaling) over a
@@ -45,6 +49,23 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 
+#: name stems of the W4A8 GEMM kernels → their row of PERF.md's table (the
+#: first stem a kernel's name holds)
+KERNEL_LABELS = (
+    ("stream::glu_kernel", "#7 w4a8_glu_group"),
+    ("stream::fused_kernel", "#5 w4a8_gemm_fused_group"),
+    ("stream::kernel<", "#2 w4a8_gemm_group"),
+    ("stream::channel_kernel<false", "#1 w4a8_gemm_channel"),
+    ("stream::channel_kernel<true", "#6 w4a8_glu_channel"),
+    ("::fused_kernel<", "#4 w4a8_gemm_fused_channel"),
+)
+
+
+def kernel_label(name: str) -> str:
+    return next((f"[{lab}] " for stem, lab in KERNEL_LABELS if stem in name),
+                "") + name
+
+
 def kernel_table(prof, top: int = 20):
     rows = []
     for e in prof.key_averages():
@@ -62,7 +83,7 @@ def report(label: str, wall_ms: float, prof, per: int = 1,
           f"{busy / per:.3f} ms, idle share {1 - busy / wall_ms:.3f}"
           f" (per {unit})")
     for ms, n, name in rows:
-        print(f"    {ms / per:9.4f} ms  {n // per:6d}x  {name[:90]}")
+        print(f"    {ms / per:9.4f} ms  {n // per:6d}x  {kernel_label(name)[:110]}")
 
 
 def main() -> int:
@@ -75,11 +96,13 @@ def main() -> int:
     ap.add_argument("--llama31", action="store_true",
                     help="Llama-3.1-8B over a 32768-token slot cache, "
                          "prompts of 100/400/1500/12000 tokens")
+    ap.add_argument("--fuse-act-quant", action="store_true",
+                    help="set FUSE_ACT_QUANT for the run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
-    from qqq_tpu_torch.kernels import build
+    from qqq_tpu_torch.kernels import build, w4a8_gemm
     from qqq_tpu_torch.models import (
         ModelConfig, init_params, quantize_params_rtn,
     )
@@ -90,8 +113,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
+    if args.fuse_act_quant:
+        w4a8_gemm.FUSE_ACT_QUANT = True
     print(f"group_size {args.group_size}, {args.layers} layers, gate/up "
-          f"GLU-fused, {'paged' if args.paged else 'slot'} KV cache")
+          f"GLU-fused, {'paged' if args.paged else 'slot'} KV cache"
+          f"{', FUSE_ACT_QUANT' if w4a8_gemm.FUSE_ACT_QUANT else ''}")
     build.build_all()
     dev = torch.device("cuda")
     if args.llama31:

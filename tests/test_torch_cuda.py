@@ -129,12 +129,14 @@ def test_channel_cuda_calls_launch_the_kernel(dev, monkeypatch, glu):
 
 
 # K = 1152: nine groups, more than one stage of the exact kernel's ring;
-# K = 128: one group; K = 14336: Llama-3.1's down, 28 stages through the
-# 6-stage ring; N = 200 and 24: ragged and narrower than one 32-column
-# tile; M = 17, 64 and 128: ragged and whole 16-row tiles
+# K = 128: one group; K = 14336: Llama-3.1's down, 14 stages through the
+# 4-stage ring; N = 200 and 24: ragged and narrower than one 32-column
+# tile; M = 8, 9, 16, 17, 64, 128 and 130: whole and ragged 8- and 16-row
+# tiles (terms at two words a lane up to 8 rows, four from 9)
 _G128_SHAPES = [(1, 128, 32), (3, 384, 96), (70, 1152, 200), (17, 256, 64),
                 (1, 14336, 256), (5, 128, 24), (64, 1152, 200),
-                (128, 384, 96)]
+                (128, 384, 96), (8, 1152, 200), (9, 384, 96),
+                (16, 1152, 64), (130, 1152, 200)]
 
 
 @pytest.mark.parametrize("M,K,N", _G128_SHAPES)
@@ -222,15 +224,24 @@ _GLU_CHANNEL_SHAPES = (_GLU_SHAPES
                        + [(M, K, 256) for M in _SWITCH_MS
                           for K in (128, 1152)]
                        + [(M, 14336, 256) for M in (4, 65, 513)])
+# the exact g128 GLU on the weight stream at Llama-2-7B's and Llama-3.1-8B's
+# gate/up (2I = 22016 and 28672): whole and ragged 8- and 16-row tiles, the
+# bucket-128 prefill and past it
+_GLU_GROUP_MS = (1, 4, 8, 9, 16, 17, 64, 128, 130)
+_GLU_GROUP_SHAPES = [(M, 4096, I) for M in _GLU_GROUP_MS
+                     for I in (11008, 14336)]
 
 
 @pytest.mark.parametrize(
-    "route,regime,M,K,I",
-    [(r, None, *sh) for r in ("group", "requant") for sh in _GLU_SHAPES]
-    + [("channel", g, *sh) for g in ("stream", "tiles")
+    "route,regime,M,K,I,sg_dtype",
+    [(r, None, *sh, torch.bfloat16) for r in ("group", "requant")
+     for sh in _GLU_SHAPES]
+    + [("group", None, *sh, sg) for sh in _GLU_GROUP_SHAPES
+       for sg in (torch.bfloat16, torch.float32)]
+    + [("channel", g, *sh, None) for g in ("stream", "tiles")
        for sh in _GLU_CHANNEL_SHAPES])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_w4a8_glu_kernels(dev, route, regime, M, K, I, out_dtype):
+def test_w4a8_glu_kernels(dev, route, regime, M, K, I, sg_dtype, out_dtype):
     """GLU epilogue g·σ(g)·u: the kernel's expf and PyTorch's sigmoid may
     differ in the last bit.  bf16: two ulps at the largest output; f32:
     2^-20 of it (σ's own error and three roundings).  For the tensor-core
@@ -239,13 +250,17 @@ def test_w4a8_glu_kernels(dev, route, regime, M, K, I, out_dtype):
     SMs, and splits K; M = 513 is ragged, with I = 2816 on 132 tiles (no
     split) and with I = 256 split.  The per-channel GLU runs in each regime
     (the weight stream's tile: 32 gate and 32 up columns), forced through
-    the route's ``regime``."""
+    the route's ``regime``.  The exact g128 GLU (the weight stream, 32 gate
+    and 32 up columns with their s_group rows) also from a weight and
+    scales that start off a 16-byte boundary, which the TMA unit refuses:
+    its producer copies the codes and both scale boxes, and the result is
+    the same."""
     from qqq_tpu_torch.kernels import w4a8_gemm as k
 
     a, s_tok, w, s = _gemm_operands(dev, M, K, 2 * I,
                                     0 if route == "channel" else K // 128)
     if route != "channel":
-        s = s.to(torch.bfloat16)
+        s = s.to(sg_dtype)
     fn = getattr(k, f"w4a8_glu_{route}")
     plain = getattr(k, f"w4a8_glu_{route}_plain")
     out = (_launch_once(fn, a, s_tok, w, s, out_dtype) if regime is None
@@ -255,6 +270,59 @@ def test_w4a8_glu_kernels(dev, route, regime, M, K, I, out_dtype):
     tol = (2 * _ULP[torch.bfloat16] if out_dtype == torch.bfloat16
            else 2.0 ** -20) * float(ref.float().abs().max())
     assert float((out.float() - ref.float()).abs().max()) <= tol
+    if route == "group":
+        w2, s2 = _misaligned(w), _misaligned(s)
+        assert w2.data_ptr() % 16 and s2.data_ptr() % 16
+        assert torch.equal(_launch_once(fn, a, s_tok, w2, s2, out_dtype),
+                           out)
+
+
+def test_g128_stream_wrappers_launch_their_kernels(dev, monkeypatch):
+    """Through ``w4a8_glu_gemm`` (group_size 128) and ``w4a8_gemm_fused``,
+    each CUDA call adds one to its own wrapper's count and to no other, and
+    never runs the plain version (the plain functions are replaced by ones
+    that fail).  The built libraries hold the stream kernels
+    (``stream::glu_kernel``, ``stream::fused_kernel``) and no ``__dp4a``
+    g128 kernel: no ``glu_kernel`` outside namespace ``stream`` and no
+    per-channel-block ``fused_kernel`` instantiated for g128 (its old
+    template list, ``<BM, kGroup, ...>``, began with an int and a bool)."""
+    import re
+
+    from qqq_tpu_torch.kernels import build
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA call ran the plain version")
+
+    for name in ("w4a8_glu_group_plain", "w4a8_gemm_fused_group_plain",
+                 "w4a8_gemm_group_plain"):
+        monkeypatch.setattr(k, name, refuse)
+    a, s_tok, w, sg = _gemm_operands(dev, 64, 1024, 512, 8)
+    x = torch.randn((64, 1024), generator=_gen(dev), device=dev).to(
+        torch.bfloat16)
+    calls = [("w4a8_glu_group", lambda M: k.w4a8_glu_gemm(
+                 a[:M], s_tok[:M], w, None, sg, group_size=128)),
+             ("w4a8_gemm_fused_group", lambda M: k.w4a8_gemm_fused(
+                 x[:M], w, None, sg, group_size=128))]
+    for name, call in calls:
+        for M in (1, 4, 17, 64):
+            for _ in range(2):
+                before = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+                out = call(M)
+                after = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+                assert {n: after[n] - before[n] for n in after} == {
+                    n: int(n == name) for n in after}
+                assert out.is_cuda and out.shape[0] == M
+    torch.cuda.synchronize()
+    group = build.load("w4a8_group")._name
+    fused = build.load("w4a8_fused")._name
+    syms = {p: set(re.findall(rb"_Z[A-Za-z0-9_]+", open(p, "rb").read()))
+            for p in (group, fused)}
+    glu = [m for m in syms[group] if b"10glu_kernel" in m]
+    assert glu and all(b"6stream10glu_kernel" in m for m in glu)
+    assert any(b"6stream12fused_kernel" in m for m in syms[fused])
+    assert not [m for m in syms[fused]
+                if re.search(rb"(?<!6stream)12fused_kernelILi\d+ELb", m)]
 
 
 def test_w4a8_g128_route_follows_m(dev):
@@ -642,29 +710,64 @@ def test_split_decode_shapes_in_turn(dev):
         assert _per_row_ulps(out, ref, q.dtype) <= 1
 
 
+# K = 24576: the largest K that _fused_bn admits (96 groups, 12 stages of
+# the g128 kernel's ring; 8 rows of it fill the per-channel kernel's shared
+# memory); M = 1, 4, 17 and 64: decode, a ragged and four whole 16-row
+# tiles.  N = 33 and 517: widths the TMA unit refuses (the g128 kernel's
+# producer copies the codes and scales)
 @pytest.mark.parametrize("M,K,N", [(1, 128, 33), (3, 384, 96),
-                                   (33, 1152, 200), (64, 256, 517)])
+                                   (33, 1152, 200), (64, 256, 517)]
+                         + [(M, 24576, 200) for M in (1, 4, 17, 64)])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("route", ["channel", "group"])
 def test_w4a8_fused_kernels_bit_exact(dev, route, M, K, N, x_dtype,
                                       out_dtype):
     """Activation quantization in the prologue, then the per-channel or
-    exact g128 sum; an all-zero row; bit-exact."""
+    exact g128 sum (s_group in bf16 and in f32); an all-zero row; bit-exact,
+    one launch each."""
     from qqq_tpu_torch.kernels import w4a8_gemm as k
 
     _, _, w, s = _gemm_operands(dev, M, K, N,
                                 0 if route == "channel" else K // 128)
-    if route == "group":
-        s = s.to(torch.bfloat16)
     x = (torch.randn((M, K), generator=_gen(dev), device=dev) * 3).to(x_dtype)
     x[0] = 0
     fn = getattr(k, f"w4a8_gemm_fused_{route}")
-    out = _launch_once(fn, x, w, s, out_dtype)
-    assert out.shape == (M, N) and out.dtype == out_dtype
-    assert torch.equal(out, getattr(k, f"w4a8_gemm_fused_{route}_plain")(
-        x, w, s, out_dtype))
-    assert not out[0].any()
+    plain = getattr(k, f"w4a8_gemm_fused_{route}_plain")
+    for sc in ([s] if route == "channel" else [s.to(torch.bfloat16), s]):
+        out = _launch_once(fn, x, w, sc, out_dtype)
+        assert out.shape == (M, N) and out.dtype == out_dtype
+        assert torch.equal(out, plain(x, w, sc, out_dtype))
+        assert not out[0].any()
+
+
+def test_w4a8_fused_group_quantizes_every_bf16_value(dev):
+    """The g128 fused kernel divides by each row's scale through its
+    reciprocal and two FMA corrections (csrc/w4a8_fused.cu:div_rn) where
+    the scale is at least 2^-100, by IEEE division below.  Row i holds every
+    finite bf16 value v with |v| <= A_i (zeros after), so its codes cover
+    every bf16 input at that scale; the rows' maxima A_i span both paths and
+    the boundary between them (2^-90: s ~ 2^-97; 2^-95: s ~ 2^-102).  f32
+    out, so one code that differs shows: bit-exact against the plain
+    version's IEEE divisions."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    maxima = [1.0, 2.0 ** -7, 3.140625, 30080.0, 2.0 ** -90, 2.0 ** -95]
+    bits = torch.arange(0, 0x7F81, dtype=torch.int32)  # +0 .. +inf
+    pos = bits.to(torch.int16).view(torch.bfloat16).float()
+    rows = []
+    for amax in maxima:
+        v = pos[pos <= amax]
+        rows.append(torch.cat([v, -v[1:]]))
+    K = -(-max(len(r) for r in rows) // 128) * 128
+    x = torch.zeros((len(rows), K))
+    for i, r in enumerate(rows):
+        x[i, :len(r)] = r
+    x = x.to(torch.bfloat16).to(dev)
+    _, _, w, s = _gemm_operands(dev, len(rows), K, 64, K // 128)
+    out = _launch_once(k.w4a8_gemm_fused_group, x, w, s, torch.float32)
+    assert torch.equal(out, k.w4a8_gemm_fused_group_plain(x, w, s,
+                                                          torch.float32))
 
 
 def test_w4a8_fused_too_large_raises(dev):

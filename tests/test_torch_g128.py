@@ -158,13 +158,16 @@ def test_g128_auto_route_follows_m():
 
 
 # M = 130 on the channel route: past the per-channel GLU's regime switch
-# on the card, a ragged tensor-core tile
-@pytest.mark.parametrize("route,M", [
-    pytest.param("channel", 24, id="channel"),
-    pytest.param("group", 24, id="group"),
-    pytest.param("requant", 24, id="requant"),
-    pytest.param("channel", 130, id="channel-M130")])
-def test_glu_layout_and_gemm_match_jax(route, M):
+# on the card, a ragged tensor-core tile; on the exact g128 route: nine
+# 16-row blocks of the weight stream, the last ragged, with f32 s_group (as
+# Marlin imports store it)
+@pytest.mark.parametrize("route,M,sg_dtype", [
+    pytest.param("channel", 24, None, id="channel"),
+    pytest.param("group", 24, jnp.bfloat16, id="group"),
+    pytest.param("requant", 24, jnp.bfloat16, id="requant"),
+    pytest.param("channel", 130, None, id="channel-M130"),
+    pytest.param("group", 130, jnp.float32, id="group-M130")])
+def test_glu_layout_and_gemm_match_jax(route, M, sg_dtype):
     rng = np.random.default_rng(11)
     K, I = 384, 512
     a_q, s_tok, _, wg = _operands(rng, M, K, I)
@@ -177,9 +180,9 @@ def test_glu_layout_and_gemm_match_jax(route, M):
         up["s_channel"] = jnp.asarray(rng.random(I) * 0.01 + 1e-3, jnp.float32)
     else:
         gate["s_group"] = jnp.asarray(_group_scales(rng, K // 128, I),
-                                      jnp.bfloat16)
+                                      sg_dtype)
         up["s_group"] = jnp.asarray(_group_scales(rng, K // 128, I),
-                                    jnp.bfloat16)
+                                    sg_dtype)
     fused_j = jk.fuse_glu_layout(gate, up)
     to_t = lambda d: {k: _t(v) for k, v in d.items()}  # noqa: E731
     fused_t = tk.fuse_glu_layout(to_t(gate), to_t(up))
