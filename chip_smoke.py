@@ -12,8 +12,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    plain, GLU and activation-quant-fused) and of the split decode;
 2. check each of the sixteen kernels against its plain PyTorch version on
    the card at the Llama-2-7B and Llama-3.1-8B shapes of the served paths
-   (the GEMMs, the activation-quant-fused ones included (the g128 one at M
-   = 1, 4 and 64), and the KV writes bit-exact, requant also at ragged M
+   (the GEMMs, the activation-quant-fused ones included (at M = 1, 4 and
+   64, the per-channel one also at 8), and the KV writes bit-exact, requant
+   also at ragged M
    and N, the per-channel GEMM and GLU
    at rows on both sides of their regime switch (the weight stream, the
    int8 wgmma tiles) and timed at run 3b's decode and prefill rows and in
@@ -30,7 +31,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    geometry whose tile is half the cache; the paged ones over scrambled
    block tables), and time it beside its bound, its
    plain version and a one-call PyTorch yardstick that the port never
-   calls;
+   calls (the KV writes also by their device time alone: 20 launches in
+   one CUDA graph, replayed);
 3. serve 4 requests through the port's Engine, with its default arguments
    (gate/up GLU-fused), on full-width, full-depth Llama-2-7B (random weights
    from a seeded generator): RTN-packed in groups of 128, the JAX package's
@@ -149,6 +151,33 @@ class Timer:
             fn()
         return statistics.median([self._once(fn) for _ in range(iters)])
 
+    @staticmethod
+    def device_ms(fn, n: int = 20, reps: int = 5) -> float:
+        """The kernel's own device time: ``n`` calls of ``fn`` captured in
+        one CUDA graph, replayed ``reps`` times after a warm-up replay, each
+        replay timed by CUDA events; the median over ``n``.  No host work
+        and no launch latency between the kernels; the L2 stays warm (the
+        same buffers every call).  ``fn`` runs once first, outside the
+        capture (library load and binding)."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        times = []
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graph.replay()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1) / n)
+        del graph
+        return statistics.median(times)
+
 
 def bound_ms(nbytes: float, ops: float = 0.0,
              peak_ops: float = BF16_FLOPS_PER_S):
@@ -258,9 +287,9 @@ QWEN2_ATTN = dict(nh=14, nkv=2, hd=64, S=32768, clen=(1, 9001, 16385, 32768))
 #: and Llama-3.1-8B's k/v and down (its q/o are (4096, 4096) too)
 FUSED_SHAPES = [(H, H), (I, H), (H3, NKV3 * HD), (I3, H3)]
 #: the rows each fused GEMM is checked and timed at: decode at batch 4 (runs
-#: 3f, 3g) and, for the g128 one, batch 1 and the largest M that
-#: w4a8_linear sends it (64)
-FUSED_MS = {"w4a8_gemm_fused_channel": (4,),
+#: 3f, 3g), batch 1, the largest M that w4a8_linear sends it (64) and, for
+#: the per-channel one, batch 8 (one whole 8-row block of bf16 x)
+FUSED_MS = {"w4a8_gemm_fused_channel": (1, 4, 8, 64),
             "w4a8_gemm_fused_group": (1, 4, 64)}
 
 
@@ -519,14 +548,17 @@ def check_kv_write(dev, gen, timer, B=4, S=2048, nkv=NKV):
             raise AssertionError(f"slot_decode_write_int8: {name} not "
                                  "bit-exact")
     ms = timer.ms(lambda: slot_decode_write_int8(*mine, kn, vn, clen))
+    dev_ms = timer.device_ms(lambda: slot_decode_write_int8(*mine, kn, vn,
+                                                            clen))
     plain_ms = timer.ms(lambda: slot_decode_write_int8_plain(*plain, kn, vn,
                                                              clen))
     nbytes = 2 * B * nkv * HD * 2 + B * 4 + 2 * B * nkv * (HD + 4)
     b, by = bound_ms(nbytes)
     log(f"  slot_decode_write_int8 B={B} nkv={nkv} S={S}: bit-exact; "
-        f"{ms:.4f} ms (bound {b:.6f} by {by}, plain {plain_ms:.4f})")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
-                bound_by=by, max_abs_err=err,
+        f"{ms:.4f} ms with the wrapper, device {dev_ms:.4f} ms (graph of 20) "
+        f"(bound {b:.6f} by {by}, plain {plain_ms:.4f})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b, bound_by=by, max_abs_err=err,
                 shape=f"B={B} nkv={nkv} S={S} bf16 K/V")
 
 
@@ -843,6 +875,7 @@ def check_paged_writes(dev, gen, timer):
                 raise AssertionError(f"{name}: {buf} not bit-exact outside "
                                      "the null block")
         ms = timer.ms(lambda: fn(*mine, kn, vn, tables, cl))
+        dev_ms = timer.device_ms(lambda: fn(*mine, kn, vn, tables, cl))
         plain_ms = timer.ms(lambda: plain(*ref, kn, vn, tables, cl))
         # bf16 rows in, one table entry per touched block, codes + scales out
         touched = sum(-(-(c % BS + T) // BS) for c in clen)
@@ -850,9 +883,11 @@ def check_paged_writes(dev, gen, timer):
             + 2 * B * T * NKV * (HD + 4)
         b, by = bound_ms(nbytes)
         log(f"  {name} B={B} T={T} cache_len {clen}: bit-exact outside the "
-            f"null block; {ms:.4f} ms (bound {b:.6f} by {by}, plain "
+            f"null block; {ms:.4f} ms with the wrapper, device "
+            f"{dev_ms:.4f} ms (graph of 20) (bound {b:.6f} by {by}, plain "
             f"{plain_ms:.4f})")
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+        rows[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                          library_ms=None,
                           bound_ms=b, bound_by=by, max_abs_err=err,
                           shape=f"B={B} T={T} cache_len {list(clen)}, "
                                 "scrambled tables")
@@ -1616,7 +1651,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **{key: r[key] for key in ("prefill", "crossover") if key in r},
+            **{key: r[key] for key in ("prefill", "crossover", "device_ms")
+               if key in r},
         })
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -10,8 +10,8 @@ Layout (``PACK_BLOCK = 128`` k-rows per block):
 
 Codes are stored offset-unsigned (``u = q + 8``).  On the GPU this layout
 needs no re-tiling: ``w & 0x0F0F0F0F`` and ``(w >> 4) & 0x0F0F0F0F`` are
-each four unsigned codes of consecutive k, ready for one ``__dp4a`` against
-four consecutive int8 activations (csrc/w4a8_gemm.cu).
+each four unsigned codes of consecutive k, which the weight stream feeds
+to int8 MMAs as they are (csrc/w4a8_stream.cuh).
 """
 
 from __future__ import annotations

@@ -22,15 +22,25 @@
 // What bounds them on the H100: bytes, and few of them (per token row
 // nkv * 2 * (hd * 2 + hd + 4)); at decode the launch itself dominates.
 //
-// Design: one block per (token row, kv head, K|V).  The TPU kernels stream
-// whole tiles or pool blocks, select the new rows in and write them back,
-// because Mosaic stores whole tiles (and the paged ones only exist behind a
-// flag, for a v5e fault with data-dependent output index maps that Hopper
-// does not have).  A GPU thread stores one byte, so here a block writes
-// only the hd codes and the one scale of its token: the paged writes are
-// plain scatters (vLLM's reshape_and_cache), and the chunk needs none of
-// the TPU wrapper's pre-shift for sublane alignment.  The absmax is a
-// warp-shuffle reduction followed by one pass through shared memory.
+// Design.  The TPU kernels stream whole tiles or pool blocks, select the
+// new rows in and write them back, because Mosaic stores whole tiles (and
+// the paged ones only exist behind a flag, for a v5e fault with
+// data-dependent output index maps that Hopper does not have).  A GPU
+// thread stores one byte, so here only the hd codes and the one scale of
+// each token are written: the paged writes are plain scatters (vLLM's
+// reshape_and_cache), and the chunk needs none of the TPU wrapper's
+// pre-shift for sublane alignment.
+// * Paged (write_kernel, the destination a template parameter: PagedDest):
+//   one warp per (token row, kv head, K|V), four warps a block.  Where hd =
+//   32·V for V = 2, 4 or 8 (hd 64, 128, 256), a lane holds V consecutive
+//   values from one vector load (8 bytes of bf16 or 16 of f32 at hd = 128;
+//   two 16-byte loads for f32 at 256) and stores its V codes as one word;
+//   other head_dims (96, or any other) take lane-strided scalar loads and
+//   byte stores.  The absmax is a warp-shuffle reduction: no shared memory,
+//   no block barrier.  Lane 0 stores the scale.
+// * Slot (slot_write_kernel): one block of 128 threads per (row, kv head,
+//   K|V), the absmax through warp shuffles and one pass through shared
+//   memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,27 +98,122 @@ slot_write_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
               (is_v ? v_scale : k_scale) + slot);
 }
 
-// Token row r = b * T + t of a (B, T, nkv, hd) input goes to position
-// cache_len[b] + t of row b's table; the decode instance has T = 1.
-template <typename T, bool kDecode>
-__global__ void __launch_bounds__(kThreads)
-paged_write_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
-                   int8_t* __restrict__ k_pool, float* __restrict__ k_scale,
-                   int8_t* __restrict__ v_pool, float* __restrict__ v_scale,
-                   const int* __restrict__ tables,
-                   const int* __restrict__ cache_len, int Tn, int nkv,
-                   int bs, int nbmax, int hd) {
-  const int r = blockIdx.x;
-  const int b = kDecode ? r : r / Tn;
-  const int h = blockIdx.y;
-  const bool is_v = blockIdx.z != 0;
-  const int pos = kDecode ? cache_len[b] : cache_len[b] + r % Tn;
-  const int vb = pos / bs;
-  const size_t phys = vb >= nbmax ? 0 : tables[(size_t)b * nbmax + vb];
-  const size_t slot = (phys * nkv + h) * bs + pos % bs;
-  quant_store((is_v ? v_new : k_new) + ((size_t)r * nkv + h) * hd, hd,
-              (is_v ? v_pool : k_pool) + slot * hd,
-              (is_v ? v_scale : k_scale) + slot);
+// Where the paged writes put head h of token row r = b * T + t of a (B,
+// T, nkv, hd) input: position p = cache_len[b] + t of row b's table, in pool
+// block tables[b][p / bs] at p % bs, or in the null block 0 when p / bs is
+// past the table.  slot() is the (block, head, position) row of the pool
+// and of its scales.
+struct PagedDest {
+  const int* tables;
+  const int* cache_len;
+  int Tn, nkv, bs, nbmax;
+  __device__ size_t slot(int r, int h) const {
+    const int b = r / Tn;
+    const int pos = cache_len[b] + r % Tn;
+    const int vb = pos / bs;
+    const size_t phys = vb >= nbmax ? 0 : tables[(size_t)b * nbmax + vb];
+    return (phys * nkv + h) * bs + pos % bs;
+  }
+};
+
+constexpr int kRowWarps = 4;  // warps of a write_kernel block
+
+// V consecutive values at p as floats, in one vector load (two for 8 f32)
+template <int V>
+__device__ __forceinline__ void load_vals(const float* p, float (&v)[V]) {
+  if constexpr (V == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + i));
+      v[i] = t.x;
+      v[i + 1] = t.y;
+      v[i + 2] = t.z;
+      v[i + 3] = t.w;
+    }
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p,
+                                          float (&v)[V]) {
+  unsigned w[V / 2];  // two bf16 a word, the first in the low half
+  if constexpr (V == 2) {
+    w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+  } else if constexpr (V == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = t.x;
+    w[1] = t.y;
+  } else {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = t.x;
+    w[1] = t.y;
+    w[2] = t.z;
+    w[3] = t.w;
+  }
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) {  // a bf16 is the top half of its f32
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float a) {
+  for (int o = 16; o > 0; o >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+  return a;
+}
+
+// the code of x at scale s, as a byte
+__device__ __forceinline__ unsigned code(float x, float s) {
+  const float q = fminf(fmaxf(rintf(x / s), -128.f), 127.f);
+  return (unsigned)(int)q & 0xFFu;
+}
+
+// Warp w of block x quantizes (token row, head) rh = x * kRowWarps + w of
+// K (blockIdx.y = 0) or V (1), rows * nkv of them, and stores its codes
+// and scale at dest.slot(r, h).  V > 0: hd = 32·V, lane l holds values V·l
+// .. V·l + V − 1 (vector loads; the entry checks their alignment); V = 0:
+// any hd, lane l values l, l + 32, ...
+template <typename T, int V, class Dest>
+__global__ void __launch_bounds__(kRowWarps * 32)
+write_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
+             int8_t* __restrict__ k_dst, float* __restrict__ k_scale,
+             int8_t* __restrict__ v_dst, float* __restrict__ v_scale,
+             Dest dest, int rows, int nkv, int hd) {
+  const int lane = threadIdx.x & 31;
+  const int rh = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (rh >= rows * nkv) return;
+  const bool is_v = blockIdx.y != 0;
+  const T* x = (is_v ? v_new : k_new) + (size_t)rh * hd;
+  const size_t slot = dest.slot(rh / nkv, rh % nkv);
+  int8_t* row = (is_v ? v_dst : k_dst) + slot * hd;
+  float amax = 0.f;
+  float s;
+  if constexpr (V > 0) {
+    float v[V];
+    load_vals<V>(x + V * lane, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(v[i]));
+    s = fmaxf(warp_max(amax) / 127.0f, FLT_MIN);
+    unsigned w[(V + 3) / 4] = {};
+#pragma unroll
+    for (int i = 0; i < V; ++i) w[i / 4] |= code(v[i], s) << (8 * (i % 4));
+    int8_t* dst = row + V * lane;
+    if constexpr (V == 2)
+      *reinterpret_cast<unsigned short*>(dst) = (unsigned short)w[0];
+    else if constexpr (V == 4)
+      *reinterpret_cast<unsigned*>(dst) = w[0];
+    else
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else {
+    for (int d = lane; d < hd; d += 32) amax = fmaxf(amax, fabsf(to_f(x[d])));
+    s = fmaxf(warp_max(amax) / 127.0f, FLT_MIN);
+    for (int d = lane; d < hd; d += 32) row[d] = (int8_t)code(to_f(x[d]), s);
+  }
+  if (lane == 0) (is_v ? v_scale : k_scale)[slot] = s;
 }
 
 }  // namespace
@@ -143,30 +248,56 @@ extern "C" int slot_decode_write_int8(const void* k_new, const void* v_new,
 
 namespace {
 
-template <bool kDecode>
+// write_kernel over rows token rows of nkv heads into dest, with V = hd /
+// 32 values a lane where hd and the pointers allow vector loads and word
+// stores, else lane-strided.
+template <typename T, class Dest>
+int launch_write(const void* k_new, const void* v_new, void* k_dst,
+                 void* k_scale, void* v_dst, void* v_scale, Dest dest,
+                 int rows, int nkv, int hd, cudaStream_t st) {
+  const dim3 grid((rows * nkv + kRowWarps - 1) / kRowWarps, 2);
+  const int v = hd % 32 ? 0 : hd / 32;
+  // a lane loads v·sizeof(T) bytes (in 16-byte halves for 8 f32) and
+  // stores v; the alignment is tested only where v is a vector width
+  const uintptr_t in_align = v * sizeof(T) < 16 ? v * sizeof(T) : 16;
+  const bool vec =
+      (v == 2 || v == 4 || v == 8) && (uintptr_t)k_new % in_align == 0 &&
+      (uintptr_t)v_new % in_align == 0 && (uintptr_t)k_dst % v == 0 &&
+      (uintptr_t)v_dst % v == 0;
+  auto kn = static_cast<const T*>(k_new);
+  auto vn = static_cast<const T*>(v_new);
+  auto kd = static_cast<int8_t*>(k_dst);
+  auto vd = static_cast<int8_t*>(v_dst);
+  auto ks = static_cast<float*>(k_scale);
+  auto vs = static_cast<float*>(v_scale);
+#define WRITE_LAUNCH(V_)                                                 \
+  write_kernel<T, V_, Dest><<<grid, kRowWarps * 32, 0, st>>>(            \
+      kn, vn, kd, ks, vd, vs, dest, rows, nkv, hd)
+  if (!vec)
+    WRITE_LAUNCH(0);
+  else if (v == 2)
+    WRITE_LAUNCH(2);
+  else if (v == 4)
+    WRITE_LAUNCH(4);
+  else
+    WRITE_LAUNCH(8);
+#undef WRITE_LAUNCH
+  return (int)cudaGetLastError();
+}
+
 int launch_paged(const void* k_new, const void* v_new, void* k_pool,
                  void* k_scale, void* v_pool, void* v_scale,
                  const void* tables, const void* cache_len, int B, int T,
                  int nkv, int bs, int nbmax, int hd, int bf16_in,
                  void* stream) {
-  const dim3 grid(B * T, nkv, 2);
+  const PagedDest dest{static_cast<const int*>(tables),
+                       static_cast<const int*>(cache_len), T, nkv, bs, nbmax};
   auto st = static_cast<cudaStream_t>(stream);
-  auto kp = static_cast<int8_t*>(k_pool);
-  auto vp = static_cast<int8_t*>(v_pool);
-  auto ks = static_cast<float*>(k_scale);
-  auto vs = static_cast<float*>(v_scale);
-  auto tab = static_cast<const int*>(tables);
-  auto cl = static_cast<const int*>(cache_len);
-  if (bf16_in)
-    paged_write_kernel<__nv_bfloat16, kDecode><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(k_new),
-        static_cast<const __nv_bfloat16*>(v_new), kp, ks, vp, vs, tab, cl, T,
-        nkv, bs, nbmax, hd);
-  else
-    paged_write_kernel<float, kDecode><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(k_new), static_cast<const float*>(v_new),
-        kp, ks, vp, vs, tab, cl, T, nkv, bs, nbmax, hd);
-  return (int)cudaGetLastError();
+  return bf16_in ? launch_write<__nv_bfloat16>(k_new, v_new, k_pool, k_scale,
+                                               v_pool, v_scale, dest, B * T,
+                                               nkv, hd, st)
+                 : launch_write<float>(k_new, v_new, k_pool, k_scale, v_pool,
+                                       v_scale, dest, B * T, nkv, hd, st);
 }
 
 }  // namespace
@@ -183,9 +314,9 @@ extern "C" int paged_decode_write_int8(const void* k_new, const void* v_new,
                                        int nkv, int bs, int nbmax, int hd,
                                        int bf16_in, void* stream) {
   if (T != 1) return (int)cudaErrorInvalidValue;
-  return launch_paged<true>(k_new, v_new, k_pool, k_scale, v_pool, v_scale,
-                            tables, cache_len, B, 1, nkv, bs, nbmax, hd,
-                            bf16_in, stream);
+  return launch_paged(k_new, v_new, k_pool, k_scale, v_pool, v_scale,
+                      tables, cache_len, B, 1, nkv, bs, nbmax, hd, bf16_in,
+                      stream);
 }
 
 extern "C" int paged_chunk_write_int8(const void* k_new, const void* v_new,
@@ -195,7 +326,7 @@ extern "C" int paged_chunk_write_int8(const void* k_new, const void* v_new,
                                       const void* cache_len, int B, int T,
                                       int nkv, int bs, int nbmax, int hd,
                                       int bf16_in, void* stream) {
-  return launch_paged<false>(k_new, v_new, k_pool, k_scale, v_pool, v_scale,
-                             tables, cache_len, B, T, nkv, bs, nbmax, hd,
-                             bf16_in, stream);
+  return launch_paged(k_new, v_new, k_pool, k_scale, v_pool, v_scale,
+                      tables, cache_len, B, T, nkv, bs, nbmax, hd, bf16_in,
+                      stream);
 }

@@ -1,15 +1,13 @@
 // Shared pieces of the W4A8 GEMM kernels (w4a8_gemm.cu, w4a8_requant.cu,
 // w4a8_group.cu, w4a8_fused.cu, and the tile and stream kernels of
 // w4a8_tc.cuh and w4a8_stream.cuh): the nibble-plane operand layout, the GLU
-// column map and epilogue, the INT4 -> INT8 regrid of one code, and the
-// block shape of the CUDA-core kernel that remains (the per-channel
-// activation-quant-fused one of w4a8_fused.cu).
+// column map and epilogue, and the INT4 -> INT8 regrid of one code.
 //
 // Operand layout (core/packing.py).  Word row 16b+r of a column holds, in
 // its low nibbles, the codes k = 128b+4r+{0..3} and, in its high nibbles,
 // k = 128b+64+4r+{0..3}; so (w & 0x0F0F0F0F) and ((w >> 4) & 0x0F0F0F0F)
-// are each four unsigned codes u = q + 8, one __dp4a against int32 word r
-// (resp. 16+r) of the 128-wide slice of an activation row.
+// are each four unsigned codes u = q + 8, matching bytes 4r .. 4r+3 (resp.
+// 64+4r ..) of the 128-wide slice of an activation row.
 //
 // GLU (the fused gate/up weight of models/llama.py:fuse_inference_params):
 // the weight's 2I columns hold gate and up tile-interleaved,
@@ -18,13 +16,6 @@
 // g·σ(g)·u in f32 from the two scaled f32 values, σ(g) = 1/(1+exp(−g)) with
 // the accurate expf and an IEEE division, and rounds once; the (M, I) gate
 // and up intermediates never reach global memory.
-//
-// The CUDA-core kernel's block shape: 8 warps own 32 output columns, one
-// per lane, so every weight load is one coalesced 128-byte row of a column
-// tile; the warps split the 128-row K blocks among themselves, and each
-// thread keeps BM rows (rows_per_block) of accumulators so that a weight
-// word loaded once serves BM rows.  Rows of A are read as 16-byte vectors
-// that all lanes of a warp share (an L1 broadcast).
 
 #pragma once
 
@@ -34,9 +25,6 @@
 
 namespace w4a8 {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 32;
 constexpr int kGluTile = 256;  // GLU_INTERLEAVE of kernels/w4a8_gemm.py
 constexpr unsigned kNib = 0x0F0F0F0Fu;
 
@@ -67,21 +55,6 @@ __device__ __forceinline__ void store(void* out, size_t idx, float v) {
 __device__ __forceinline__ int requant1(int q, float sf) {
   const int w8 = __float2int_rn(__fmul_rn((float)q, sf));
   return min(127, max(-127, w8));
-}
-
-// Grid over (output column tiles, row tiles of BM) for a kernel taking the
-// rows-per-block as its first template argument.
-inline dim3 grid_for(int M, int No, int BM) {
-  return dim3((No + kCols - 1) / kCols, (M + BM - 1) / BM);
-}
-
-// Rows per block for M rows: small tiles at decode, 16 at prefill.
-inline int rows_per_block(int M) {
-  if (M <= 1) return 1;
-  if (M <= 2) return 2;
-  if (M <= 4) return 4;
-  if (M < 64) return 8;
-  return 16;
 }
 
 }  // namespace w4a8

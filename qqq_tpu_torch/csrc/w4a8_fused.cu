@@ -25,51 +25,41 @@
 // of codes (plus K / 128 * N * 2 of bf16 group scales) at 3.35 TB/s (7.0 us
 // at K = 11008, N = 4096); the x rows add M * K * 2 bytes.
 //
-// g128 (stream::fused_kernel): the exact g128 route's weight stream
-// (w4a8_stream.cuh:group_gemm, as w4a8_group.cu's stream::kernel), whose
+// Design: both are kernels of the weight stream (w4a8_stream.cuh), whose
 // producer streams raw x in place of int8 A: a TMA box a group of the
 // block's 8 (bf16) or 4 (f32) rows of 128 values, 2 KB, the size of the
-// slot's A tile, so the slot and the ring stay #2's.  Meanwhile the
-// consumer warps take the block's row scales s[m] (and their reciprocals)
-// from one pass over its rows of x, L2-resident after the first column
-// block.  Each stage, consumer warp w reads its group's x from the tile,
-// quantizes it four values a lane and row (every lane busy at any row
-// count), writes the codes over the tile in the TMA unit's swizzle, and
-// runs #2's MMAs on it; bsum_g comes from the same fragments.  The
-// quotients come from the row's correctly rounded reciprocal and two FMA
-// corrections (div_rn: the IEEE quotient).  On the H100 that takes #5 at
-// (4, 11008, 4096) from 0.035 ms with __fdiv_rn alone to 0.030, and at
+// slot's A tile, so the slots and the rings stay those of the unfused
+// kernels.  Their source of A, QuantizedX, takes the block's row scales
+// s[m] (and their reciprocals) from one pass over its rows of x, L2-resident
+// after the first column block, while the producer fills the ring.  Each
+// stage, consumer warp w reads its group's x from the tile, quantizes it
+// four values a lane and row (every lane busy at any row count), writes the
+// codes over the tile in the TMA unit's swizzle, and runs the unfused
+// kernel's MMAs on it; the group's row sums come from the same fragments.
+// The quotients come from the row's correctly rounded reciprocal and two
+// FMA corrections (div_rn: the IEEE quotient).  On the H100 that takes #5
+// at (4, 11008, 4096) from 0.035 ms with __fdiv_rn alone to 0.030, and at
 // (64, 11008, 4096) from 0.34–0.36 to 0.255 (PERF.md §6).
+//   - g128 (stream::fused_kernel): the exact g128 route's group_gemm, as
+//     w4a8_group.cu's stream::kernel (#2).
+//   - per channel (stream::channel_kernel<false, ·, QuantizedX<TX>>): the
+//     per-channel route's decode body (#1's, w4a8_gemm.cu), int32 sums in
+//     registers across all K and one epilogue in #4's order.
 // Bring-up showed why x rides with the stage: loaded by the consumers a
 // stage ahead, x queued behind the ring's TMA traffic and doubled the time.
 // Whole rows of A could not be staged beside the ring (16 x 24576 bytes is
-// 393 KB); every column block quantizes its rows again, as every n-tile of
-// the JAX kernel does.
-//
-// Per channel (fused_kernel; to be moved onto stream::channel_kernel the
-// same way): the older CUDA-core block, 8 warps that own 32 output columns,
-// one per lane, and split the K blocks through __dp4a, with a prologue in
-// which the block quantizes its BM <= 8 rows of x into shared memory: a
-// first pass over x for each row's absmax, a second for the codes and their
-// row sums.  The main loop reads the codes from shared memory (all lanes of
-// a warp read the same 16-byte vectors: a broadcast).  BM * K code bytes
-// must fit a block's shared memory: 8 rows of K <= 24576, the largest K
-// that _fused_bn admits.  Every column block quantizes its rows again, as
-// every n-tile of the JAX kernel does.
+// 393 KB), and need not be: the stream has no limit on K.  Every column
+// block quantizes its rows again, as every n-tile of the JAX kernel does;
+// past one block of rows (M > 8 for bf16 x) each block streams the codes
+// again, from L2.
 
-#include "smem_fit.cuh"
-#include "w4a8_common.cuh"
 #include "w4a8_stream.cuh"
 
 namespace {
 
-using namespace w4a8;
-
-constexpr int kMaxBM = 8;
-
-// 16 bytes of x as floats: N of them (8 bf16 or 4 f32), loaded and
-// converted (load) or converted from the raw bytes (cvt); and four values
-// from their Quad of raw bytes (8 bf16 or 16 f32 bytes).
+// 16 bytes of x as floats, N of them (8 bf16 or 4 f32), converted from the
+// raw bytes (cvt); and four values from their Quad of raw bytes (8 bf16 or
+// 16 f32 bytes).
 template <typename TX>
 struct XVec;
 
@@ -82,9 +72,6 @@ struct XVec<float> {
     v[1] = __int_as_float(r.y);
     v[2] = __int_as_float(r.z);
     v[3] = __int_as_float(r.w);
-  }
-  __device__ static void load(const float* p, float v[4]) {
-    cvt(__ldg(reinterpret_cast<const int4*>(p)), v);
   }
 };
 
@@ -103,9 +90,6 @@ struct XVec<__nv_bfloat16> {
   __device__ static void cvt(const int4& r, float v[8]) {
     cvt(make_uint2(r.x, r.y), v);
     cvt(make_uint2(r.z, r.w), v + 4);
-  }
-  __device__ static void load(const __nv_bfloat16* p, float v[8]) {
-    cvt(__ldg(reinterpret_cast<const int4*>(p)), v);
   }
 };
 
@@ -134,216 +118,35 @@ __device__ __forceinline__ float div_rn(float x, float s, float rc) {
 }
 constexpr float kDivRnMinS = 0x1p-100f;  // div_rn's smallest divisor
 
-// Quantizes rows m0 .. m0 + BM - 1 (those below M) of x into aq (BM, K)
-// int8, their scales into s_sh and their code sums into asum_sh.  Ends with
-// a barrier.
-template <int BM, typename TX>
-__device__ void quantize_rows(const TX* __restrict__ x, int M, int K, int m0,
-                              int8_t* aq, float* s_sh, int* asum_sh) {
-  constexpr int V = XVec<TX>::N;
-  __shared__ float red[kWarps][BM];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nv = K / V;
-
-  float amax[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) amax[i] = 0.f;
-  for (int j = threadIdx.x; j < nv; j += kThreads) {
-#pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      if (m0 + i < M) {
-        float v[V];
-        XVec<TX>::load(x + (size_t)(m0 + i) * K + (size_t)j * V, v);
-#pragma unroll
-        for (int u = 0; u < V; ++u) amax[i] = fmaxf(amax[i], fabsf(v[u]));
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    float a = amax[i];
-    for (int o = 16; o > 0; o >>= 1)
-      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
-    if (lane == 0) red[warp][i] = a;
-  }
-  __syncthreads();
-  if (threadIdx.x < BM) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) a = fmaxf(a, red[w][threadIdx.x]);
-    s_sh[threadIdx.x] = __fdiv_rn(fmaxf(a, 1e-30f), 127.0f);
-    asum_sh[threadIdx.x] = 0;
-  }
-  __syncthreads();
-
-  int rsum[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) rsum[i] = 0;
-  for (int j = threadIdx.x; j < nv; j += kThreads) {
-#pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      if (m0 + i < M) {
-        float v[V];
-        XVec<TX>::load(x + (size_t)(m0 + i) * K + (size_t)j * V, v);
-        const float s = s_sh[i];
-        unsigned packed[V / 4];
-#pragma unroll
-        for (int w = 0; w < V / 4; ++w) packed[w] = 0u;
-#pragma unroll
-        for (int u = 0; u < V; ++u) {
-          const unsigned c = quant_byte(v[u], s);
-          rsum[i] += (int)(int8_t)c;
-          packed[u / 4] |= c << (8 * (u % 4));
-        }
-        unsigned* dst = reinterpret_cast<unsigned*>(aq + (size_t)i * K +
-                                                    (size_t)j * V);
-#pragma unroll
-        for (int w = 0; w < V / 4; ++w) dst[w] = packed[w];
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    int t = rsum[i];
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-    if (lane == 0 && m0 + i < M) atomicAdd(&asum_sh[i], t);
-  }
-  __syncthreads();
-}
-
-// One 128-wide slice of quantized row i (in shared memory) as 32 words.
-__device__ __forceinline__ void load_a_shared(const int8_t* aq, int K, int i,
-                                              int kb, int av[32]) {
-  const int4* ap = reinterpret_cast<const int4*>(aq + (size_t)i * K +
-                                                 (size_t)kb * 128);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int4 v = ap[j];
-    av[4 * j + 0] = v.x;
-    av[4 * j + 1] = v.y;
-    av[4 * j + 2] = v.z;
-    av[4 * j + 3] = v.w;
-  }
-}
-
-// The per-channel fused GEMM of BM rows and 32 columns; scales = s_channel
-// (N,) f32.
-template <int BM, typename TX, bool kBf16Out>
-__global__ void __launch_bounds__(kThreads)
-fused_kernel(const TX* __restrict__ x, const int32_t* __restrict__ w,
-             const float* __restrict__ s_ch, void* __restrict__ out, int M,
-             int K, int N) {
-  extern __shared__ int4 aq_raw[];
-  int8_t* aq = reinterpret_cast<int8_t*>(aq_raw);  // [BM][K] codes
-  __shared__ float s_sh[BM];
-  __shared__ int asum_sh[BM];
-  __shared__ int red[kWarps][BM][kCols];  // each warp's int32 partial sums
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int o = blockIdx.x * kCols + lane;
-  const int m0 = blockIdx.y * BM;
-  const int G = K / 128;
-
-  quantize_rows<BM, TX>(x, M, K, m0, aq, s_sh, asum_sh);
-
-  int acc[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0;
-  if (o < N) {
-    for (int kb = warp; kb < G; kb += kWarps) {
-      unsigned raw[16];
-      const int32_t* wp = w + (size_t)kb * 16 * N + o;
-#pragma unroll
-      for (int r = 0; r < 16; ++r) raw[r] = (unsigned)__ldg(wp + (size_t)r * N);
-#pragma unroll
-      for (int i = 0; i < BM; ++i) {
-        if (m0 + i < M) {
-          int av[32];
-          load_a_shared(aq, K, i, kb, av);
-          int t = acc[i];
-#pragma unroll
-          for (int r = 0; r < 16; ++r) {
-            t = __dp4a((int)(raw[r] & kNib), av[r], t);
-            t = __dp4a((int)((raw[r] >> 4) & kNib), av[16 + r], t);
-          }
-          acc[i] = t;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < BM; ++i) red[warp][i][lane] = acc[i];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BM * kCols; idx += kThreads) {
-    const int i = idx / kCols;
-    const int c = idx % kCols;
-    const int m = m0 + i;
-    const int oo = blockIdx.x * kCols + c;
-    if (m < M && oo < N) {
-      int tot = 0;
-#pragma unroll
-      for (int q = 0; q < kWarps; ++q) tot += red[q][i][c];
-      tot -= 8 * asum_sh[i];  // undo the +8 code offset
-      float v = __fmul_rn((float)tot, s_ch[oo]);
-      v = __fmul_rn(v, s_sh[i]);
-      store<kBf16Out>(out, (size_t)m * N + oo, v);
-    }
-  }
-}
-
-template <int BM, typename TX, bool kBf16Out>
-int launch_bm(const void* x, const int32_t* w, const float* s_ch, void* out,
-              int M, int K, int N, cudaStream_t st) {
-  auto kernel = fused_kernel<BM, TX, kBf16Out>;
-  const size_t smem = (size_t)BM * K;
-  const int fit = smem_fit(kernel, smem);
-  if (fit != 0) return fit;
-  kernel<<<grid_for(M, N, BM), kThreads, smem, st>>>(
-      static_cast<const TX*>(x), w, s_ch, out, M, K, N);
-  return (int)cudaGetLastError();
-}
-
-template <typename TX, bool kBf16Out>
-int launch_rows(const void* x, const int32_t* w, const float* s_ch, void* out,
-                int M, int K, int N, cudaStream_t st) {
-  switch (rows_per_block(M) < kMaxBM ? rows_per_block(M) : kMaxBM) {
-    case 1: return launch_bm<1, TX, kBf16Out>(x, w, s_ch, out, M, K, N, st);
-    case 2: return launch_bm<2, TX, kBf16Out>(x, w, s_ch, out, M, K, N, st);
-    case 4: return launch_bm<4, TX, kBf16Out>(x, w, s_ch, out, M, K, N, st);
-    default: return launch_bm<8, TX, kBf16Out>(x, w, s_ch, out, M, K, N, st);
-  }
-}
-
-template <typename TX>
-int launch_per_channel(const void* x, const int32_t* w, const float* s_ch,
-                       void* out, int M, int K, int N, int bf16_out,
-                       cudaStream_t st) {
-  return bf16_out ? launch_rows<TX, true>(x, w, s_ch, out, M, K, N, st)
-                  : launch_rows<TX, false>(x, w, s_ch, out, M, K, N, st);
-}
-
 namespace stream {
 
-// A of the g128 fused kernel: the producer streams the block's rows of x
-// into the A tiles (block_rows(sizeof(TX)) rows of 128 values a group, 2
-// KB: the tile's size), and each consumer warp quantizes its group's tile
-// in place.  begin() takes the block's row scales (and their reciprocals)
-// from one pass over its rows of x, each thread keeping 16 of its 16-byte
-// loads in flight, while the producer fills the ring.  frags() reads this
-// lane's four values of each row (k = 4·lane ..), and, once the warp has
-// read them all, writes their codes over the tile in the TMA unit's
-// swizzle (one word a lane and row: all 32 lanes busy at any row count);
-// then reads the fragments back as a streamed tile is read.  Rows of the
-// tile past the block's feed only outputs that are never stored.
+// A of the fused kernels (a source of A, w4a8_stream.cuh:StreamedA): the
+// producer streams the block's rows of x into the A tiles
+// (block_rows(sizeof(TX)) rows of 128 values a group, 2 KB: the tile's
+// size), and each consumer warp quantizes its group's tile in place.
+// begin() takes the block's row scales (and their reciprocals) from one
+// pass over its rows of x, each thread keeping 16 of its 16-byte loads in
+// flight, while the producer fills the ring.  frags() reads this lane's
+// four values of each row (k = 4·lane ..), and, once the warp has read them
+// all, writes their codes over the tile in the TMA unit's swizzle (one word
+// a lane and row: all 32 lanes busy at any row count); then reads the
+// fragments back as a streamed tile is read.  Rows of the tile past the
+// block's feed only outputs that are never stored.
 template <typename TX>
 struct QuantizedX {
   static constexpr int kAEs = sizeof(TX);
   static constexpr int kBR = block_rows(kAEs);  // rows a block
   const TX* x;
+  int K, m0, rows;
   float* s_sh;  // [2][kRows] the rows' scales, then their reciprocals
   float* red;   // [kWarps][kRows] the warps' partial maxima
-  int K, m0, rows;
+
+  __device__ explicit QuantizedX(const Args& p)
+      : x(static_cast<const TX*>(p.a)), K(p.K) {
+    __shared__ float sh[(2 + kWarps) * kRows];
+    s_sh = sh;
+    red = sh + 2 * kRows;
+  }
 
   // amax[i] = max |x| over this thread's share of row m0 + i, i < rows <=
   // R, U vectors of each row in flight
@@ -373,8 +176,7 @@ struct QuantizedX {
     }
   }
 
-  __device__ void begin(const Args& p, int m0_, int rows_) {
-    K = p.K;
+  __device__ void begin(int m0_, int rows_) {
     m0 = m0_;
     rows = rows_;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -445,12 +247,7 @@ struct QuantizedX {
 template <typename TX, bool kSgBf16, bool kBf16Out>
 __global__ void __launch_bounds__(kThreads + 32)
 fused_kernel(const __grid_constant__ Maps maps, Args p) {
-  __shared__ float s_sh[2 * kRows];
-  __shared__ float red[kWarps * kRows];
-  QuantizedX<TX> src;
-  src.x = static_cast<const TX*>(p.a);
-  src.s_sh = s_sh;
-  src.red = red;
+  QuantizedX<TX> src(p);
   group_gemm<1, kSgBf16, kBf16Out>(maps, p, src);
 }
 
@@ -463,6 +260,12 @@ int launch_fused(const Args& p, int bf16_out, cudaStream_t st) {
                         fused_kernel<TX, kSgBf16, false>, p, st);
 }
 
+template <typename TX>
+int launch_fused_channel(const Args& p, int bf16_out, cudaStream_t st) {
+  return bf16_out ? launch_channel<false, true, QuantizedX<TX>>(p, st)
+                  : launch_channel<false, false, QuantizedX<TX>>(p, st);
+}
+
 }  // namespace stream
 
 }  // namespace
@@ -470,25 +273,19 @@ int launch_fused(const Args& p, int bf16_out, cudaStream_t st) {
 // x (M, K) bf16 (x_bf16 = 1) or f32, 16-byte aligned; w (K/8, N) int32;
 // scales: s_channel (N,) f32 (group = 0) or s_group (K/128, N) bf16
 // (sg_bf16 = 1) or f32 (group = 1); out (M, N) bf16 (bf16_out = 1) or f32.
-// K % 128 == 0 (else cudaErrorInvalidValue).  Per channel: kSmemTooLarge,
-// nothing launched, where min(M, 8) rows of K codes exceed a block's shared
-// memory; g128 (the weight stream) has no such limit.
+// K % 128 == 0 (else cudaErrorInvalidValue); any K, M and N past that.
 extern "C" int w4a8_gemm_fused(const void* x, const void* w,
                                const void* scales, void* out, int M, int K,
                                int N, int group, int x_bf16, int sg_bf16,
                                int bf16_out, void* stream) {
   if (K % 128 || M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  auto W = static_cast<const int32_t*>(w);
+  const stream::Args p{x,   nullptr, static_cast<const int32_t*>(w),
+                       scales, out,  M, K, N, false};
   auto st = static_cast<cudaStream_t>(stream);
-  if (!group) {
-    auto SC = static_cast<const float*>(scales);
-    return x_bf16 ? launch_per_channel<__nv_bfloat16>(x, W, SC, out, M, K, N,
-                                                      bf16_out, st)
-                  : launch_per_channel<float>(x, W, SC, out, M, K, N,
-                                              bf16_out, st);
-  }
-  const stream::Args p{x, nullptr, W, scales, out, M, K, N, false};
   using BF = __nv_bfloat16;
+  if (!group)
+    return x_bf16 ? stream::launch_fused_channel<BF>(p, bf16_out, st)
+                  : stream::launch_fused_channel<float>(p, bf16_out, st);
   if (x_bf16)
     return sg_bf16 ? stream::launch_fused<BF, true>(p, bf16_out, st)
                    : stream::launch_fused<BF, false>(p, bf16_out, st);

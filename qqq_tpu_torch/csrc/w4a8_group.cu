@@ -60,14 +60,14 @@ namespace stream {
 template <bool kSgBf16, bool kBf16Out>
 __global__ void __launch_bounds__(kThreads + 32)
 kernel(const __grid_constant__ Maps maps, Args p) {
-  StreamedA src{p.s_tok};
+  StreamedA src(p);
   group_gemm<1, kSgBf16, kBf16Out>(maps, p, src);
 }
 
 template <bool kSgBf16, bool kBf16Out>
 __global__ void __launch_bounds__(kThreads + 32)
 glu_kernel(const __grid_constant__ Maps maps, Args p) {
-  StreamedA src{p.s_tok};
+  StreamedA src(p);
   group_gemm<2, kSgBf16, kBf16Out>(maps, p, src);
 }
 

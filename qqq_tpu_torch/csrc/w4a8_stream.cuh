@@ -2,34 +2,38 @@
 // a producer warp keeps TMA boxes of packed codes (and of A, and of the g128
 // scales) in flight through a ring of shared-memory stages, and eight
 // consumer warps form each 128-row group's exact int32 dot on int8
-// mma.sync.  Four kernels share it (TPU kernels replaced:
-// qqq_tpu/kernels/w4a8_gemm.py, lines as in each source's header):
-//   - the exact g128 route's group_gemm, each group's int32 terms scaled by
+// mma.sync.  Two bodies share it, each over a source of A (StreamedA:
+// int8 A streamed; w4a8_fused.cu's QuantizedX: raw activations x streamed
+// into the A tiles, 8 rows of bf16 or 4 of f32 a block, which the consumers
+// quantize in place with the rows' scales from a pass over x).  TPU kernels
+// replaced: qqq_tpu/kernels/w4a8_gemm.py, lines as in each source's header.
+//   - group_gemm, the exact g128 route: each group's int32 terms scaled by
 //     s_group and summed in f32 in group order, after a barrier of the
-//     consumer warps each stage, in three instantiations:
+//     consumer warps each stage, in three kernels:
 //       stream::kernel (w4a8_group.cu, #2 _w4a8_group_kernel): one box of
-//       32 columns a stage, A streamed, a 4-stage ring;
+//       32 columns a stage, StreamedA, a 4-stage ring;
 //       stream::glu_kernel (w4a8_group.cu, #7 _w4a8_group_glu_kernel): two
 //       boxes a stage, the 32 gate and the 32 up columns of 32 output
 //       columns (weight_col), each with its own s_group rows, two f32
 //       chains a (row, column) and silu_mul in the epilogue; a 3-stage
 //       ring (two 50 KB slots and the doubled terms would not fit four);
 //       stream::fused_kernel (w4a8_fused.cu, #5 _w4a8_fused_group_kernel):
-//       #2's, with raw activations x streamed into the A tiles (8 rows of
-//       bf16 or 4 of f32 a block), which the consumers quantize in place
-//       with the rows' scales from a pass over x;
-//   - channel_kernel (w4a8_gemm.cu, the per-channel route's decode regime,
-//     #1 and #6): the int32 sums stay in each warp's registers across all
-//     K, the warps meet once in shared memory at the end, and the epilogue
-//     out((float)(acc − 8·asum)·s_ch[n]·s_tok[m])  runs once.  No scale
-//     box, no per-stage barrier.  Its GLU tile streams two boxes a stage,
-//     as the g128 GLU does, and applies silu_mul in the epilogue.
+//       #2's, from QuantizedX;
+//   - channel_kernel, the per-channel route: the int32 sums stay in each
+//     warp's registers across all K, the warps meet once in shared memory
+//     at the end, and the epilogue out((float)(acc − 8·asum)·s_ch[n]·s[m])
+//     runs once.  No scale box, no per-stage barrier.  Instantiated with
+//     StreamedA for #1 and its GLU #6 (w4a8_gemm.cu, the decode regime;
+//     the GLU tile streams two boxes a stage, as the g128 GLU does, and
+//     applies silu_mul in the epilogue), and with QuantizedX for #4
+//     (w4a8_fused.cu, _w4a8_fused_channel_kernel).
 // What bounds them on the H100: the bytes of codes (K·N/2) and scales at
 // 3.35 TB/s; PERF.md §6 has their times against that bound.
 //
 // A block owns 32 columns a box (one 128-byte segment of each packed word
-// row) and 16 rows of A, and walks all K/128 groups through the ring, kGps =
-// 8 groups a stage.
+// row) and block_rows(kAEs) rows of A (16 of int8 A, 8 or 4 of x), and
+// walks all K/128 groups through the ring, kGps = 8 groups a stage; K has
+// no limit.
 //   - Lane 0 of the producer warp asks the TMA unit for the stage's boxes:
 //     128 word rows of codes a box, a box of A (or of raw activations) per
 //     group and (g128) the stage's s_group rows of each box (the entry
@@ -368,24 +372,48 @@ struct Channel {
   static_assert(kRed <= kStages * L::kBytes, "partial sums overlay the ring");
 };
 
-// The per-channel GEMM of one block: rows m0 .. m0 + 15 and output columns
-// o0 .. o0 + 31, all K.  p.sg is s_channel (N weight columns; GLU: N = 2I
-// in the fused layout, out (M, I)).  A GLU block keeps to the registers
-// that let two share an SM.
-template <bool kGlu, bool kBf16Out>
+// A of the plain and GLU kernels: int8 tiles the producer streams into the
+// slots, and the caller's per-token scales.  A source of A is made by the
+// consumer threads from the call's Args and has: kAEs (the bytes of an
+// element the producer streams into the A tiles: 1 for int8 A), begin(m0,
+// rows) (the consumers' prologue for the block's rows), frags() (this lane's fragments of the warp's
+// group of a landed stage, whose A tiles are at `ab`) and scale() (the
+// token scale of row m, the block's row `row`).  (The activation-quant-fused
+// kernels' source, w4a8_fused.cu:QuantizedX, streams x and quantizes it in
+// the consumers.)
+struct StreamedA {
+  static constexpr int kAEs = 1;
+  const float* s_tok;
+  __device__ explicit StreamedA(const Args& p) : s_tok(p.s_tok) {}
+  __device__ void begin(int, int) {}
+  __device__ void frags(char* ab, int gi, bool two, uint2 (&a)[4],
+                        uint2 (&a8)[4]) const {
+    a_frags(ab, gi, two, a, a8);
+  }
+  __device__ float scale(int, int m) const { return s_tok[m]; }
+};
+
+// The per-channel GEMM of one block: block_rows(Src::kAEs) rows from m0
+// (16 for int8 A; 8 / 4 for the fused kernel's bf16 / f32 x) and output
+// columns o0 .. o0 + 31, all K, A from a source of type Src made from the
+// call's operands.  p.sg is s_channel (N weight columns; GLU: N = 2I in the
+// fused layout, out (M, I)).  A GLU block keeps to the registers that let
+// two share an SM.
+template <bool kGlu, bool kBf16Out, class Src = StreamedA>
 __global__ void __launch_bounds__(kThreads + 32, kGlu ? 2 : 1)
 channel_kernel(const __grid_constant__ Maps maps, Args p) {
   using C = Channel<kGlu>;
   constexpr int NB = C::NB, NSL = C::NSL, kStages = C::kStages;
+  constexpr int kBR = block_rows(Src::kAEs);
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   smem += (1024 - smem_addr(smem) % 1024) % 1024;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * C::L::kBytes);
   uint64_t* empty = full + kStages;
   const int No = kGlu ? p.N / 2 : p.N;
-  const int m0 = blockIdx.x * kRows;
+  const int m0 = blockIdx.x * kBR;
   const int o0 = blockIdx.y * kTile;
-  const int rows = min(kRows, p.M - m0);
+  const int rows = min(kBR, p.M - m0);
   const int G = p.K / 128;
   const int nst = (G + kGps - 1) / kGps;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -405,13 +433,15 @@ channel_kernel(const __grid_constant__ Maps maps, Args p) {
     for (int st = 0; st < nst; ++st) {
       const int s = st % kStages;
       if (st >= kStages) mbar_wait(empty + s, (st / kStages - 1) & 1);
-      issue<NB, false, false>(smem + s * C::L::kBytes, full + s, p, maps, st,
-                              G, wc, m0, rows, lane);
+      issue<NB, false, false, Src::kAEs>(smem + s * C::L::kBytes, full + s, p,
+                                         maps, st, G, wc, m0, rows, lane);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
   }
 
+  Src src(p);
+  src.begin(m0, rows);
   const bool two = rows > 8;
   int d[NSL][4];
 #pragma unroll
@@ -421,9 +451,9 @@ channel_kernel(const __grid_constant__ Maps maps, Args p) {
     const int s = st % kStages;
     mbar_wait(full + s, (st / kStages) & 1);
     if (st * kGps + warp < G) {  // a group past G is never read
-      const char* slot = smem + s * C::L::kBytes;
+      char* slot = smem + s * C::L::kBytes;
       uint2 a[4], a8[4];
-      a_frags(slot + C::L::kA, warp, two, a, a8);
+      src.frags(slot + C::L::kA, warp, two, a, a8);
       int gb, gb8;
       group_mma<NSL>(slot, a, a8, warp, d, gb, gb8);
       bs += gb;
@@ -453,6 +483,7 @@ channel_kernel(const __grid_constant__ Maps maps, Args p) {
     const int o = o0 + sl * 8 + 2 * (le & 3) + (comp & 1);
     if (row >= rows || o >= No) continue;
     const int m = m0 + row;
+    const float ts = src.scale(row, m);
     float v[NB];
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
@@ -462,7 +493,7 @@ channel_kernel(const __grid_constant__ Maps maps, Args p) {
         tot += ri[((w * NSL + b * kSlices + sl) * 32 + le) * 4 + comp];
       const float sc =
           static_cast<const float*>(p.sg)[w4a8::weight_col<kGlu>(o, b)];
-      v[b] = __fmul_rn(__fmul_rn((float)tot, sc), p.s_tok[m]);
+      v[b] = __fmul_rn(__fmul_rn((float)tot, sc), ts);
     }
     w4a8::store<kBf16Out>(p.out, (size_t)m * No + o,
                           kGlu ? w4a8::silu_mul(v[0], v[NB - 1]) : v[0]);
@@ -536,24 +567,6 @@ struct Pair {
 };
 constexpr int kPairs = kRows * kTile / kThreads;  // pairs a thread at most
 
-// A of the plain and GLU kernels: int8 tiles the producer streams into the
-// slots, and the caller's per-token scales.  A source of A has: kAEs (the
-// bytes of an element the producer streams into the A tiles: 1 for int8 A),
-// begin() (the consumers' prologue), frags() (this lane's fragments of the
-// warp's group of a landed stage, whose A tiles are at `ab`) and scale()
-// (row m's token scale).  (The activation-quant-fused kernel's source,
-// w4a8_fused.cu, streams x and quantizes it in the consumers.)
-struct StreamedA {
-  static constexpr int kAEs = 1;
-  const float* s_tok;
-  __device__ void begin(const Args&, int, int) {}
-  __device__ void frags(char* ab, int gi, bool two, uint2 (&a)[4],
-                        uint2 (&a8)[4]) const {
-    a_frags(ab, gi, two, a, a8);
-  }
-  __device__ float scale(int, int m) const { return s_tok[m]; }
-};
-
 // The exact g128 GEMM of one block: block_rows(Src::kAEs) rows from m0
 // (16, or 8 / 4 for the fused kernel's bf16 / f32 x) and 32 output columns
 // from o0, all K, A from `src`.  NB = 1: out (M, N), columns o0 ..;
@@ -609,7 +622,7 @@ __device__ __forceinline__ void group_gemm(const Maps& maps, const Args& p,
     return;
   }
 
-  src.begin(p, m0, rows);
+  src.begin(m0, rows);
   const bool two = rows > 8;
   const int pairs = two ? kPairs : 1;
   const int bstride = kSlices * 32 * (two ? 4 : 2);  // terms a box
@@ -769,18 +782,23 @@ inline bool map_scales(Maps* maps, const Args& p, int es) {
                es, p.sg, p.K / 128, p.N, kGps, kTile, false);
 }
 
-// The per-channel stream: p.sg = s_channel (N,) f32; N weight columns (2I
-// with kGlu).
-template <bool kGlu, bool kBf16Out>
+// The per-channel stream, A from a source of type Src (its A tiles
+// streamed as elements of Src::kAEs bytes), over (M / block_rows(kAEs),
+// No/32) blocks: p.sg = s_channel (N,) f32; N weight columns (2I with
+// kGlu).  Where a pointer or N does not suit the TMA unit, the producer
+// copies.
+template <bool kGlu, bool kBf16Out, class Src = StreamedA>
 int launch_channel(Args p, cudaStream_t st) {
   using C = Channel<kGlu>;
-  auto k = channel_kernel<kGlu, kBf16Out>;
+  constexpr int kAEs = Src::kAEs, kBR = block_rows(kAEs);
+  auto k = channel_kernel<kGlu, kBf16Out, Src>;
   const int err = opt_in(k, C::kSmem);
   if (err != 0) return err;
   Maps maps;
-  p.tma = map_codes(&maps, p) && map_a(&maps, p);
+  p.tma = map_codes(&maps, p) &&
+          (kAEs == 1 ? map_a(&maps, p) : map_x(&maps, p, kAEs));
   const int No = kGlu ? p.N / 2 : p.N;
-  const dim3 grid((p.M + kRows - 1) / kRows, (No + kTile - 1) / kTile);
+  const dim3 grid((p.M + kBR - 1) / kBR, (No + kTile - 1) / kTile);
   k<<<grid, kThreads + 32, C::kSmem, st>>>(maps, p);
   return (int)cudaGetLastError();
 }

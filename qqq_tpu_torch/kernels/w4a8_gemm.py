@@ -4,13 +4,12 @@ w4a8_gemm, w4a8_gemm_fused, w4a8_linear, fuse_glu_layout, w4a8_glu_gemm,
 w4a8_glu_linear, FUSE_ACT_QUANT).
 
 Eight kernel routes, one wrapper each, each with a plain PyTorch twin and
-its own launch count (loop: ``own`` the kernel's own CUDA-core loop,
-``mma`` the int8 ``mma.sync`` tensor cores fed by the TMA weight stream of
-w4a8_stream.cuh (the fused g128 kernel quantizes x into its A fragments
-itself), ``wgmma`` the int8 warpgroup tensor-core tiles of
-w4a8_tc.cuh; ``mma|wgmma``: the stream below ``CHANNEL_TILES_MIN_M`` rows
-(GLU: ``GLU_CHANNEL_TILES_MIN_M``), the tiles from there); sources under
-csrc/:
+its own launch count (loop: ``mma`` the int8 ``mma.sync`` tensor cores
+fed by the TMA weight stream of w4a8_stream.cuh (the two fused kernels
+quantize x into their A fragments themselves), ``wgmma`` the int8
+warpgroup tensor-core tiles of w4a8_tc.cuh; ``mma|wgmma``: the stream below
+``CHANNEL_TILES_MIN_M`` rows (GLU: ``GLU_CHANNEL_TILES_MIN_M``), the tiles
+from there); sources under csrc/:
 
 =======================  ==============================  ==============  ==========
 wrapper                  TPU kernel                      CUDA source     loop
@@ -21,7 +20,7 @@ w4a8_gemm_group          _w4a8_group_kernel              w4a8_group.cu   mma
 w4a8_glu_group           _w4a8_group_glu_kernel          w4a8_group.cu   mma
 w4a8_gemm_requant        _w4a8_requant_group_kernel      w4a8_requant.cu wgmma
 w4a8_glu_requant         _w4a8_requant_group_glu_kernel  w4a8_requant.cu wgmma
-w4a8_gemm_fused_channel  _w4a8_fused_channel_kernel      w4a8_fused.cu   own
+w4a8_gemm_fused_channel  _w4a8_fused_channel_kernel      w4a8_fused.cu   mma
 w4a8_gemm_fused_group    _w4a8_fused_group_kernel        w4a8_fused.cu   mma
 =======================  ==============================  ==============  ==========
 

@@ -52,12 +52,12 @@ sys.path.insert(0, str(REPO))
 #: name stems of the W4A8 GEMM kernels → their row of PERF.md's table (the
 #: first stem a kernel's name holds)
 KERNEL_LABELS = (
+    ("QuantizedX", "#4 w4a8_gemm_fused_channel"),
     ("stream::glu_kernel", "#7 w4a8_glu_group"),
     ("stream::fused_kernel", "#5 w4a8_gemm_fused_group"),
     ("stream::kernel<", "#2 w4a8_gemm_group"),
     ("stream::channel_kernel<false", "#1 w4a8_gemm_channel"),
     ("stream::channel_kernel<true", "#6 w4a8_glu_channel"),
-    ("::fused_kernel<", "#4 w4a8_gemm_fused_channel"),
 )
 
 

@@ -498,16 +498,20 @@ def _assert_equal_but_null(mine, ref):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("bs", [8, 16, 128])
-def test_paged_write_kernels_bit_exact(dev, dtype, bs):
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+def test_paged_write_kernels_bit_exact(dev, dtype, bs, hd):
     """Decode: rows mid-block, past the table, and on a null table.  Chunk:
     2·bs tokens from mid-block (three blocks), a row that runs past its
-    table, a null-table row."""
+    table, a null-table row.  hd 64, 128 and 256 take the kernel's vector
+    lanes (hd / 32 values a lane), 96 the lane-strided ones; K/V rows off
+    their vector alignment take the strided ones too, with the same
+    result."""
     from qqq_tpu_torch.kernels.kv_write import (
         paged_chunk_write_int8, paged_chunk_write_int8_plain,
         paged_decode_write_int8, paged_decode_write_int8_plain,
     )
 
-    B, nkv, hd, nbmax = 3, 2, 64, 6
+    B, nkv, nbmax = 3, 2, 6
     g = _gen(dev)
     pool = list(_cache(dev, 1 + B * nbmax, nkv, bs, hd))
     tables = _tables(dev, B, nbmax, null_row=2)
@@ -527,6 +531,9 @@ def test_paged_write_kernels_bit_exact(dev, dtype, bs):
         plain(*ref, kn, vn, tables, cl)
         _assert_equal_but_null(mine, ref)
         assert not torch.equal(mine[0][1:], pool[0][1:])
+        off = [t.clone() for t in pool]
+        _launch_once(fn, *off, _misaligned(kn), _misaligned(vn), tables, cl)
+        _assert_equal_but_null(off, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -711,12 +718,15 @@ def test_split_decode_shapes_in_turn(dev):
 
 
 # K = 24576: the largest K that _fused_bn admits (96 groups, 12 stages of
-# the g128 kernel's ring; 8 rows of it fill the per-channel kernel's shared
-# memory); M = 1, 4, 17 and 64: decode, a ragged and four whole 16-row
-# tiles.  N = 33 and 517: widths the TMA unit refuses (the g128 kernel's
-# producer copies the codes and scales)
+# the ring); K = 32768: past what 8 rows of codes of the old per-channel
+# block could stage in shared memory (the stream has no limit on K); M = 1,
+# 3, 4, 8, 17 and 64: decode, ragged and whole 8-row (bf16 x) and 4-row
+# (f32 x) blocks.  N = 200 ragged against the 32-column tiles; N = 33 and
+# 517: widths the TMA unit refuses (the producer copies the codes and
+# scales)
 @pytest.mark.parametrize("M,K,N", [(1, 128, 33), (3, 384, 96),
-                                   (33, 1152, 200), (64, 256, 517)]
+                                   (33, 1152, 200), (64, 256, 517),
+                                   (8, 1152, 200), (8, 32768, 96)]
                          + [(M, 24576, 200) for M in (1, 4, 17, 64)])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -771,20 +781,59 @@ def test_w4a8_fused_group_quantizes_every_bf16_value(dev):
 
 
 def test_w4a8_fused_too_large_raises(dev):
-    """8 rows of K = 32768 codes exceed a block's shared memory: the kernel
-    refuses to launch and the wrapper raises; 4 rows fit."""
+    """8 rows of K = 32768 codes are more than the old per-channel block
+    could stage in shared memory, and its entry refused them; the weight
+    stream has no limit on K.  8 and 4 rows launch once each, bit-exact,
+    also from a weight and scales off a 16-byte boundary (the producer's
+    copy path)."""
     from qqq_tpu_torch.kernels import w4a8_gemm as k
 
     K, N = 32768, 64
     _, _, w, s = _gemm_operands(dev, 8, K, N, 0)
     x = torch.randn((8, K), generator=_gen(dev), device=dev).to(torch.bfloat16)
-    n0 = k.w4a8_gemm_fused_channel.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        k.w4a8_gemm_fused_channel(x, w, s)
-    assert k.w4a8_gemm_fused_channel.launches == n0
-    out = k.w4a8_gemm_fused_channel(x[:4], w, s)
-    assert k.w4a8_gemm_fused_channel.launches == n0 + 1
-    assert torch.equal(out, k.w4a8_gemm_fused_channel_plain(x[:4], w, s))
+    for rows in (8, 4):
+        out = _launch_once(k.w4a8_gemm_fused_channel, x[:rows], w, s)
+        assert torch.equal(out, k.w4a8_gemm_fused_channel_plain(x[:rows], w,
+                                                                s))
+        w2, s2 = _misaligned(w), _misaligned(s)
+        assert w2.data_ptr() % 16 and s2.data_ptr() % 16
+        assert torch.equal(
+            _launch_once(k.w4a8_gemm_fused_channel, x[:rows], w2, s2), out)
+
+
+def test_fused_channel_runs_on_the_stream(dev, monkeypatch):
+    """Through ``w4a8_gemm_fused`` (group_size -1), each CUDA call adds one
+    to the per-channel fused wrapper's count and to no other, and never
+    runs the plain version (replaced by one that fails).  The built library
+    holds #4 as the stream's ``channel_kernel`` over ``QuantizedX`` and no
+    ``fused_kernel`` outside namespace ``stream`` (the old CUDA-core
+    block)."""
+    import re
+
+    from qqq_tpu_torch.kernels import build
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA call ran the plain version")
+
+    monkeypatch.setattr(k, "w4a8_gemm_fused_channel_plain", refuse)
+    _, _, w, s = _gemm_operands(dev, 64, 1024, 512, 0)
+    x = torch.randn((64, 1024), generator=_gen(dev), device=dev)
+    for xd in (torch.bfloat16, torch.float32):
+        for M in (1, 4, 17, 64):
+            before = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+            out = k.w4a8_gemm_fused(x[:M].to(xd), w, s, None, group_size=-1)
+            after = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
+            assert {n: after[n] - before[n] for n in after} == {
+                n: int(n == "w4a8_gemm_fused_channel") for n in after}
+            assert out.is_cuda and out.shape == (M, 512)
+    torch.cuda.synchronize()
+    syms = set(re.findall(rb"_Z[A-Za-z0-9_]+",
+                          open(build.load("w4a8_fused")._name, "rb").read()))
+    assert [m for m in syms
+            if b"6stream14channel_kernel" in m and b"10QuantizedX" in m]
+    assert not [m for m in syms if re.search(rb"(?<!6stream)12fused_kernel",
+                                             m)]
 
 
 @pytest.mark.parametrize("group_size", [-1, 128])
