@@ -32,7 +32,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    block tables), and time it beside its bound, its
    plain version and a one-call PyTorch yardstick that the port never
    calls (the KV writes also by their device time alone: 20 launches in
-   one CUDA graph, replayed);
+   one CUDA graph, replayed; the slot write bit-exact at hd 64, 96, 128
+   and 256 from bf16 and f32 inputs);
 3. serve 4 requests through the port's Engine, with its default arguments
    (gate/up GLU-fused), on full-width, full-depth Llama-2-7B (random weights
    from a seeded generator): RTN-packed in groups of 128, the JAX package's
@@ -44,8 +45,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    with ``FUSE_ACT_QUANT``; then (e) full Llama-3.1-8B (GQA, llama3 RoPE
    scaling, built by ``ModelConfig.from_hf``), g128, over a 32768-token
    slot cache, with a 12000-token prompt: every decode tick on the S-tiled
-   decode kernel.  Each run checks every kernel's launch count against what
-   its dispatches imply;
+   decode kernel.  Every decode tick replays a captured CUDA graph (the
+   first tick of each graph runs eagerly and captures it); each run logs
+   its replays, its graphs, and ms per tick, ms per generated token and
+   decode tok/s.  3a runs again with every tick eager (tokens must equal
+   the captured run's), and 3a and 3c again with 8 decode steps fused in
+   each tick (``steps_per_tick=8``; tokens must equal the one-step runs').
+   Each run checks every kernel's launch count against what its
+   dispatches and decode steps imply;
 4. teacher-force a 2-layer cut of the g128 weights on the card and on the
    CPU (plain versions), over the slot cache and over the paged pool, and
    the same for a 2-layer cut of Llama-3.1-8B over a 16384-token slot cache
@@ -518,35 +525,52 @@ def check_fused(dev, gen, timer):
     return rows
 
 
+#: head dims and input dtypes at which the slot write is held bit-exact
+KV_WRITE_HDS = (64, 96, 128, 256)
+KV_WRITE_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def check_kv_write(dev, gen, timer, B=4, S=2048, nkv=NKV):
-    """The slot write at B rows over an (nkv, S) cache, bit-exact."""
+    """The slot write (#9: ``write_kernel`` over ``SlotDest``) at B rows over
+    an (nkv, S) cache, bit-exact at every head dim of KV_WRITE_HDS from bf16
+    and f32 inputs, with rows at cache_len 0, S - 1 and past S (the clamp);
+    timed at hd = 128 from bf16, the served path's."""
     from qqq_tpu_torch.kernels.kv_write import (
         slot_decode_write_int8, slot_decode_write_int8_plain,
     )
 
-    kc = torch.randint(-128, 128, (B, nkv, S, HD), generator=gen, device=dev,
-                       dtype=torch.int8)
-    vc = kc.flip(0).contiguous()
-    ks = torch.rand((B, nkv, S), generator=gen, device=dev)
-    vs = ks.flip(0).contiguous()
-    kn = torch.randn((B, 1, nkv, HD), generator=gen, device=dev).to(
-        torch.bfloat16)
-    vn = torch.randn((B, 1, nkv, HD), generator=gen, device=dev).to(
-        torch.bfloat16)
-    kn[0, 0, 3] = 0  # all-zero head row: the tiny-scale guard
-    clen = torch.tensor([0, 700, S - 1, S + 5], dtype=torch.int32, device=dev)
-    bufs = [kc, ks, vc, vs]
-    mine = [t.clone() for t in bufs]
-    plain = [t.clone() for t in bufs]
-    slot_decode_write_int8(*mine, kn, vn, clen)
-    slot_decode_write_int8_plain(*plain, kn, vn, clen)
-    torch.cuda.synchronize()
+    clen = torch.tensor([0, 700, S - 1, S + 5], dtype=torch.int32,
+                        device=dev)[:B]
     err = 0.0
-    for name, x, y in zip(("k", "k_scale", "v", "v_scale"), mine, plain):
-        err = max(err, (x.float() - y.float()).abs().max().item())
-        if not torch.equal(x, y):
-            raise AssertionError(f"slot_decode_write_int8: {name} not "
-                                 "bit-exact")
+    for hd in KV_WRITE_HDS:
+        for dtype in KV_WRITE_DTYPES:
+            kc = torch.randint(-128, 128, (B, nkv, S, hd), generator=gen,
+                               device=dev, dtype=torch.int8)
+            vc = kc.flip(0).contiguous()
+            ks = torch.rand((B, nkv, S), generator=gen, device=dev)
+            vs = ks.flip(0).contiguous()
+            kn = torch.randn((B, 1, nkv, hd), generator=gen,
+                             device=dev).to(dtype)
+            vn = torch.randn((B, 1, nkv, hd), generator=gen,
+                             device=dev).to(dtype)
+            kn[0, 0, 3] = 0  # all-zero head row: the tiny-scale guard
+            bufs = [kc, ks, vc, vs]
+            mine = [t.clone() for t in bufs]
+            plain = [t.clone() for t in bufs]
+            slot_decode_write_int8(*mine, kn, vn, clen)
+            slot_decode_write_int8_plain(*plain, kn, vn, clen)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("k", "k_scale", "v", "v_scale"), mine,
+                                  plain):
+                err = max(err, (x.float() - y.float()).abs().max().item())
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"slot_decode_write_int8 hd={hd} {dtype}: {name} "
+                        "not bit-exact")
+            if hd == HD and dtype == torch.bfloat16:
+                timed = (mine, plain, kn, vn)
+            del kc, vc, ks, vs, bufs
+    mine, plain, kn, vn = timed
     ms = timer.ms(lambda: slot_decode_write_int8(*mine, kn, vn, clen))
     dev_ms = timer.device_ms(lambda: slot_decode_write_int8(*mine, kn, vn,
                                                             clen))
@@ -554,9 +578,10 @@ def check_kv_write(dev, gen, timer, B=4, S=2048, nkv=NKV):
                                                              clen))
     nbytes = 2 * B * nkv * HD * 2 + B * 4 + 2 * B * nkv * (HD + 4)
     b, by = bound_ms(nbytes)
-    log(f"  slot_decode_write_int8 B={B} nkv={nkv} S={S}: bit-exact; "
-        f"{ms:.4f} ms with the wrapper, device {dev_ms:.4f} ms (graph of 20) "
-        f"(bound {b:.6f} by {by}, plain {plain_ms:.4f})")
+    log(f"  slot_decode_write_int8 B={B} nkv={nkv} S={S}: bit-exact at hd "
+        f"{KV_WRITE_HDS} from bf16 and f32, cache_len {clen.tolist()}; hd "
+        f"{HD} bf16: {ms:.4f} ms with the wrapper, device {dev_ms:.4f} ms "
+        f"(graph of 20) (bound {b:.6f} by {by}, plain {plain_ms:.4f})")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=b, bound_by=by, max_abs_err=err,
                 shape=f"B={B} nkv={nkv} S={S} bf16 K/V")
@@ -1033,58 +1058,45 @@ def check_paged_decode(dev, gen, timer):
     return report
 
 
+#: the KV writes and attention kernels: wrapper name → (CUDA source, TPU
+#: kernel replaced)
+KV_ATTN_KERNELS = {
+    "slot_decode_write_int8": ("qqq_tpu_torch/csrc/kv_write.cu",
+                               "qqq_tpu/kernels/kv_write.py:36"),
+    "decode_attention_int8": ("qqq_tpu_torch/csrc/split_decode_attention.cu",
+                              "qqq_tpu/kernels/attention.py:33"),
+    "flash_decode_attention_int8": (
+        "qqq_tpu_torch/csrc/split_decode_attention.cu",
+        "qqq_tpu/kernels/attention.py:757"),
+    "flash_attention_int8": ("qqq_tpu_torch/csrc/flash_attention.cu",
+                             "qqq_tpu/kernels/attention.py:89"),
+    "paged_decode_write_int8": ("qqq_tpu_torch/csrc/kv_write.cu",
+                                "qqq_tpu/kernels/kv_write.py:158"),
+    "paged_chunk_write_int8": ("qqq_tpu_torch/csrc/kv_write.cu",
+                               "qqq_tpu/kernels/kv_write.py:183"),
+    "paged_flash_attention_int8": ("qqq_tpu_torch/csrc/flash_attention.cu",
+                                   "qqq_tpu/kernels/attention.py:404"),
+    "paged_decode_attention_int8": (
+        "qqq_tpu_torch/csrc/split_decode_attention.cu",
+        "qqq_tpu/kernels/attention.py:543"),
+}
+
+
 def kernel_fns():
     """Every kernel wrapper of the served paths → (wrapper, CUDA source, TPU
     kernel replaced)."""
-    from qqq_tpu_torch.kernels.attention import (
-        decode_attention_int8, flash_attention_int8,
-        flash_decode_attention_int8, paged_decode_attention_int8,
-        paged_flash_attention_int8,
-    )
-    from qqq_tpu_torch.kernels.kv_write import (
-        paged_chunk_write_int8, paged_decode_write_int8,
-        slot_decode_write_int8,
-    )
-    from qqq_tpu_torch.kernels.w4a8_gemm import KERNEL_WRAPPERS
+    from qqq_tpu_torch.kernels import counted_wrappers
 
-    fns = {name: (KERNEL_WRAPPERS[name], src, rep)
-           for name, (src, rep) in GEMM_KERNELS.items()}
-    fns.update({
-        "slot_decode_write_int8": (slot_decode_write_int8,
-                                   "qqq_tpu_torch/csrc/kv_write.cu",
-                                   "qqq_tpu/kernels/kv_write.py:36"),
-        "decode_attention_int8": (
-            decode_attention_int8,
-            "qqq_tpu_torch/csrc/split_decode_attention.cu",
-            "qqq_tpu/kernels/attention.py:33"),
-        "flash_decode_attention_int8": (
-            flash_decode_attention_int8,
-            "qqq_tpu_torch/csrc/split_decode_attention.cu",
-            "qqq_tpu/kernels/attention.py:757"),
-        "flash_attention_int8": (flash_attention_int8,
-                                 "qqq_tpu_torch/csrc/flash_attention.cu",
-                                 "qqq_tpu/kernels/attention.py:89"),
-        "paged_decode_write_int8": (paged_decode_write_int8,
-                                    "qqq_tpu_torch/csrc/kv_write.cu",
-                                    "qqq_tpu/kernels/kv_write.py:158"),
-        "paged_chunk_write_int8": (paged_chunk_write_int8,
-                                   "qqq_tpu_torch/csrc/kv_write.cu",
-                                   "qqq_tpu/kernels/kv_write.py:183"),
-        "paged_flash_attention_int8": (
-            paged_flash_attention_int8,
-            "qqq_tpu_torch/csrc/flash_attention.cu",
-            "qqq_tpu/kernels/attention.py:404"),
-        "paged_decode_attention_int8": (
-            paged_decode_attention_int8,
-            "qqq_tpu_torch/csrc/split_decode_attention.cu",
-            "qqq_tpu/kernels/attention.py:543"),
-    })
-    return fns
+    where = {**GEMM_KERNELS, **KV_ATTN_KERNELS}
+    return {name: (fn, *where[name])
+            for name, fn in counted_wrappers().items()}
 
 
 PROMPT_LENS = (100, 300, 600, 900)
 BUCKETS = (128, 512, 2048)
 MAX_BATCH = 4
+#: decode steps fused in each tick of the multi-step runs (3a and 3c)
+MULTI_STEPS = 8
 #: run 3e: prompt lengths (one per bucket), buckets and slot-cache length
 L31_PROMPT_LENS = (100, 400, 1500, 12000)
 L31_BUCKETS = (128, 512, 2048, 16384)
@@ -1118,7 +1130,8 @@ def slot_kernels(max_len: int):
 
 def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
                       max_len=2048, fused=False):
-    """Launches per kernel that a served run implies.  Per layer and
+    """Launches per kernel that a served run implies (``ticks``: its decode
+    steps, a replayed graph's counted as launched).  Per layer and
     forward pass: four linears (q/k/v/o) and down_proj on the plain GEMM,
     gate/up on the GLU GEMM, one KV write and one attention (slot or
     paged; decode or prefill).  g128: the requant route for prefill
@@ -1157,15 +1170,20 @@ def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
 
 
 def serve(dev, params, config, scheme, paged=False, num_blocks=None,
-          traffic=LLAMA2_TRAFFIC, fused=False):
+          traffic=LLAMA2_TRAFFIC, fused=False, steps_per_tick=1,
+          eager=False):
     """Serve 4 requests through ``Engine`` with default arguments (gate/up
     GLU-fused; ``paged`` over the block pool, of ``num_blocks`` blocks or
-    the Engine's default): ``traffic`` = (prompt lengths, buckets, max_len),
-    64 greedy new tokens each.  With ``fused``, ``FUSE_ACT_QUANT`` is set
-    for the run and restored after it.
+    the Engine's default; ``steps_per_tick`` decode steps fused a tick):
+    ``traffic`` = (prompt lengths, buckets, max_len), 64 greedy new tokens
+    each.  With ``fused``, ``FUSE_ACT_QUANT`` is set for the run and
+    restored after it.  Every decode tick must replay a captured CUDA graph
+    (but the first of each graph, which runs eagerly and captures); with
+    ``eager`` the engine's private switch runs every tick eagerly instead.
     Every kernel count is set to 0 just before the run and read just after;
-    each must equal what the run's dispatches imply.  Returns the counts,
-    the first prompt, the output tokens and the engine."""
+    each must equal what the run's dispatches and decode steps imply.
+    Returns the counts, the first prompt, the output tokens and the
+    engine."""
     from qqq_tpu_torch.kernels import w4a8_gemm
     from qqq_tpu_torch.serve.engine import Engine, Request
     from qqq_tpu_torch.serve.sampling import SamplingParams
@@ -1177,10 +1195,13 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
                for n in prompt_lens]
     if paged:
         eng = Engine(params, config, max_batch=MAX_BATCH, max_len=max_len,
-                     paged=True, num_blocks=num_blocks, device=dev)
+                     paged=True, num_blocks=num_blocks, device=dev,
+                     steps_per_tick=steps_per_tick)
     else:
         eng = Engine(params, config, max_batch=MAX_BATCH, max_len=max_len,
-                     prefill_buckets=buckets, device=dev)
+                     prefill_buckets=buckets, device=dev,
+                     steps_per_tick=steps_per_tick)
+    eng._eager_tick = eager
     if not all("gate_up_glu" in layer for layer in eng.params["layers"]):
         raise AssertionError("Engine() did not fuse gate/up")
     reqs = [Request(prompt_tokens=p,
@@ -1204,16 +1225,25 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
                 0 <= t < vocab for t in r.output_tokens):
             raise AssertionError(f"request of {len(r.prompt_tokens)} tokens "
                                  f"returned {len(r.output_tokens)} tokens")
+    ticks, replays = st["decode_ticks"], st["graph_replays"]
+    if eager and (replays or eng._graphs):
+        raise AssertionError("the eager run replayed or captured a graph")
+    if not eager and (replays == 0
+                      or replays + st["graph_captures"] != ticks):
+        raise AssertionError(f"{ticks} decode ticks but {replays} graph "
+                             f"replays and {st['graph_captures']} captures")
     # (M, T) of each prefill dispatch, as the engine's scheduler chose them
     dispatches = [(rows * t, t) for rows, t in st["prefill_shapes"]]
     expect = expected_launches(scheme, config.num_hidden_layers, dispatches,
-                               st["decode_ticks"], paged=paged,
+                               st["decode_steps"], paged=paged,
                                max_len=max_len, fused=fused)
     must_run = (SCHEME_KERNELS[scheme]
                 + (PAGED_KERNELS if paged else slot_kernels(max_len))
                 + ((FUSED_KERNEL[scheme],) if fused else ()))
+    tick = "eager" if eager else "captured"
     label = (f"{scheme}{' paged' if paged else ''}"
-             f"{' FUSE_ACT_QUANT' if fused else ''}")
+             f"{' FUSE_ACT_QUANT' if fused else ''}, {tick} tick, "
+             f"steps_per_tick {steps_per_tick}")
     for name, n in launches.items():
         if n != expect[name]:
             raise AssertionError(f"{label}: {name}: {n} launches on the "
@@ -1230,12 +1260,26 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
            f"{eng.prefill_batch}" if paged else "")
         + f") in {wall:.3f} s: {st['prefill_dispatches']} prefill "
         f"dispatches (M, T) = {dispatches} in {st['prefill_s']:.3f} s, "
-        f"{st['decode_ticks']} decode ticks in {st['decode_s']:.3f} s"
+        f"{ticks} decode ticks ({st['decode_steps']} steps) in "
+        f"{st['decode_s']:.3f} s"
         + (f", {st['preemptions']} preemptions" if paged else ""))
     log(f"  TTFT per request (s): "
         + ", ".join(f"{r.ttft:.3f}" for r in reqs))
-    log(f"  decode: {decode_tokens / st['decode_s']:.1f} tok/s over all "
-        f"slots, {1e3 * st['decode_s'] / st['decode_ticks']:.2f} ms per tick")
+    if not eager:
+        # the replays alone: every tick but each graph's first, which ran
+        # eagerly and captured it (n steps for a graph of n)
+        replay_s = st["decode_s"] - st["graph_capture_s"]
+        replay_steps = st["decode_steps"] - sum(k[0] for k in eng._graphs)
+        log(f"  graphs: {len(eng._graphs)} held (steps, sampling branch, "
+            f"FUSE_ACT_QUANT) {sorted(eng._graphs)}, {replays} replays, "
+            f"{st['graph_captures']} ticks eager before their capture, "
+            f"{st['graph_capture_s']:.3f} s in those ticks; the replays "
+            f"alone: {1e3 * replay_s / replays:.3f} ms per tick, "
+            f"{1e3 * replay_s / replay_steps:.3f} ms per step")
+    log(f"  decode ({tick} tick, steps_per_tick {steps_per_tick}): "
+        f"{1e3 * st['decode_s'] / ticks:.3f} ms per tick, "
+        f"{1e3 * st['decode_s'] / decode_tokens:.3f} ms per generated token, "
+        f"{decode_tokens / st['decode_s']:.1f} tok/s over all slots")
     log(f"  launches on the served path: {json.dumps(launches)}")
     log(f"  tokens: {json.dumps([r.output_tokens for r in reqs])}")
     return launches, prompts[0], [r.output_tokens for r in reqs], eng
@@ -1559,6 +1603,20 @@ def main() -> int:
         "slot KV cache)")
     params = random_packed_params(dev, config, 128)
     runs["g128"], prompt0, toks_a, _ = serve(dev, params, config, "g128")
+    log("phase 3a, eager: the same run with every decode tick eager")
+    _, _, toks, _ = serve(dev, params, config, "g128", eager=True)
+    if toks != toks_a:
+        raise AssertionError("3a: the eager tick's tokens differ from the "
+                             "captured tick's")
+    log("  tokens equal to the captured run's")
+    log(f"phase 3a, steps_per_tick {MULTI_STEPS}: 3a's traffic with "
+        f"{MULTI_STEPS} decode steps fused in each captured tick")
+    _, _, toks, _ = serve(dev, params, config, "g128",
+                          steps_per_tick=MULTI_STEPS)
+    if toks != toks_a:
+        raise AssertionError(f"3a: steps_per_tick {MULTI_STEPS} gives other "
+                             "tokens than steps_per_tick 1")
+    log("  tokens equal to steps_per_tick 1's")
     log("phase 3f: 3a with FUSE_ACT_QUANT (decode linears on the "
         "activation-quant-fused g128 kernel)")
     runs["g128 fused"], _, toks, _ = serve(dev, params, config, "g128",
@@ -1570,6 +1628,14 @@ def main() -> int:
         "INT8 KV pool, chunked prefill, Engine defaults)")
     runs["paged"], _, roomy, _ = serve(dev, params, config, "g128",
                                        paged=True)
+    log(f"phase 3c, steps_per_tick {MULTI_STEPS}: 3c's traffic with "
+        f"{MULTI_STEPS} decode steps fused in each captured tick")
+    _, _, toks, _ = serve(dev, params, config, "g128", paged=True,
+                          steps_per_tick=MULTI_STEPS)
+    if toks != roomy:
+        raise AssertionError(f"3c: steps_per_tick {MULTI_STEPS} gives other "
+                             "tokens than steps_per_tick 1")
+    log("  tokens equal to steps_per_tick 1's")
     tight = 13
     log(f"phase 3d: the same traffic over a pool of {tight} blocks "
         f"({tight - 1} usable; the requests end up holding 2 + 3 + 6 + 8): "

@@ -13,7 +13,7 @@
 // head_dim, and writes q and s in place.  IEEE division and
 // round-half-even (rintf, no fast math), so codes and scales are
 // bit-identical to the plain PyTorch versions.  Destinations:
-// * slot: position min(cache_len[b], S - 1) of row b;
+// * slot: position clamp(cache_len[b], 0, S - 1) of row b;
 // * paged decode: position p = cache_len[b] in pool block tab[b][p / bs]
 //   at p % bs, or the null block 0 when p / bs >= nbmax;
 // * paged chunk: token t at position p = cache_len[b] + t, addressed the
@@ -30,17 +30,14 @@
 // each token are written: the paged writes are plain scatters (vLLM's
 // reshape_and_cache), and the chunk needs none of the TPU wrapper's
 // pre-shift for sublane alignment.
-// * Paged (write_kernel, the destination a template parameter: PagedDest):
-//   one warp per (token row, kv head, K|V), four warps a block.  Where hd =
-//   32·V for V = 2, 4 or 8 (hd 64, 128, 256), a lane holds V consecutive
-//   values from one vector load (8 bytes of bf16 or 16 of f32 at hd = 128;
-//   two 16-byte loads for f32 at 256) and stores its V codes as one word;
-//   other head_dims (96, or any other) take lane-strided scalar loads and
-//   byte stores.  The absmax is a warp-shuffle reduction: no shared memory,
-//   no block barrier.  Lane 0 stores the scale.
-// * Slot (slot_write_kernel): one block of 128 threads per (row, kv head,
-//   K|V), the absmax through warp shuffles and one pass through shared
-//   memory.
+// * One kernel, write_kernel, its destination a template parameter (SlotDest,
+//   PagedDest): one warp per (token row, kv head, K|V), four warps a block.
+//   Where hd = 32·V for V = 2, 4 or 8 (hd 64, 128, 256), a lane holds V
+//   consecutive values from one vector load (8 bytes of bf16 or 16 of f32
+//   at hd = 128; two 16-byte loads for f32 at 256) and stores its V codes
+//   as one word; other head_dims (96, or any other) take lane-strided
+//   scalar loads and byte stores.  The absmax is a warp-shuffle reduction:
+//   no shared memory, no block barrier.  Lane 0 stores the scale.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,54 +46,22 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Quantize the hd values at x and store codes at row[0..hd) and the scale
-// at *scale; every thread of the block calls it.
-template <typename T>
-__device__ __forceinline__ void quant_store(const T* __restrict__ x, int hd,
-                                            int8_t* __restrict__ row,
-                                            float* __restrict__ scale) {
-  __shared__ float wmax[kThreads / 32];
-  float amax = 0.f;
-  for (int d = threadIdx.x; d < hd; d += kThreads)
-    amax = fmaxf(amax, fabsf(to_f(x[d])));
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  amax = wmax[0];
-  for (int i = 1; i < kThreads / 32; ++i) amax = fmaxf(amax, wmax[i]);
-
-  const float s = fmaxf(amax / 127.0f, FLT_MIN);
-  for (int d = threadIdx.x; d < hd; d += kThreads) {
-    const float q = fminf(fmaxf(rintf(to_f(x[d]) / s), -128.f), 127.f);
-    row[d] = (int8_t)q;
+// Where the slot write puts head h of row r of a (B, 1, nkv, hd) input:
+// position clamp(cache_len[r], 0, S - 1) of row r.  slot() is the (row,
+// head, position) row of the cache and of its scales.
+struct SlotDest {
+  const int* cache_len;
+  int nkv, S;
+  __device__ size_t slot(int r, int h) const {
+    const int pos = max(0, min(cache_len[r], S - 1));
+    return ((size_t)r * nkv + h) * S + pos;
   }
-  if (threadIdx.x == 0) *scale = s;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-slot_write_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
-                  int8_t* __restrict__ k_cache, float* __restrict__ k_scale,
-                  int8_t* __restrict__ v_cache, float* __restrict__ v_scale,
-                  const int* __restrict__ cache_len, int nkv, int S, int hd) {
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const bool is_v = blockIdx.z != 0;
-  const size_t bh = (size_t)b * nkv + h;
-  const int pos = max(0, min(cache_len[b], S - 1));
-  const size_t slot = bh * S + pos;
-  quant_store((is_v ? v_new : k_new) + bh * hd, hd,  // (B, 1, nkv, hd)
-              (is_v ? v_cache : k_cache) + slot * hd,
-              (is_v ? v_scale : k_scale) + slot);
-}
+};
 
 // Where the paged writes put head h of token row r = b * T + t of a (B,
 // T, nkv, hd) input: position p = cache_len[b] + t of row b's table, in pool
@@ -216,38 +181,6 @@ write_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
   if (lane == 0) (is_v ? v_scale : k_scale)[slot] = s;
 }
 
-}  // namespace
-
-// k_new, v_new (B, 1, nkv, hd) bf16 (bf16_in = 1) or f32; caches
-// (B, nkv, S, hd) int8 and scales (B, nkv, S) f32, written in place;
-// cache_len (B,) int32.
-extern "C" int slot_decode_write_int8(const void* k_new, const void* v_new,
-                                      void* k_cache, void* k_scale,
-                                      void* v_cache, void* v_scale,
-                                      const void* cache_len, int B, int nkv,
-                                      int S, int hd, int bf16_in,
-                                      void* stream) {
-  const dim3 grid(B, nkv, 2);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto kc = static_cast<int8_t*>(k_cache);
-  auto vc = static_cast<int8_t*>(v_cache);
-  auto ks = static_cast<float*>(k_scale);
-  auto vs = static_cast<float*>(v_scale);
-  auto cl = static_cast<const int*>(cache_len);
-  if (bf16_in)
-    slot_write_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(k_new),
-        static_cast<const __nv_bfloat16*>(v_new), kc, ks, vc, vs, cl, nkv, S,
-        hd);
-  else
-    slot_write_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(k_new), static_cast<const float*>(v_new),
-        kc, ks, vc, vs, cl, nkv, S, hd);
-  return (int)cudaGetLastError();
-}
-
-namespace {
-
 // write_kernel over rows token rows of nkv heads into dest, with V = hd /
 // 32 values a lane where hd and the pointers allow vector loads and word
 // stores, else lane-strided.
@@ -285,6 +218,19 @@ int launch_write(const void* k_new, const void* v_new, void* k_dst,
   return (int)cudaGetLastError();
 }
 
+// launch_write at the input's element type (bf16_in = 1: bf16, else f32)
+template <class Dest>
+int launch_typed(const void* k_new, const void* v_new, void* k_dst,
+                 void* k_scale, void* v_dst, void* v_scale, Dest dest,
+                 int rows, int nkv, int hd, int bf16_in, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  return bf16_in ? launch_write<__nv_bfloat16>(k_new, v_new, k_dst, k_scale,
+                                               v_dst, v_scale, dest, rows,
+                                               nkv, hd, st)
+                 : launch_write<float>(k_new, v_new, k_dst, k_scale, v_dst,
+                                       v_scale, dest, rows, nkv, hd, st);
+}
+
 int launch_paged(const void* k_new, const void* v_new, void* k_pool,
                  void* k_scale, void* v_pool, void* v_scale,
                  const void* tables, const void* cache_len, int B, int T,
@@ -292,15 +238,25 @@ int launch_paged(const void* k_new, const void* v_new, void* k_pool,
                  void* stream) {
   const PagedDest dest{static_cast<const int*>(tables),
                        static_cast<const int*>(cache_len), T, nkv, bs, nbmax};
-  auto st = static_cast<cudaStream_t>(stream);
-  return bf16_in ? launch_write<__nv_bfloat16>(k_new, v_new, k_pool, k_scale,
-                                               v_pool, v_scale, dest, B * T,
-                                               nkv, hd, st)
-                 : launch_write<float>(k_new, v_new, k_pool, k_scale, v_pool,
-                                       v_scale, dest, B * T, nkv, hd, st);
+  return launch_typed(k_new, v_new, k_pool, k_scale, v_pool, v_scale, dest,
+                      B * T, nkv, hd, bf16_in, stream);
 }
 
 }  // namespace
+
+// The slot write: k_new, v_new (B, 1, nkv, hd) bf16 (bf16_in = 1) or f32;
+// caches (B, nkv, S, hd) int8 and scales (B, nkv, S) f32, written in place;
+// cache_len (B,) int32.
+extern "C" int slot_decode_write_int8(const void* k_new, const void* v_new,
+                                      void* k_cache, void* k_scale,
+                                      void* v_cache, void* v_scale,
+                                      const void* cache_len, int B, int nkv,
+                                      int S, int hd, int bf16_in,
+                                      void* stream) {
+  const SlotDest dest{static_cast<const int*>(cache_len), nkv, S};
+  return launch_typed(k_new, v_new, k_cache, k_scale, v_cache, v_scale, dest,
+                      B, nkv, hd, bf16_in, stream);
+}
 
 // Both paged writes: k_new, v_new (B, T, nkv, hd) bf16 (bf16_in = 1) or
 // f32, T = 1 for the decode write; pools (nb, nkv, bs, hd) int8 and scales

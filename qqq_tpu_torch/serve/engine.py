@@ -1,8 +1,16 @@
 """Inference engine: continuous batching with a prefill/decode split
 (port of qqq_tpu/serve/engine.py, single device).
 
-* ``max_batch`` decode slots; every tick decodes one token for all slots at
-  once (inactive rows compute and are ignored, as in JAX);
+* ``max_batch`` decode slots; every tick decodes ``steps_per_tick`` tokens
+  (fewer near a row's budget or the cache's end) for all slots at once,
+  each step's token feeding the next (inactive rows compute and are
+  ignored, as in JAX's scan);
+* on the card a tick is one replay of a CUDA graph (serve/tick_graph.py),
+  captured at its first use and kept per (steps, sampling branch, GEMM
+  route flag): JAX's one jitted program a tick.  The tick's small inputs
+  travel as one packed host→device copy into the graph's static tensors,
+  and its tokens and log-probabilities come back in one copy.  Prefill
+  stays eager;
 * continuous batching is the host loop of :meth:`Engine.run`: a freed slot
   admits the next pending request at the next scheduling round;
 * the KV cache is INT8 by default and is updated in place.
@@ -25,10 +33,9 @@ Two KV layouts, as in JAX:
 
 Both run the JAX engine's default GEMM fusion (``fuse=True``: gate/up
 through the GLU-fused kernel).  Chunked prefill in slot mode, the prefix
-cache, speculative decoding, meshes and the multi-step decode scan keep
-the JAX engine's argument names and raise ``NotImplementedError``; so do
-requests that ask for penalties, logit bias, guided choice, seeds or top-N
-logprobs.
+cache, speculative decoding and meshes keep the JAX engine's argument
+names and raise ``NotImplementedError``; so do requests that ask for
+penalties, logit bias, guided choice, seeds or top-N logprobs.
 """
 
 from __future__ import annotations
@@ -41,12 +48,14 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from qqq_tpu_torch.kernels import w4a8_gemm
 from qqq_tpu_torch.models import llama as M
 from qqq_tpu_torch.models.config import ModelConfig
 from qqq_tpu_torch.serve import kv_cache, paged_kv
 from qqq_tpu_torch.serve.sampling import (
-    SamplingParams, chosen_logprob, sample_batched,
+    SamplingParams, chosen_logprob, sample_batched, sampling_branch,
 )
+from qqq_tpu_torch.serve.tick_graph import TickGraph
 from qqq_tpu_torch.utils.device import resolve_device
 
 
@@ -84,6 +93,11 @@ class Request:
 
 #: max requests prefilled in one dispatch
 _PREFILL_BATCH = 8
+
+#: rows of the packed per-tick input (JAX: Engine._TICK_ROWS without the
+#: penalty and seed planes): tokens, cache_len, active, temperature, top_k,
+#: top_p, min_p; the floats ride bitcast as int32
+_TICK_ROWS = 7
 
 
 def _bucket(n: int, buckets) -> int:
@@ -135,8 +149,9 @@ class Engine:
         defaults to ``1 + max_batch · max_len / block_size``, which never
         preempts — size it down to oversubscribe."""
         del spec_k  # meaningful only with speculative decoding
-        for on, name in ((steps_per_tick != 1, "steps_per_tick > 1"),
-                         (mesh is not None, "mesh"),
+        if steps_per_tick < 1:
+            raise ValueError(f"steps_per_tick {steps_per_tick} < 1")
+        for on, name in ((mesh is not None, "mesh"),
                          (prefill_chunk and not paged,
                           "chunked prefill in slot mode (prefill_chunk "
                           "without paged)"),
@@ -154,6 +169,7 @@ class Engine:
         self.config = config
         self.max_batch = max_batch
         self.max_len = max_len
+        self.steps_per_tick = steps_per_tick
         self.dtype = dtype
         self.kv_quantized = kv_quantized
         self.prefill_buckets = tuple(
@@ -184,8 +200,11 @@ class Engine:
             #: (max_batch, nbmax) pool block per (slot, virtual block); 0 =
             #: the null block
             self.tables = np.zeros((max_batch, self._nbmax), np.int32)
-            #: device copy of ``tables``, uploaded again only when dirty
-            self._tables_dev: Optional[torch.Tensor] = None
+            #: device copy of ``tables``, copied into again only when dirty:
+            #: one tensor for the engine's life, which the graphs read
+            self._tables_dev = torch.zeros((max_batch, self._nbmax),
+                                           dtype=torch.int32,
+                                           device=self.device)
             self._tables_dirty = True
             self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
             self.caches = paged_kv.init(config, num_blocks, block_size,
@@ -224,19 +243,42 @@ class Engine:
         self._admit_seq = 0
         self.slot_seq = [0] * max_batch
         self.generator = torch.Generator(device=self.device).manual_seed(0)
+        #: the decode tick's packed inputs (_TICK_ROWS, max_batch) on the
+        #: device, one tensor for the engine's life, and the (pinned, on the
+        #: card) host buffer that each tick fills and copies into it
+        self._tick_in = torch.zeros((_TICK_ROWS, max_batch),
+                                    dtype=torch.int32, device=self.device)
+        self._tick_host = self._tick_in
+        if self.device.type == "cuda":
+            self._tick_host = torch.zeros_like(self._tick_in, device="cpu",
+                                              pin_memory=True)
+        #: (steps, sampling branch, FUSE_ACT_QUANT) → the captured tick
+        self._graphs: Dict[tuple, TickGraph] = {}
+        self._graph_stream = None  # the side stream of warm-ups and captures
+        #: run the decode tick eagerly on the card too: for comparisons
+        #: with the captured tick only (the CPU never captures)
+        self._eager_tick = False
         self._pending: List[Request] = []
         self.stats = {
             "prefills": 0, "prefill_tokens": 0, "prefill_chunks": 0,
             "prefill_dispatches": 0,
             "generated_tokens": 0, "decode_ticks": 0, "preemptions": 0,
             "prefill_s": 0.0, "decode_s": 0.0,
+            # decode steps (a tick fuses up to steps_per_tick), ticks
+            # replayed from a captured graph, graphs captured and the
+            # seconds of the ticks that captured (their eager run included)
+            "decode_steps": 0, "graph_replays": 0, "graph_captures": 0,
+            "graph_capture_s": 0.0,
             # (rows, bucket or chunk) of each prefill dispatch, in order
             "prefill_shapes": [],
         }
 
     # -- device work -------------------------------------------------------
 
-    def _sampling_tensors(self, rows: List[Optional[Request]]):
+    @staticmethod
+    def _sampling_planes(rows: List[Optional[Request]]):
+        """(temperature, top_k, top_p, min_p) host arrays, one entry a row;
+        a ``None`` row is greedy."""
         n = len(rows)
         temp = np.zeros((n,), np.float32)
         topk = np.zeros((n,), np.int32)
@@ -248,15 +290,18 @@ class Engine:
             sp = r.sampling
             temp[i], topk[i], topp[i], minp[i] = (
                 sp.temperature, sp.top_k, sp.top_p, sp.min_p)
-        return tuple(torch.from_numpy(a).to(self.device)
-                     for a in (temp, topk, topp, minp))
+        return temp, topk, topp, minp
 
     def _sample(self, last: torch.Tensor, rows: List[Optional[Request]]):
-        """(tokens, logprobs) as host arrays — one device→host copy."""
-        tok = sample_batched(last, self.generator,
-                             *self._sampling_tensors(rows))
-        active = torch.tensor([r is not None for r in rows],
-                              device=self.device)
+        """A prefill's first tokens: (tokens, logprobs) as host arrays — one
+        device→host copy; ``None`` rows are masked to token 0."""
+        planes = self._sampling_planes(rows)
+        tok = sample_batched(
+            last, self.generator,
+            *(torch.from_numpy(a).to(self.device) for a in planes),
+            branch=sampling_branch(*planes))
+        active = torch.from_numpy(
+            np.array([r is not None for r in rows])).to(self.device)
         tok = torch.where(active, tok, 0)
         both = torch.stack([tok.to(torch.float32),
                             chosen_logprob(last, tok)]).cpu().numpy()
@@ -377,34 +422,128 @@ class Engine:
         self._maybe_finish(slot)
         self._emit(req)
 
-    @torch.inference_mode()
-    def _decode_tick(self, active: np.ndarray) -> None:
-        """One decode step across all slots (inactive rows are masked).  In
-        paged mode the masked rows still write their K/V at ``slot_len``
-        through their table row: an empty slot's table is all null, and a
-        mid-prefill slot's position is rewritten by its next chunk."""
+    def _decode_steps(self, n: int, branch: str) -> torch.Tensor:
+        """``n`` decode steps across all slots from the static tick inputs
+        (JAX: _decode_multi's scan body): each step's sampled token is the
+        next step's input, inactive rows are masked to token 0, and
+        ``cache_len + 1`` is carried.  Returns (2, max_batch, n) f32:
+        tokens and their log-probabilities.  This is what a graph
+        captures."""
+        buf = self._tick_in
+        tok = buf[0].to(torch.int64)
+        cache_len = buf[1]
+        active = buf[2] != 0
+        temp, topp, minp = (buf[r].view(torch.float32) for r in (3, 5, 6))
+        topk = buf[4]
+        tables = self._tables_dev if self.paged else None
+        toks, lps = [], []
+        for _ in range(n):
+            logits, _ = M.forward(
+                self.params, self.config, tok[:, None], caches=self.caches,
+                cache_len=cache_len, block_tables=tables)
+            last = logits[:, -1, :]
+            nxt = torch.where(active, sample_batched(
+                last, self.generator, temp, topk, topp, minp, branch=branch),
+                0)
+            toks.append(nxt)
+            lps.append(chosen_logprob(last, nxt))
+            tok = nxt.to(torch.int64)
+            cache_len = cache_len + 1
+        return torch.stack([torch.stack(toks, 1).to(torch.float32),
+                            torch.stack(lps, 1)])
+
+    def _run_tick(self, n: int, branch: str) -> torch.Tensor:
+        """:meth:`_decode_steps` eagerly on the CPU (and with
+        ``_eager_tick``); on the card by replaying the graph of this
+        (steps, branch, GEMM route flag), which the first such tick
+        captures after running eagerly on the capture stream: that run
+        does every kernel's first-call host work."""
+        if self.device.type != "cuda" or self._eager_tick:
+            return self._decode_steps(n, branch)
+        key = (n, branch, w4a8_gemm.FUSE_ACT_QUANT)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self.stats["graph_replays"] += 1
+            return graph.replay()
         t0 = time.perf_counter()
-        tokens = torch.from_numpy(self.slot_last_tok.astype(np.int64))
-        cache_len = torch.from_numpy(self.slot_len.copy())
-        logits, _ = M.forward(
-            self.params, self.config, tokens.to(self.device)[:, None],
-            caches=self.caches, cache_len=cache_len.to(self.device),
-            block_tables=self._tables_arg(),
-        )
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        stream, main = self._graph_stream, torch.cuda.current_stream()
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            out = self._decode_steps(n, branch)
+        main.wait_stream(stream)
+        self._graphs[key] = TickGraph(
+            lambda: self._decode_steps(n, branch), self.generator, stream)
+        self.stats["graph_captures"] += 1
+        self.stats["graph_capture_s"] += time.perf_counter() - t0
+        return out
+
+    def _pack_tick(self, active: np.ndarray,
+                   rows: List[Optional[Request]]) -> str:
+        """Fill the tick's host buffer (JAX: _pack_tick_args) and return
+        the sampling branch of the active rows."""
+        h = self._tick_host.numpy()
+        h[0] = self.slot_last_tok
+        h[1] = self.slot_len
+        h[2] = active
+        temp, topk, topp, minp = self._sampling_planes(rows)
+        h[3] = temp.view(np.int32)
+        h[4] = topk
+        h[5] = topp.view(np.int32)
+        h[6] = minp.view(np.int32)
+        return sampling_branch(temp, topk, topp, minp)
+
+    @torch.inference_mode()
+    def _decode_tick(self, active: np.ndarray, n: int = 1) -> None:
+        """``n`` fused decode steps across all slots (inactive rows are
+        masked), then the emit loop of JAX's run (:2066-2080): a row that
+        finishes mid-chunk drops the rest of its chunk.  In paged mode the
+        masked rows still write their K/V from ``slot_len`` on through
+        their table row: an empty slot's table is all null, and a
+        mid-prefill slot's positions are rewritten by its next chunk."""
+        t0 = time.perf_counter()
         rows = [r if active[i] else None for i, r in enumerate(self.slot_req)]
-        toks, lps = self._sample(logits[:, -1, :], rows)
+        branch = self._pack_tick(active, rows)
+        if self._tick_host is not self._tick_in:
+            self._tick_in.copy_(self._tick_host, non_blocking=True)
+        if self.paged and self._tables_dirty:
+            self._tables_dev.copy_(torch.from_numpy(self.tables))
+            self._tables_dirty = False
+        both = self._run_tick(n, branch).cpu().numpy()  # one copy back
+        toks, lps = both[0].astype(np.int32), both[1]
         self.stats["decode_ticks"] += 1
+        self.stats["decode_steps"] += n
         self.stats["decode_s"] += time.perf_counter() - t0
         for slot, req in enumerate(self.slot_req):
             if req is None or not active[slot]:
                 continue
-            tok = int(toks[slot])
-            req.output_tokens.append(tok)
-            req.token_logprobs.append(float(lps[slot]))
-            self.slot_len[slot] += 1
-            self.slot_last_tok[slot] = tok
-            self._maybe_finish(slot)
+            for t in range(n):
+                if self.slot_req[slot] is None:
+                    break  # finished mid-chunk: drop the overshoot
+                tok = int(toks[slot, t])
+                req.output_tokens.append(tok)
+                req.token_logprobs.append(float(lps[slot, t]))
+                self.slot_len[slot] += 1
+                self.slot_last_tok[slot] = tok
+                self._maybe_finish(slot)
             self._emit(req)
+
+    def _chunk_len(self, active: np.ndarray) -> int:
+        """Steps of the next tick (JAX :1984-1999): ``steps_per_tick``,
+        clamped by each active row's room and ``max_new_tokens`` budget,
+        and by each masked row's room (its writes must stay inside the
+        cache)."""
+        chunk = self.steps_per_tick
+        for slot, req in enumerate(self.slot_req):
+            if not active[slot]:
+                chunk = max(1, min(chunk,
+                                   self.max_len - int(self.slot_len[slot])))
+                continue
+            room = self.max_len - int(self.slot_len[slot]) - 1
+            budget = req.sampling.max_new_tokens - len(req.output_tokens)
+            chunk = max(1, min(chunk, room, budget))
+        return chunk
 
     # -- host-side scheduling ---------------------------------------------
 
@@ -433,7 +572,7 @@ class Engine:
                 [r is not None and i not in self.slot_prefill
                  for i, r in enumerate(self.slot_req)], bool)
             if active.any():
-                self._decode_tick(active)
+                self._decode_tick(active, self._chunk_len(active))
         return requests
 
     def _reject_unservable(self) -> None:
@@ -529,27 +668,18 @@ class Engine:
                 self._prefill_chunk_paged(rows)
 
     def _grow_for_decode(self) -> None:
-        """Grow every decoding slot's table to cover this tick's write, up
-        front; a preemption frees some other slot, which then drops out of
-        the tick."""
+        """Grow every decoding slot's table to cover this tick's writes, up
+        to ``steps_per_tick`` of them, up front (JAX :1950-1962); a
+        preemption frees some other slot, which then drops out of the
+        tick."""
         for slot, r in enumerate(self.slot_req):
             if r is not None and slot not in self.slot_prefill:
                 if not self._ensure_blocks(
-                        slot, min(int(self.slot_len[slot]) + 1,
-                                  self.max_len)):
+                        slot, min(int(self.slot_len[slot])
+                                  + self.steps_per_tick, self.max_len)):
                     self._finish_out_of_room(slot)
 
     # -- paged block management (host side) --------------------------------
-
-    def _tables_arg(self) -> Optional[torch.Tensor]:
-        """The block tables on the device (None in slot mode), uploaded
-        again only after a host-side change."""
-        if not self.paged:
-            return None
-        if self._tables_dirty or self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self.tables).to(self.device)
-            self._tables_dirty = False
-        return self._tables_dev
 
     def _release_blocks(self, slot: int) -> None:
         self.allocators[0].free(self.slot_blocks[slot])

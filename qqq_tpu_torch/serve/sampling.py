@@ -2,7 +2,11 @@
 qqq_tpu/serve/sampling.py).
 
 :func:`sample_batched` takes per-row parameter tensors, so one batch mixes
-greedy and sampled rows.  Sampling is explicit Gumbel-max
+greedy and sampled rows; which of its branches runs is decided on the host
+from the rows' parameters (:func:`sampling_branch`, the counterpart of the
+JAX engine's static arguments), so that the sampler reads nothing back from
+the device and a decode tick can be captured in a CUDA graph, one graph a
+branch.  Sampling is explicit Gumbel-max
 (``argmax(logits / t + gumbel)``) with noise drawn from a caller-owned
 ``torch.Generator``; it gives other numbers than ``jax.random`` for the same
 seed, with the same distribution.  Penalties, logit bias, guided masks,
@@ -14,7 +18,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
+
+#: the sampler's branches: every row greedy (no noise drawn, nothing
+#: sorted); some row sampled from its whole distribution; some row's
+#: top-k, top-p or min-p filter set as well
+GREEDY, SAMPLED, FILTERED = "greedy", "sampled", "filtered"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +73,7 @@ def _topk_topp_filter(
 ) -> torch.Tensor:
     """Mask logits below the per-row min-p / top-k / top-p cutoffs to -inf."""
     V = scaled.shape[-1]
-    neg_inf = torch.tensor(-torch.inf, dtype=scaled.dtype,
-                           device=scaled.device)
+    neg_inf = -torch.inf
     # min-p: threshold at max_logit + log(min_p) (vLLM semantics)
     cut = scaled.amax(dim=-1, keepdim=True) + torch.log(
         torch.clamp_min(min_p, 1e-30))[:, None]
@@ -93,6 +102,17 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def sampling_branch(temperature, top_k, top_p, min_p) -> str:
+    """The branch of :func:`sample_batched` for rows with these parameters
+    (host arrays, one entry a row; a row left out is greedy)."""
+    if not (np.asarray(temperature) > 0.0).any():
+        return GREEDY
+    if ((np.asarray(top_k) > 0).any() or (np.asarray(top_p) < 1.0).any()
+            or (np.asarray(min_p) > 0.0).any()):
+        return FILTERED
+    return SAMPLED
+
+
 def sample_batched(
     logits: torch.Tensor,        # (B, V) f32
     generator: torch.Generator,
@@ -100,17 +120,22 @@ def sample_batched(
     top_k: torch.Tensor,         # (B,) int; 0 → disabled
     top_p: torch.Tensor,         # (B,) f32; >= 1 → disabled
     min_p: Optional[torch.Tensor] = None,  # (B,) f32; 0 → disabled
+    *,
+    branch: str,                 # sampling_branch() of the same rows
 ) -> torch.Tensor:
     """Returns (B,) int32 next tokens; every row honours its own params.
-    Greedy-only batches draw no noise and sort nothing."""
+    The greedy branch draws no noise and sorts nothing; only the filtered
+    one sorts."""
     B, V = logits.shape
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    if not bool((temperature > 0.0).any()):
+    if branch == GREEDY:
         return greedy
+    if branch not in (SAMPLED, FILTERED):
+        raise ValueError(f"sampling branch {branch!r}")
     if min_p is None:
         min_p = torch.zeros((B,), dtype=torch.float32, device=logits.device)
     scaled = logits / torch.clamp_min(temperature, 1e-6)[:, None]
-    if bool((top_k > 0).any() | (top_p < 1.0).any() | (min_p > 0.0).any()):
+    if branch == FILTERED:
         scaled = _topk_topp_filter(scaled, top_k, top_p, min_p)
     g = gumbel((B, V), generator, logits.device)
     sampled = torch.argmax(scaled + g, dim=-1).to(torch.int32)

@@ -4,6 +4,7 @@
     python3 scripts/profile_torch_serve.py [--layers 32] [--ticks 8]
                                            [--group-size 128] [--paged]
                                            [--llama31] [--fuse-act-quant]
+                                           [--steps-per-tick 1]
 
 Builds the Llama-2-7B-geometry port model (random weights from a seeded
 generator, RTN-packed in groups of 128, or per channel with
@@ -16,9 +17,13 @@ dispatches (M = 1024 each).  It profiles the prefill and ``--ticks``
 steady decode ticks with ``torch.profiler`` (CPU + CUDA activities) and
 prints, for each: the host wall time (ending in a synchronize), the summed
 device time of all CUDA kernels, the device idle share, and the kernels
-ranked by device time, per dispatch and per tick.  Before the profiled
-ticks, as many unprofiled ones are timed on the host clock (ending in a
-synchronize).  The card's name and power limit come first.  With
+ranked by device time, per dispatch and per tick.  The decode ticks run
+twice: eagerly (the engine's private eager-tick switch), then as the
+engine serves, each tick one replay of its captured CUDA graph (two
+warm-up ticks first: the first captures the graph); each tick decodes
+``--steps-per-tick`` steps.  Before the profiled ticks, as many unprofiled
+ones are timed on the host clock (ending in a synchronize).  The card's
+name and power limit come first.  With
 ``--fuse-act-quant`` the run sets ``FUSE_ACT_QUANT`` (the decode ticks'
 plain linears on the activation-quant-fused kernel, as chip_smoke.py's
 runs 3f and 3g).  The W4A8 GEMMs whose kernels share a name stem are
@@ -76,6 +81,23 @@ def kernel_table(prof, top: int = 20):
     return sum(r[0] for r in rows), rows[:top]
 
 
+def device_spans(prof, gap_ms: float = 0.3):
+    """The device's activity (kernels and copies) cut where it idled over
+    ``gap_ms``: one group a decode tick when the ticks' kernels run back to
+    back, as a replayed graph's do.  Returns [(span ms, busy ms)]."""
+    ev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    groups = []
+    for start, end in ev:
+        if groups and start - groups[-1][1] <= gap_ms * 1e3:
+            g = groups[-1]
+            g[1] = max(g[1], end)
+            g[2] += end - start
+        else:
+            groups.append([start, end, end - start])
+    return [((e - s) / 1e3, busy / 1e3) for s, e, busy in groups]
+
+
 def report(label: str, wall_ms: float, prof, per: int = 1,
            unit: str = "dispatch") -> None:
     busy, rows = kernel_table(prof)
@@ -98,6 +120,8 @@ def main() -> int:
                          "prompts of 100/400/1500/12000 tokens")
     ap.add_argument("--fuse-act-quant", action="store_true",
                     help="set FUSE_ACT_QUANT for the run")
+    ap.add_argument("--steps-per-tick", type=int, default=1,
+                    help="decode steps fused in each tick")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -141,7 +165,7 @@ def main() -> int:
                 for n in lens]
 
     eng = Engine(params, cfg, max_batch=4, max_len=max_len, paged=args.paged,
-                 device=dev, **kw)
+                 device=dev, steps_per_tick=args.steps_per_tick, **kw)
     active = np.ones(4, bool)
 
     def prefill():
@@ -159,7 +183,7 @@ def main() -> int:
     def tick():
         if args.paged:
             eng._grow_for_decode()
-        eng._decode_tick(active)
+        eng._decode_tick(active, args.steps_per_tick)
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     if args.llama31:
@@ -189,23 +213,36 @@ def main() -> int:
                f"{eng.stats['prefill_shapes'][-1]} (rows, tokens)", wall,
                prof, per=n)
 
-    for _ in range(2):
-        tick()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.ticks):
-        tick()
-    torch.cuda.synchronize()
-    print(f"decode, unprofiled: wall "
-          f"{(time.perf_counter() - t0) * 1e3 / args.ticks:.3f} ms (per tick)")
-    with profile(activities=acts) as prof:
+    for mode in ("eager", "captured"):
+        eng._eager_tick = mode == "eager"
+        for _ in range(2):
+            tick()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(args.ticks):
             tick()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    report(f"decode, batch 4, cache lengths {eng.slot_len.tolist()}", wall,
-           prof, per=args.ticks, unit="tick")
+        print(f"decode, {mode} tick, unprofiled: wall "
+              f"{(time.perf_counter() - t0) * 1e3 / args.ticks:.3f} ms (per "
+              "tick)")
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.ticks):
+                tick()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        report(f"decode, {mode} tick of {args.steps_per_tick} step(s), batch "
+               f"4, cache lengths {eng.slot_len.tolist()}", wall, prof,
+               per=args.ticks, unit="tick")
+        spans = device_spans(prof)
+        span = sum(s for s, _ in spans)
+        busy = sum(b for _, b in spans)
+        print(f"    device activity in {len(spans)} runs without a gap over "
+              f"0.3 ms: {span / args.ticks:.3f} ms a tick, busy "
+              f"{busy / span:.3f} of it; outside them "
+              f"{1 - span / wall:.3f} of the wall time")
+    print(f"graphs captured {eng.stats['graph_captures']}, replays "
+          f"{eng.stats['graph_replays']}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
     return 0

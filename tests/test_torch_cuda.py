@@ -22,6 +22,7 @@ flash, the S-tiled decode and paged decode per output row, at its own
 largest value; paged flash bit-equal to slot flash on the gathered pool.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -861,3 +862,145 @@ def test_fused_route_launches_under_flag(dev, monkeypatch, group_size):
         after = {n: f.launches for n, f in k.KERNEL_WRAPPERS.items()}
         assert {n: after[n] - before[n] for n in after} == {
             n: int(n == expect) for n in after}
+
+
+# ---------------------------------------------------------------------------
+# the slot write (#9) at the served shapes, and the captured decode tick
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+@pytest.mark.parametrize("nkv,S", [(32, 2048), (8, 32768)])
+def test_slot_write_bit_exact_at_served_shapes(dev, nkv, S, hd, dtype):
+    """``write_kernel`` over ``SlotDest`` at chip_smoke's 3a and 3e caches
+    (B = 4), rows at cache_len 0, S - 1 and past S (the clamp): codes and
+    scales bit-exact, one launch."""
+    from qqq_tpu_torch.kernels.kv_write import (
+        slot_decode_write_int8, slot_decode_write_int8_plain,
+    )
+
+    g = _gen(dev)
+    B = 4
+    bufs = [torch.randint(-128, 128, (B, nkv, S, hd), generator=g,
+                          device=dev, dtype=torch.int8),
+            torch.rand((B, nkv, S), generator=g, device=dev)]
+    bufs += [bufs[0].flip(0).contiguous(), bufs[1].flip(0).contiguous()]
+    kn = torch.randn((B, 1, nkv, hd), generator=g, device=dev).to(dtype)
+    vn = torch.randn((B, 1, nkv, hd), generator=g, device=dev).to(dtype)
+    clen = torch.tensor([0, S - 1, S, S + 7], dtype=torch.int32, device=dev)
+    mine = [t.clone() for t in bufs]
+    ref = [t.clone() for t in bufs]
+    _launch_once(slot_decode_write_int8, *mine, kn, vn, clen)
+    slot_decode_write_int8_plain(*ref, kn, vn, clen)
+    for x, y in zip(mine, ref):
+        assert torch.equal(x, y)
+
+
+#: the captured-tick tests' model: g128, gate/up GLU-fused, hd = 64
+_TICK_CFG = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+                 num_hidden_layers=2, num_attention_heads=4,
+                 num_key_value_heads=2)
+_TICK_MODES = {
+    "slot": dict(max_batch=4, max_len=128, prefill_buckets=(16, 64)),
+    # 12 usable blocks of 8 for requests that grow to 2 + 4 + 6 + 8:
+    # growth and recompute preemption change the tables between replays
+    "paged": dict(max_batch=4, max_len=128, paged=True, block_size=8,
+                  prefill_chunk=32, prefill_batch=2, num_blocks=13),
+}
+
+
+@pytest.fixture(scope="module")
+def tick_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from qqq_tpu_torch.models import (
+        ModelConfig, init_params, quantize_params_rtn,
+    )
+
+    dev = torch.device("cuda")
+    cfg = ModelConfig(**_TICK_CFG)
+    params = quantize_params_rtn(
+        init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev), cfg, 128)
+    return params, cfg
+
+
+def _serve(tick_model, mode, eager, steps=1, sampling=None):
+    """4 requests through Engine on the card (``eager``: the engine's
+    private eager-tick switch); returns the engine, its requests and each
+    wrapper's launches during the run."""
+    from qqq_tpu_torch.kernels import counted_wrappers
+    from qqq_tpu_torch.serve.engine import Engine, Request
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    params, cfg = tick_model
+    rng = np.random.default_rng(0)
+    eng = Engine(params, cfg, steps_per_tick=steps, **_TICK_MODES[mode])
+    eng._eager_tick = eager
+    reqs = [Request([int(t) for t in rng.integers(0, 256, n)],
+                    sampling or SamplingParams(max_new_tokens=14))
+            for n in (6, 19, 38, 56)]
+    counters = counted_wrappers()
+    before = {n: f.launches for n, f in counters.items()}
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    return eng, reqs, {n: f.launches - before[n] for n, f in counters.items()}
+
+
+@pytest.mark.parametrize("steps", [1, 4])
+@pytest.mark.parametrize("mode", sorted(_TICK_MODES))
+def test_captured_tick_matches_eager(tick_model, mode, steps):
+    """Greedy tokens of the captured tick equal the eager tick's, slot and
+    paged, one step and four a tick; every tick but each graph's first
+    replays it; the launch counts after the replays equal the eager run's
+    (each replay adds its graph's launches); the engine's static inputs and
+    caches keep their addresses.  In paged mode the tight pool grows and
+    preempts, so the tables change between replays, and the next replay
+    reads them (its tokens equal the eager run's)."""
+    from qqq_tpu_torch.serve.engine import Request
+
+    eng_e, reqs_e, n_e = _serve(tick_model, mode, eager=True, steps=steps)
+    eng, reqs, n = _serve(tick_model, mode, eager=False, steps=steps)
+    ptrs = [eng._tick_in.data_ptr()] + [
+        t.data_ptr() for c in eng.caches for t in c.values()]
+    if mode == "paged":
+        ptrs.append(eng._tables_dev.data_ptr())
+        assert eng.stats["preemptions"] > 0
+    assert [r.output_tokens for r in reqs] == \
+        [r.output_tokens for r in reqs_e]
+    st = eng.stats
+    assert st["graph_replays"] > 0 and eng_e.stats["graph_replays"] == 0
+    assert st["graph_replays"] + st["graph_captures"] == st["decode_ticks"]
+    assert st["graph_captures"] == len(eng._graphs)
+    assert n == n_e and n["w4a8_glu_group"] > 0
+    assert st["decode_steps"] == eng_e.stats["decode_steps"]
+    eng.run([Request([1, 2, 3])])  # more replays, new tables
+    assert ptrs[0] == eng._tick_in.data_ptr()
+    assert ptrs[1:] == [t.data_ptr() for c in eng.caches
+                        for t in c.values()] + (
+        [eng._tables_dev.data_ptr()] if mode == "paged" else [])
+
+
+def test_sampled_replays_draw_new_noise(dev, tick_model):
+    """The engine's generator is registered with each graph: a captured
+    Gumbel draw gives new noise on every replay; sampled engine ticks run
+    on the sampled branch's graph."""
+    from qqq_tpu_torch.serve.sampling import SAMPLED, SamplingParams, gumbel
+    from qqq_tpu_torch.serve.tick_graph import TickGraph
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.Stream()
+    gumbel((4, 1000), gen, dev)  # warm-up
+    graph = TickGraph(lambda: gumbel((4, 1000), gen, dev), gen, stream)
+    first = graph.replay().clone()
+    second = graph.replay().clone()
+    assert not torch.equal(first, second)
+    assert torch.isfinite(first).all() and torch.isfinite(second).all()
+
+    eng, reqs, _ = _serve(tick_model, "slot", eager=False, steps=4,
+                          sampling=SamplingParams(max_new_tokens=14,
+                                                  temperature=1.0))
+    assert {k[1] for k in eng._graphs} == {SAMPLED}
+    assert eng.stats["graph_replays"] > 0
+    assert all(len(r.output_tokens) == 14 and all(
+        0 <= t < 256 for t in r.output_tokens) for r in reqs)

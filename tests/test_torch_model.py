@@ -38,7 +38,7 @@ from qqq_tpu_torch.models import llama as TM
 from qqq_tpu_torch.serve import kv_cache as tkv
 from qqq_tpu_torch.serve.engine import Engine, Request, generate
 from qqq_tpu_torch.serve.sampling import (
-    SamplingParams, _topk_topp_filter, sample_batched,
+    FILTERED, SamplingParams, _topk_topp_filter, sample_batched,
 )
 
 _CFG = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
@@ -265,6 +265,7 @@ def test_sampling_filter_matches_jax():
     gen = torch.Generator().manual_seed(0)
     tl = torch.from_numpy(logits)
     tok = sample_batched(tl, gen, torch.tensor([0.0, 0.8, 0.8, 1.0]),
-                         torch.tensor([0, 1, 0, 0]), torch.ones(4))
+                         torch.tensor([0, 1, 0, 0]), torch.ones(4),
+                         branch=FILTERED)
     assert tok[0] == tl[0].argmax() and tok[1] == tl[1].argmax()
     assert 0 <= int(tok[2]) < 64 and 0 <= int(tok[3]) < 64
