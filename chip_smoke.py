@@ -57,7 +57,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    CPU (plain versions), over the slot cache and over the paged pool, and
    the same for a 2-layer cut of Llama-3.1-8B over a 16384-token slot cache
    (the S-tiled decode on the card, its plain version on the CPU), and
-   compare the logits step by step.
+   compare the logits step by step;
+5. serve a saved checkpoint: 3a's weights written with ``save_quantized``
+   (under ``build/``, removed at the end) and read back onto the card with
+   ``load_any`` (every tensor bit-equal; write and read GB/s logged); 3a's
+   requests on the loaded params (tokens equal to 3a's); then the loaded
+   checkpoint over HTTP (``cli/serve.make_server`` on 127.0.0.1, the
+   default Engine): greedy ``/generate`` equal to a direct run, requests
+   with penalties, a logit bias, a guided choice, top-N logprobs and a
+   seed (its tokens equal in two batches), ``/v1/completions`` streamed as
+   SSE equal to the plain reply, echo scoring, one cancel; graphs keyed by
+   the sampling extras must replay, every kernel count must be as expected,
+   and each graph's replay is timed.  2-layer full-width cuts of the g128
+   and per-channel weights go through the reference QQQ's Marlin layout
+   and back (codes and scales as stored).
 
 The last lines are a ``{"kernels": [...]}`` report, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -70,6 +83,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1129,17 +1143,19 @@ def slot_kernels(max_len: int):
 
 
 def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
-                      max_len=2048, fused=False):
+                      max_len=2048, fused=False, scores=()):
     """Launches per kernel that a served run implies (``ticks``: its decode
-    steps, a replayed graph's counted as launched).  Per layer and
-    forward pass: four linears (q/k/v/o) and down_proj on the plain GEMM,
-    gate/up on the GLU GEMM, one KV write and one attention (slot or
-    paged; decode or prefill).  g128: the requant route for prefill
-    dispatches of M ≥ 512 rows (T ≥ 64 always holds for the buckets and
-    chunks here), the exact route for the rest and for decode.  With
-    ``fused`` (FUSE_ACT_QUANT), the five plain linears of each decode tick
-    (M = 4) take the scheme's fused kernel; the GLU and every prefill
+    steps, a replayed graph's counted as launched; ``scores``: the (M, T)
+    of cache-free scoring forwards, which run the linears only).  Per
+    layer and forward pass: four linears (q/k/v/o) and down_proj on the
+    plain GEMM, gate/up on the GLU GEMM, one KV write and one attention
+    (slot or paged; decode or prefill).  g128: the requant route for
+    prefill dispatches of M ≥ 512 rows (T ≥ 64 always holds for the
+    buckets and chunks here), the exact route for the rest and for decode.
+    With ``fused`` (FUSE_ACT_QUANT), the five plain linears of each decode
+    tick (M = 4) take the scheme's fused kernel; the GLU and every prefill
     dispatch (M ≥ 128) do not."""
+    dispatches_kv, dispatches = dispatches, list(dispatches) + list(scores)
     n_big = sum(1 for m, t in dispatches if m >= 512 and t >= 64)
     small = len(dispatches) - n_big + ticks
     plain_ticks = 0 if fused else ticks  # ticks on the two-step route
@@ -1160,12 +1176,12 @@ def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
     if paged:
         exp.update(paged_decode_write_int8=n_layers * ticks,
                    paged_decode_attention_int8=n_layers * ticks,
-                   paged_chunk_write_int8=n_layers * len(dispatches),
-                   paged_flash_attention_int8=n_layers * len(dispatches))
+                   paged_chunk_write_int8=n_layers * len(dispatches_kv),
+                   paged_flash_attention_int8=n_layers * len(dispatches_kv))
     else:
         write, decode, flash = slot_kernels(max_len)
         exp.update({write: n_layers * ticks, decode: n_layers * ticks,
-                    flash: n_layers * len(dispatches)})
+                    flash: n_layers * len(dispatches_kv)})
     return exp
 
 
@@ -1542,6 +1558,356 @@ def random_packed_params(dev, config, group_size):
     return params
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the served checkpoint
+
+#: new tokens of each request over HTTP
+HTTP_NEW = 32
+#: where phase 5 writes its checkpoints (inside the checkout, git-ignored);
+#: removed at the end of the run
+CKPT_DIR = HERE / "build" / "chip_smoke_checkpoints"
+
+
+def save_and_load(dev, params, config):
+    """``save_quantized`` the served params and ``load_any`` them back onto
+    the card: every tensor's dtype, shape and bits must be equal."""
+    from qqq_tpu_torch.cli.eval import load_any
+    from qqq_tpu_torch.models.loader import _flatten, save_quantized
+
+    path = CKPT_DIR / "llama2_7b_g128"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_quantized(str(path), params, config,
+                   {"quant_method": "qqq", "wbits": 4, "group_size": 128})
+    write_s = time.perf_counter() - t0
+    nbytes = (path / "model.safetensors").stat().st_size
+    t0 = time.perf_counter()
+    loaded, cfg = load_any(str(path), torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    if cfg != config:
+        raise AssertionError(f"the loaded config {cfg} is not {config}")
+    want, got = _flatten(params), _flatten(loaded)
+    if set(want) != set(got):
+        raise AssertionError(f"tensors differ: {set(want) ^ set(got)}")
+    for k, t in want.items():
+        u = got[k]
+        if (u.dtype != t.dtype or u.shape != t.shape or u.device != t.device
+                or not torch.equal(u.view(torch.uint8), t.view(torch.uint8))):
+            raise AssertionError(f"{k}: loaded {u.dtype} {tuple(u.shape)} "
+                                 f"on {u.device} differs from the saved one")
+    log(f"  saved {len(want)} tensors, {nbytes / 1e9:.3f} GB, with "
+        f"save_quantized in {write_s:.3f} s ({nbytes / 1e9 / write_s:.3f} "
+        f"GB/s, card → file) and loaded them with load_any in {read_s:.3f} "
+        f"s ({nbytes / 1e9 / read_s:.3f} GB/s, file → card): every tensor "
+        f"bit-equal")
+    shutil.rmtree(path)
+    return loaded, cfg
+
+
+def check_marlin(dev, params, config, group_size):
+    """A 2-layer, full-width cut of the served weights written in the
+    reference QQQ's Marlin layout (``save_marlin_checkpoint``) and read
+    back (``load_qqq_hf_checkpoint``): the codes, and the per-channel
+    scales, bit-equal to the originals; g128 scales equal to the fp16
+    double scales the format stores, ``f16(s / s_extra) · s_extra`` with
+    ``s_extra = max_k |s · q| / 127`` per column, recomputed here."""
+    from qqq_tpu_torch.core.packing import unpack_int4
+    from qqq_tpu_torch.models.marlin_compat import (
+        load_qqq_hf_checkpoint, save_marlin_checkpoint,
+    )
+
+    cfg = dataclasses.replace(config, num_hidden_layers=2)
+    cut = {**params, "layers": params["layers"][:2]}
+    path = CKPT_DIR / f"marlin_{group_size}"
+    t0 = time.perf_counter()
+    save_marlin_checkpoint(str(path), cut, cfg, group_size=group_size)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, got_cfg = load_qqq_hf_checkpoint(str(path), device=dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    if got_cfg != cfg:
+        raise AssertionError(f"Marlin config {got_cfg} is not {cfg}")
+    worst = 0.0
+    for i in range(2):
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                     "up_proj", "down_proj"):
+            a, b = cut["layers"][i][name], got["layers"][i][name]
+            if not torch.equal(a["w_packed"], b["w_packed"]):
+                raise AssertionError(f"layer {i} {name}: Marlin codes differ")
+            if group_size == -1:
+                ok = torch.equal(a["s_channel"], b["s_channel"])
+            else:
+                s = a["s_group"].to(torch.float32)
+                q = unpack_int4(a["w_packed"]).to(torch.float32)
+                amax = (s.repeat_interleave(128, 0) * q).abs().amax(0)
+                s_extra = torch.where(amax == 0, torch.ones_like(amax),
+                                      amax) / torch.full_like(amax, 127.0)
+                want = (s / s_extra).to(torch.float16).to(torch.float32) \
+                    * s_extra
+                ok = torch.equal(b["s_group"], want)
+                worst = max(worst, float(((b["s_group"] - s).abs()
+                                          / s.abs()).max()))
+            if not ok:
+                raise AssertionError(f"layer {i} {name}: Marlin scales differ")
+    nbytes = (path / "model.safetensors").stat().st_size
+    log(f"  Marlin layout ({'per channel' if group_size == -1 else 'g128'}, "
+        f"2-layer full-width cut, {nbytes / 1e9:.3f} GB): written in "
+        f"{write_s:.3f} s, read back and repacked on the card in "
+        f"{read_s:.3f} s; codes bit-equal"
+        + (", scales bit-equal" if group_size == -1 else
+           f", scales equal to their fp16 double scales (largest change "
+           f"from the bf16 originals {worst:.3e} relative)"))
+    shutil.rmtree(path)
+
+
+def _http(base, path, body=None, stream=False):
+    """POST ``body`` (GET without one) and return the JSON reply, or the
+    list of SSE events (``[DONE]`` last) when ``stream``."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not stream:
+            return json.loads(r.read())
+        events = []
+        for raw in r:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                events.append(line[len("data: "):])
+        return events
+
+
+def _concurrently(base, calls):
+    """Send every (name, path, body, stream) at once, each from its own
+    thread; returns name → (reply, client seconds)."""
+    import threading
+
+    out, errors = {}, []
+
+    def go(name, path, body, stream):
+        t0 = time.perf_counter()
+        try:
+            out[name] = (_http(base, path, body, stream),
+                         time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append((name, e))
+
+    threads = [threading.Thread(target=go, args=c) for c in calls]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if errors:
+        raise AssertionError(f"HTTP requests failed: {errors}")
+    return out
+
+
+def serve_http(dev, params, config, prompts):
+    """Serve the loaded checkpoint over HTTP (``make_server`` on
+    127.0.0.1:0 over the default Engine, ``max_batch=4``) and check every
+    reply: greedy ``/generate`` alone against a direct one-request run;
+    then concurrently penalties, a logit bias, a guided choice, top-N
+    logprobs, a seeded sampled request (sent again in a second batch: the
+    same tokens), ``/v1/completions`` streamed as SSE and not, and echo
+    scoring (against a direct ``score_prompt``); one request cancelled
+    through the worker.  Every kernel count is set to 0 just before the
+    traffic and must equal what its prefill dispatches, decode steps and
+    scoring forwards imply; graphs keyed by the extras' planes must have
+    replayed.  No other thread uses the card while the server runs."""
+    import threading
+
+    from qqq_tpu_torch.cli.serve import make_server
+    from qqq_tpu_torch.serve.engine import Engine, Request, TickExtras
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    p0, p1, p2, p3 = prompts
+    ref = Engine(params, config, max_batch=MAX_BATCH, device=dev)
+    direct = Request(p0, SamplingParams(max_new_tokens=HTTP_NEW))
+    ref.run([direct])
+    score_ref = ref.score_prompt(p1)
+    del ref
+    torch.cuda.empty_cache()
+    first = direct.output_tokens[0]
+    # one first token, then a fork whose short branch a bias bans: the row
+    # runs six ticks with its guided plane, five of them one wide
+    guided = [p3[1:9], [p3[1], p3[9]]]
+    gen = "/generate"
+    cmpl = "/v1/completions"
+    seeded = {"prompt_tokens": p2, "max_new_tokens": HTTP_NEW,
+              "temperature": 0.8, "top_k": 50, "seed": 1234}
+    completion = {"prompt": p3, "max_tokens": HTTP_NEW, "temperature": 0.0,
+                  "logprobs": 1}
+    batch_a = [
+        ("penalties", gen, {"prompt_tokens": p1, "max_new_tokens": HTTP_NEW,
+                            "presence_penalty": 1.0,
+                            "frequency_penalty": 0.5,
+                            "repetition_penalty": 1.3}, False),
+        ("bias", gen, {"prompt_tokens": p0, "max_new_tokens": HTTP_NEW,
+                       "logit_bias": {str(first): -100, "7": 5.0}}, False),
+        ("guided", gen, {"prompt_tokens": p3, "max_new_tokens": HTTP_NEW,
+                         "guided_choice": guided,
+                         "logit_bias": {str(p3[9]): -100}}, False),
+        ("top", gen, {"prompt_tokens": p1, "max_new_tokens": HTTP_NEW,
+                      "top_logprobs": 3, "logprobs": True}, False),
+        ("seeded", gen, seeded, False),
+        ("sse", cmpl, {**completion, "stream": True}, True),
+        ("completion", cmpl, completion, False),
+        ("echo", cmpl, {"prompt": p1, "max_tokens": 0, "echo": True,
+                        "logprobs": 1}, False),
+    ]
+    batch_b = [("seeded", gen, seeded, False),
+               ("greedy", gen, {"prompt_tokens": p3,
+                                "max_new_tokens": HTTP_NEW}, False)]
+
+    eng = Engine(params, config, max_batch=MAX_BATCH, device=dev)
+    server, worker = make_server(eng, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    fns = kernel_fns()
+    for fn, _, _ in fns.values():
+        fn.launches = 0
+    try:
+        t0 = time.perf_counter()
+        alone = _concurrently(base, [("greedy", gen, {
+            "prompt_tokens": p0, "max_new_tokens": HTTP_NEW}, False)])
+        a = _concurrently(base, batch_a)
+        b = _concurrently(base, batch_b)
+        cancelled = Request(p0, SamplingParams(max_new_tokens=HTTP_NEW))
+        worker.submit(cancelled)
+        while cancelled._emitted < 4 and not cancelled.done:
+            time.sleep(0.001)
+        worker.cancel(cancelled)
+        worker.wait(cancelled)
+        wall = time.perf_counter() - t0
+        stats = _http(base, "/stats")
+        health = _http(base, "/health")
+    finally:
+        server.shutdown()
+        worker.stop()
+        thread.join(60)
+    if worker.error is not None:
+        raise AssertionError(f"the engine worker failed: {worker.error!r}")
+    launches = {name: fn.launches for name, (fn, _, _) in fns.items()}
+    st = eng.stats
+
+    def toks(name, batch=a):
+        return batch[name][0]["output_tokens"]
+
+    if alone["greedy"][0]["output_tokens"] != direct.output_tokens:
+        raise AssertionError("greedy /generate differs from the direct run")
+    if first in toks("bias"):
+        raise AssertionError("logit_bias -100 did not ban its token")
+    if toks("guided") != guided[0]:
+        raise AssertionError(f"guided reply {toks('guided')} is not "
+                             f"{guided[0]}")
+    # greedy: the chosen token is a top-1 entry (bf16 logits tie often, and
+    # argmax and top-k may break a tie differently), at its logprob
+    top = a["top"][0]
+    for i, (pos, lp, t) in enumerate(zip(top["top_logprobs"],
+                                         top["token_logprobs"],
+                                         top["output_tokens"])):
+        best = [tok for tok, v in pos if v == pos[0][1]]
+        if len(pos) != 3 or abs(pos[0][1] - lp) > 1e-6 or t not in best:
+            raise AssertionError(f"top_logprobs at {i}: {pos}, chosen {t} "
+                                 f"at {lp}")
+    if len(top["top_logprobs"]) != HTTP_NEW:
+        raise AssertionError("top_logprobs: one list per token expected")
+    if toks("seeded") != toks("seeded", b):
+        raise AssertionError("the seeded request gave other tokens in the "
+                             "second batch")
+    events = a["sse"][0]
+    if events[-1] != "[DONE]":
+        raise AssertionError("the SSE stream did not end in [DONE]")
+    final = json.loads(events[-2])["choices"][0]
+    whole = a["completion"][0]["choices"][0]
+    if (final["logprobs"]["tokens"] != whole["logprobs"]["tokens"]
+            or len(events) != HTTP_NEW + 2
+            or final["finish_reason"] != whole["finish_reason"]):
+        raise AssertionError("the SSE stream differs from the reply")
+    scores = a["echo"][0]["choices"][0]["logprobs"]["token_logprobs"]
+    diff = max(abs(x - y) for x, y in zip(scores[1:], score_ref[1:]))
+    if scores[0] is not None or len(scores) != len(p1) or diff > 1e-4:
+        raise AssertionError(f"echo scores differ from score_prompt's by "
+                             f"{diff}")
+    if not (cancelled.cancelled and cancelled.finish_reason == "stop"
+            and 4 <= len(cancelled.output_tokens) < HTTP_NEW):
+        raise AssertionError(f"cancel: {cancelled.finish_reason}, "
+                             f"{len(cancelled.output_tokens)} tokens")
+    for name, (reply, _) in {**a, **b}.items():
+        if name in ("sse", "completion", "echo"):
+            continue
+        out = reply["output_tokens"]
+        if not out or not all(0 <= t < config.vocab_size for t in out):
+            raise AssertionError(f"{name}: tokens {out}")
+    extras = {k: g.replays for k, g in eng._graphs.items()
+              if k[3] != TickExtras()}
+    if not any(extras.values()):
+        raise AssertionError(f"no graph with extras replayed: {extras}")
+    dispatches = [(rows * t, t) for rows, t in st["prefill_shapes"]]
+    bucket = next(x for x in eng.prefill_buckets if x >= len(p1))
+    expect = expected_launches("g128", config.num_hidden_layers, dispatches,
+                               st["decode_steps"], scores=[(bucket, bucket)])
+    for name, n in launches.items():
+        if n != expect[name]:
+            raise AssertionError(f"HTTP: {name}: {n} launches, expected "
+                                 f"{expect[name]}")
+    must = _G128_GEMMS + slot_kernels(eng.max_len)
+    if any(launches[k] == 0 for k in must):
+        raise AssertionError(f"HTTP: a kernel of the path never launched: "
+                             f"{launches}")
+    log(f"  over HTTP ({base}, Engine defaults, max_batch {MAX_BATCH}): 1 "
+        f"greedy /generate alone (tokens equal to the direct run), then "
+        f"{len(batch_a)} requests at once (penalties, logit_bias, "
+        f"guided_choice, top_logprobs 3, seeded sampling, /v1/completions "
+        f"SSE = non-streamed, echo scoring within {diff:.2e} of "
+        f"score_prompt), then {len(batch_b)} (the seeded request again: the "
+        f"same tokens), then one cancelled through the worker after "
+        f"{len(cancelled.output_tokens)} tokens, in {wall:.3f} s")
+    log(f"  client seconds per request: " + ", ".join(
+        f"{n} {s:.3f}" for n, (_, s) in
+        [("alone", alone["greedy"])] + list(a.items())
+        + [(f"{n} (2nd batch)", v) for n, v in b.items()]))
+    log(f"  engine: {st['prefill_dispatches']} prefill dispatches (M, T) = "
+        f"{dispatches} in {st['prefill_s']:.3f} s, {st['decode_ticks']} "
+        f"decode ticks in {st['decode_s']:.3f} s "
+        f"({1e3 * st['decode_s'] / st['decode_ticks']:.3f} ms a tick), "
+        f"{st['graph_replays']} replays of {len(eng._graphs)} graphs, "
+        f"{st['graph_captures']} captures in {st['graph_capture_s']:.3f} s; "
+        f"health {health['status']}")
+    log(f"  graphs with extras (steps, branch, flag, extras) → replays: "
+        + "; ".join(f"{k[0]}, {k[1]}, {k[2]}, {k[3]} → {n}"
+                    for k, n in sorted(extras.items())))
+    log(f"  TTFT / TPOT per finished request (s): " + ", ".join(
+        f"{t:.4f} / " + ("-" if p is None else f"{p:.5f}")
+        for t, p in eng._latency))
+    log(f"  latency_summary: {json.dumps(eng.latency_summary())}; /stats "
+        f"agrees: {stats['ttft_p50_s'] == eng.latency_summary()['ttft_p50_s']}")
+    log(f"  launches over HTTP (as expected): {json.dumps(launches)}")
+    # each graph's replay alone, after the traffic (the engine is done):
+    # the plain greedy tick's against those with the extras' planes
+    replay_ms = {}
+    for key, graph in sorted(eng._graphs.items()):
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(20):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graph.replay()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        replay_ms[key] = statistics.median(times)
+    log("  one replay, CUDA-event median of 20 (ms): " + "; ".join(
+        f"{k[1]} {k[3]} {ms:.4f}" for k, ms in replay_ms.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1656,6 +2022,20 @@ def main() -> int:
     log("phase 4: card against CPU, 2-layer cut of the g128 weights")
     card_vs_cpu(dev, params, config, prompt0)
     card_vs_cpu_paged(dev, params, config, prompt0)
+    log("phase 5: 3a's weights saved as a checkpoint, loaded back onto the "
+        "card and served over HTTP")
+    loaded, cfg = save_and_load(dev, params, config)
+    _, _, toks, _ = serve(dev, loaded, cfg, "g128")
+    if toks != toks_a:
+        raise AssertionError("5: the loaded checkpoint's tokens differ from "
+                             "3a's")
+    log("  the direct run of 3a's requests on the loaded checkpoint: tokens "
+        "equal to 3a's")
+    rng = np.random.default_rng(0)
+    serve_http(dev, loaded, cfg, [[int(t) for t in rng.integers(0, V, n)]
+                                  for n in PROMPT_LENS])
+    del loaded
+    check_marlin(dev, params, config, 128)
     del params
     torch.cuda.empty_cache()
     log("phase 3b: serve Llama-2-7B (per-channel W4A8, gate/up GLU-fused, "
@@ -1670,6 +2050,9 @@ def main() -> int:
     if toks != toks_b:
         raise AssertionError("3g: tokens differ from 3b's")
     log("  tokens equal to 3b's")
+    log("phase 5: the per-channel weights in the reference's Marlin layout")
+    check_marlin(dev, params, config, -1)
+    shutil.rmtree(CKPT_DIR)
     del params
     torch.cuda.empty_cache()
 

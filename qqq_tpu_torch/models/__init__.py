@@ -8,3 +8,6 @@ from qqq_tpu_torch.models.llama import (
     linear_apply,
 )
 from qqq_tpu_torch.models.quantize import quantize_params_rtn
+from qqq_tpu_torch.models.loader import (
+    load_hf_model, load_quantized, save_quantized,
+)

@@ -7,13 +7,15 @@ them.  What a graph freezes at capture, it reads at replay:
 
 * every pointer a kernel was given, the TMA descriptors that the W4A8
   weight stream encodes on the host (csrc/w4a8_stream.cuh:map2d) among
-  them: the weights, the KV caches, the engine's static tick inputs and
-  block tables, and the activations and workspaces that the capture took
-  from the graph's own memory pool keep their addresses across replays,
-  so the engine writes each tick's inputs into the same tensors;
-* every host decision: the sampler's branch and the GEMM routes (the
-  engine keys its graphs by them), and the grids, which depend on shapes
-  only (the kernels read ``cache_len`` and the tables on the device);
+  them: the weights, the KV caches, the engine's static tick inputs,
+  block tables, penalty counts and masks and padded bias and guided
+  planes, and the activations and workspaces that the capture took from
+  the graph's own memory pool keep their addresses across replays, so the
+  engine writes each tick's inputs into the same tensors;
+* every host decision: the sampler's branch, the GEMM routes and the
+  sampling extras present (the engine keys its graphs by them), and the
+  grids, which depend on shapes only (the kernels read ``cache_len`` and
+  the tables on the device);
 * first-call host work (shared-memory opt-ins, occupancy queries, the
   TMA encoder's lookup, sizing caches) must have run: the engine runs
   the tick once eagerly, on the capture stream, before it captures.
@@ -46,6 +48,8 @@ class TickGraph:
         self.graph.register_generator_state(generator)
         with torch.cuda.graph(self.graph, stream=stream):
             self.out = run()
+        #: replays so far
+        self.replays = 0
         #: wrapper → its launches in one replay
         self.launches: Dict[Callable, int] = {}
         for name, f in counters.items():
@@ -57,6 +61,7 @@ class TickGraph:
         """Launch the captured tick on the current stream; returns the
         (static) output tensor that it writes."""
         self.graph.replay()
+        self.replays += 1
         for f, n in self.launches.items():
             f.launches += n
         return self.out

@@ -10,15 +10,15 @@ import torch
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     """The device an entry point runs on.
 
-    ``None`` means the CUDA card; with no card this raises instead of falling
-    back to the CPU, so a measurement never runs on the wrong device
-    unnoticed.  The CPU is used only when the caller asks for it.
+    ``None`` means the CUDA card.  With no card, ``None`` and any CUDA
+    device raise instead of falling back to the CPU, so a measurement never
+    runs on the wrong device unnoticed.  The CPU is used only when the
+    caller asks for it.
     """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch versions on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU"
+        )
+    return device

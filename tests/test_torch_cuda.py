@@ -927,8 +927,9 @@ def tick_model():
 
 def _serve(tick_model, mode, eager, steps=1, sampling=None):
     """4 requests through Engine on the card (``eager``: the engine's
-    private eager-tick switch); returns the engine, its requests and each
-    wrapper's launches during the run."""
+    private eager-tick switch; ``sampling`` one SamplingParams for all or a
+    list of four); returns the engine, its requests and each wrapper's
+    launches during the run."""
     from qqq_tpu_torch.kernels import counted_wrappers
     from qqq_tpu_torch.serve.engine import Engine, Request
     from qqq_tpu_torch.serve.sampling import SamplingParams
@@ -937,9 +938,10 @@ def _serve(tick_model, mode, eager, steps=1, sampling=None):
     rng = np.random.default_rng(0)
     eng = Engine(params, cfg, steps_per_tick=steps, **_TICK_MODES[mode])
     eng._eager_tick = eager
-    reqs = [Request([int(t) for t in rng.integers(0, 256, n)],
-                    sampling or SamplingParams(max_new_tokens=14))
-            for n in (6, 19, 38, 56)]
+    if not isinstance(sampling, list):
+        sampling = [sampling or SamplingParams(max_new_tokens=14)] * 4
+    reqs = [Request([int(t) for t in rng.integers(0, 256, n)], sp)
+            for n, sp in zip((6, 19, 38, 56), sampling)]
     counters = counted_wrappers()
     before = {n: f.launches for n, f in counters.items()}
     eng.run(reqs)
@@ -1004,3 +1006,120 @@ def test_sampled_replays_draw_new_noise(dev, tick_model):
     assert eng.stats["graph_replays"] > 0
     assert all(len(r.output_tokens) == 14 and all(
         0 <= t < 256 for t in r.output_tokens) for r in reqs)
+
+
+def _extras_samplings(seeded_only=False):
+    """Four requests: seeded sampled rows (one filtered), or a batch that
+    mixes a guided row (its path forced by a bias through a 7-token
+    candidate, so that its one-wide guided plane repeats over ticks), a
+    penalized one, a seeded one and a biased one with top-N logprobs."""
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    if seeded_only:
+        return [SamplingParams(max_new_tokens=14, temperature=0.9,
+                               seed=100 + i, top_k=40 if i == 3 else 0)
+                for i in range(4)]
+    return [
+        SamplingParams(max_new_tokens=14, guided_choice=(
+            (5, 6, 7, 8, 9, 10, 11), (5, 6, 12)), logit_bias=((12, -100.0),)),
+        SamplingParams(max_new_tokens=14, presence_penalty=1.5,
+                       frequency_penalty=0.5, repetition_penalty=1.3),
+        SamplingParams(max_new_tokens=14, temperature=0.8, seed=7),
+        SamplingParams(max_new_tokens=14, logit_bias=((3, -100.0),
+                                                      (9, 4.0)),
+                       top_logprobs=3),
+    ]
+
+
+@pytest.mark.parametrize("steps", [1, 4])
+@pytest.mark.parametrize("mode", sorted(_TICK_MODES))
+def test_seeded_tokens_equal_eager_and_captured(tick_model, mode, steps):
+    """Seeded sampled rows (their noise a function of seed, generation
+    index and token) give the same tokens from eager and captured ticks,
+    slot and paged, one step and four a tick; the seeded graph replays."""
+    eng_e, reqs_e, _ = _serve(tick_model, mode, eager=True, steps=steps,
+                              sampling=_extras_samplings(seeded_only=True))
+    eng, reqs, _ = _serve(tick_model, mode, eager=False, steps=steps,
+                          sampling=_extras_samplings(seeded_only=True))
+    assert [r.output_tokens for r in reqs] == \
+        [r.output_tokens for r in reqs_e]
+    assert all(len(r.output_tokens) == 14 for r in reqs)
+    assert any(k[3].seeded and g.replays > 0 for k, g in eng._graphs.items())
+
+
+@pytest.mark.parametrize("mode", sorted(_TICK_MODES))
+def test_extras_batch_replays_its_graph(tick_model, mode):
+    """A guided, penalized, seeded and biased batch with top-N logprobs:
+    the captured ticks replay graphs keyed by those extras and give the
+    eager ticks' tokens, logprobs and top-N lists; the guided row ends on
+    a candidate."""
+    from qqq_tpu_torch.serve.engine import TickExtras
+
+    eng_e, reqs_e, n_e = _serve(tick_model, mode, eager=True,
+                                sampling=_extras_samplings())
+    eng, reqs, n = _serve(tick_model, mode, eager=False,
+                          sampling=_extras_samplings())
+    assert [r.output_tokens for r in reqs] == \
+        [r.output_tokens for r in reqs_e]
+    assert [r.token_logprobs for r in reqs] == \
+        [r.token_logprobs for r in reqs_e]
+    assert [r.top_logprobs for r in reqs] == [r.top_logprobs for r in reqs_e]
+    assert reqs[0].output_tokens == [5, 6, 7, 8, 9, 10, 11]
+    assert reqs[0].finish_reason == "stop"
+    assert 3 not in reqs[3].output_tokens
+    assert len(reqs[3].top_logprobs) == len(reqs[3].output_tokens)
+    assert n == n_e
+    replayed = [k[3] for k, g in eng._graphs.items() if g.replays]
+    assert any(ex.penalties and ex.seeded for ex in replayed)
+    assert any(ex.bias_k and ex.n_top == 3 for ex in replayed)
+    assert all(k[3] != TickExtras() for k in eng._graphs)
+    guided = [ex for ex in replayed if ex.allow_k and ex.penalties
+              and ex.seeded]
+    # the paged pool preempts rows in and out, which changes the key
+    # between the guided row's ticks; the slot run keeps it
+    assert guided or mode == "paged", sorted(eng._graphs)
+    assert any(k[3].allow_k for k in eng._graphs)
+
+
+def test_score_prompt_while_the_worker_captures(tick_model):
+    """The server's echo scoring from other threads while its worker
+    captures new graphs: scoring runs on the worker between scheduling
+    rounds, so every capture succeeds, the tokens equal an eager run's and
+    every score equals the one taken before the server started."""
+    import threading
+
+    from qqq_tpu_torch.cli.serve import EngineWorker
+    from qqq_tpu_torch.serve.engine import Engine, Request
+
+    params, cfg = tick_model
+    _, reqs_e, _ = _serve(tick_model, "slot", eager=True,
+                          sampling=_extras_samplings())
+    eng = Engine(params, cfg, **_TICK_MODES["slot"])
+    prompt = list(range(1, 40))
+    want = eng.score_prompt(prompt)
+    worker = EngineWorker(eng)
+    reqs = [Request(r.prompt_tokens, r.sampling) for r in reqs_e]
+    scores, stop = [], threading.Event()
+
+    def score():
+        while not stop.is_set():
+            scores.append(worker.score_prompt(prompt))
+
+    threads = [threading.Thread(target=score) for _ in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        for r in reqs:
+            worker.submit(r)
+        for r in reqs:
+            worker.wait(r, timeout=300)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+        worker.stop()
+    assert worker.error is None
+    assert [r.output_tokens for r in reqs] == \
+        [r.output_tokens for r in reqs_e]
+    assert eng.stats["graph_captures"] >= 2 and eng.stats["graph_replays"]
+    assert scores and all(s == want for s in scores)

@@ -236,16 +236,20 @@ def test_prefill_batch_follows_scratch_budget_like_jax(
 
 
 def test_engine_later_slice_features_raise(models):
-    """The paged pool is ported; its prefix cache and chunked prefill in
-    slot mode are not."""
+    """The paged pool and the per-request sampling extras are ported; the
+    prefix cache, chunked prefill in slot mode and speculative decoding
+    are not."""
     with pytest.raises(NotImplementedError, match="prefix_cache"):
         Engine(models[1], TCFG, paged=True, prefix_cache=True, device="cpu")
     with pytest.raises(NotImplementedError, match="slot mode"):
         Engine(models[1], TCFG, prefill_chunk=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="spec_ngram"):
+        Engine(models[1], TCFG, spec_ngram=2, device="cpu")
     eng = Engine(models[1], TCFG, device="cpu", **_engine_kw())
-    with pytest.raises(NotImplementedError, match="penalties"):
-        eng.add_request(Request([1, 2], SamplingParams(
-            repetition_penalty=1.2)))
+    req = Request([1, 2], SamplingParams(repetition_penalty=1.2,
+                                         max_new_tokens=2))
+    eng.run([req])  # served, no longer refused
+    assert req.done and len(req.output_tokens) == 2
 
 
 def test_sampling_filter_matches_jax():
