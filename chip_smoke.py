@@ -70,7 +70,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the sampling extras must replay, every kernel count must be as expected,
    and each graph's replay is timed.  2-layer full-width cuts of the g128
    and per-channel weights go through the reference QQQ's Marlin layout
-   and back (codes and scales as stored).
+   and back (codes and scales as stored);
+6. the rest of the scheduler on 3a's weights, each run against the same
+   traffic without the feature (its requests asking for their top 2
+   logprobs: tokens equal up to the first difference, and there the
+   feature's token is one of the reference's top 2): (a) chunked prefill
+   in slot mode (chunks of 512 written and attended in place through
+   the paged kernels over the slot cache read as a pool), 3a's requests
+   and an 1800-token prompt that arrives mid-run, whose chunks the
+   decoding rows' tokens interleave; (b) the slot prefix cache, a second
+   chat turn reusing 512 tokens (TTFT with and without); (c) the paged
+   prefix cache, a 512-token system prompt shared by 4 requests (3 hits
+   of 4 blocks), then a 14-block pool that must evict cached blocks, the
+   pool whole after every run; (d) prompt-lookup speculation, slot and
+   paged: drafts verified by replays of the verify's captured graph,
+   tokens equal to an eager run's; one verify replay timed against one
+   plain tick's, decode tok/s with speculation on and off.
 
 The last lines are a ``{"kernels": [...]}`` report, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -1143,19 +1158,30 @@ def slot_kernels(max_len: int):
 
 
 def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
-                      max_len=2048, fused=False, scores=()):
+                      max_len=2048, fused=False, scores=(), chunked=False,
+                      verifies=()):
     """Launches per kernel that a served run implies (``ticks``: its decode
     steps, a replayed graph's counted as launched; ``scores``: the (M, T)
-    of cache-free scoring forwards, which run the linears only).  Per
-    layer and forward pass: four linears (q/k/v/o) and down_proj on the
-    plain GEMM, gate/up on the GLU GEMM, one KV write and one attention
-    (slot or paged; decode or prefill).  g128: the requant route for
-    prefill dispatches of M ≥ 512 rows (T ≥ 64 always holds for the
-    buckets and chunks here), the exact route for the rest and for decode.
-    With ``fused`` (FUSE_ACT_QUANT), the five plain linears of each decode
-    tick (M = 4) take the scheme's fused kernel; the GLU and every prefill
-    dispatch (M ≥ 128) do not."""
-    dispatches_kv, dispatches = dispatches, list(dispatches) + list(scores)
+    of cache-free scoring forwards, which run the linears only;
+    ``verifies``: the (M, T) of speculative verify forwards, M = max_batch
+    · T, T = 1 + spec_k).  Per layer and forward pass: four linears
+    (q/k/v/o) and down_proj on the plain GEMM, gate/up on the GLU GEMM,
+    one KV write and one attention (slot or paged; decode or prefill).
+    g128: the requant route for prefill dispatches of M ≥ 512 rows (T ≥ 64
+    always holds for the buckets and chunks here), the exact route for the
+    rest, the verifies and decode.  A prefill dispatch over the slot cache
+    takes the slot flash (its write is an indexed copy), but with
+    ``chunked`` (chunked prefill in slot mode) the paged chunk write and
+    paged flash over the cache read as a pool; a verify takes those two in
+    either mode, never the decode kernels.  With ``fused``
+    (FUSE_ACT_QUANT), the five plain linears of each decode tick (M = 4)
+    take the scheme's fused kernel; the GLU and every prefill dispatch
+    (M ≥ 128) do not."""
+    if fused and verifies:
+        raise ValueError("the verify's linears under FUSE_ACT_QUANT are not "
+                         "counted here")
+    dispatches_kv, dispatches = dispatches, (list(dispatches) + list(scores)
+                                             + list(verifies))
     n_big = sum(1 for m, t in dispatches if m >= 512 and t >= 64)
     small = len(dispatches) - n_big + ticks
     plain_ticks = 0 if fused else ticks  # ticks on the two-step route
@@ -1173,15 +1199,16 @@ def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
                    w4a8_glu_channel=n_layers * passes)
     if fused:
         exp[FUSED_KERNEL[scheme]] = 5 * n_layers * ticks
+    pooled = (len(dispatches_kv) if paged or chunked else 0) + len(verifies)
+    exp.update(paged_chunk_write_int8=n_layers * pooled,
+               paged_flash_attention_int8=n_layers * pooled)
     if paged:
         exp.update(paged_decode_write_int8=n_layers * ticks,
-                   paged_decode_attention_int8=n_layers * ticks,
-                   paged_chunk_write_int8=n_layers * len(dispatches_kv),
-                   paged_flash_attention_int8=n_layers * len(dispatches_kv))
+                   paged_decode_attention_int8=n_layers * ticks)
     else:
         write, decode, flash = slot_kernels(max_len)
         exp.update({write: n_layers * ticks, decode: n_layers * ticks,
-                    flash: n_layers * len(dispatches_kv)})
+                    flash: 0 if chunked else n_layers * len(dispatches_kv)})
     return exp
 
 
@@ -1908,6 +1935,395 @@ def serve_http(dev, params, config, prompts):
         f"{k[1]} {k[3]} {ms:.4f}" for k, ms in replay_ms.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 6: chunked prefill in slot mode, the prefix caches, speculation
+
+#: phase 6's chunk (6a, 6b), and its speculation (6d): 1-gram lookups, up
+#: to 4 drafted tokens verified a tick.  Seeded random weights copy
+#: nothing: their greedy tokens spread over the vocabulary (255 distinct
+#: of 3a's 256) and flip when one prompt token 50 back changes, so no
+#: 2-gram ever recurs (not on 3a's prompts, a repeated block, nor a
+#: prompt holding its own continuation); a 1-gram lookup drafts whenever
+#: a token recurs, which a prompt of many distinct tokens makes common
+CHUNK6, SPEC_NGRAM, SPEC_K = 512, 1, 4
+#: 6a's late prompt, 6c's shared system prompt and tails, and 6d's prompt
+#: of distinct tokens (room left for 64 new ones and a verify's 1 + k)
+LONG6, SYSTEM6, TAIL6, RICH6 = 1800, 512, 100, 1900
+
+
+def drive(eng, reqs, scheme, label, later=(), eager=False, must_run=()):
+    """Serve ``reqs`` through ``eng`` (``later`` submitted when the first
+    of ``reqs`` delivers its first token): every kernel count set to 0
+    just before the run and read just after, each equal to what the run's
+    prefill dispatches, decode steps and verifies imply (the engine's
+    counts before the run taken off) and those of ``must_run`` non-zero;
+    every decode tick, verifies included, a graph replay but each graph's
+    first (``eager``: none).  Returns the run's launches and the (request
+    index, prefill chunks so far) of every delivered token and the run's
+    decode tok/s."""
+    everyone = list(reqs) + list(later)
+    pending = list(later)
+    events = []
+
+    def hook(req, tok):
+        events.append((next(i for i, r in enumerate(everyone) if r is req),
+                       eng.stats["prefill_chunks"]))
+        if pending and req is reqs[0]:
+            for r in pending:
+                eng.add_request(r)
+            pending.clear()
+
+    eng.on_token = hook
+    eng._eager_tick = eager
+    st = eng.stats
+    before = {k: (len(v) if isinstance(v, list) else v)
+              for k, v in st.items()}
+    fns = kernel_fns()
+    for fn, _, _ in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    eng.run(list(reqs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, (fn, _, _) in fns.items()}
+    d = {k: (st[k][before[k]:] if isinstance(st[k], list)
+             else st[k] - before[k]) for k in st}
+    if pending or not all(r.done for r in everyone):
+        raise AssertionError(f"{label}: a request did not finish")
+    ticks, replays = d["decode_ticks"], d["graph_replays"]
+    if eager and (replays or eng._graphs):
+        raise AssertionError(f"{label}: the eager run replayed a graph")
+    if not eager and (replays == 0
+                      or replays + d["graph_captures"] != ticks):
+        raise AssertionError(f"{label}: {ticks} decode ticks but {replays} "
+                             f"replays and {d['graph_captures']} captures")
+    dispatches = [(rows * t, t) for rows, t in d["prefill_shapes"]]
+    T = 1 + eng.spec_k
+    expect = expected_launches(
+        scheme, eng.config.num_hidden_layers, dispatches,
+        d["decode_steps"], paged=eng.paged, max_len=eng.max_len,
+        chunked=bool(eng.prefill_chunk) and not eng.paged,
+        verifies=[(eng.max_batch * T, T)] * d["spec_ticks"])
+    for name, n in launches.items():
+        if n != expect[name]:
+            raise AssertionError(f"{label}: {name}: {n} launches, expected "
+                                 f"{expect[name]}")
+        if n == 0 and name in must_run:
+            raise AssertionError(f"{label}: {name} never launched")
+    decode_tokens = d["generated_tokens"] - len(everyone)
+    log(f"  {label}: {len(everyone)} requests in {wall:.3f} s: "
+        f"{d['prefill_dispatches']} prefill dispatches (rows, chunk or "
+        f"bucket) = {d['prefill_shapes']} in {d['prefill_s']:.3f} s, "
+        f"{d['prefill_chunks']} chunks; {ticks} decode ticks "
+        f"({d['spec_ticks']} verifies, {d['decode_steps']} plain steps) in "
+        f"{d['decode_s']:.3f} s, {replays} replays: "
+        f"{1e3 * d['decode_s'] / ticks:.3f} ms per tick, "
+        f"{decode_tokens / d['decode_s']:.1f} decode tok/s, "
+        f"{ticks / decode_tokens:.3f} ticks per decode token"
+        + (f"; {d['spec_drafted']} drafted, {d['spec_accepted']} accepted "
+           f"({d['spec_accepted'] / max(d['spec_drafted'], 1):.3f})"
+           if eng.spec_ngram else "")
+        + (f"; {d['prefix_hits']} prefix hits, "
+           f"{d['prefix_tokens_reused']} tokens reused"
+           if eng.prefix_cache else "")
+        + (f"; {d['preemptions']} preemptions" if eng.paged else ""))
+    log(f"    TTFT per request (s): "
+        + ", ".join(f"{r.ttft:.4f}" for r in everyone))
+    log(f"    launches: {json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches, events, decode_tokens / d["decode_s"]
+
+
+#: the near-tie rule: at the first position where a feature run's tokens
+#: leave the reference run's, the feature's token must be one of the
+#: reference's NEAR_TIE_TOP most likely there (0.8% of Llama-2's
+#: vocabulary).  Random weights give flat distributions (top logprobs near
+#: -6 against log(1/32000) = -10.4, the top eight within 0.6 nats) and,
+#: over 32 layers of INT8 requantization, amplify a last-bit difference
+#: (other GEMM routes; a verify's flash where decode takes the split
+#: kernel) into logit moves of up to a nat: on the H100 the feature's
+#: token ranked 2nd to 21st there, up to 0.91 nats below the top.  An
+#: acceptance off by one or a stale block emits the token of another
+#: context, which ranks anywhere in the vocabulary.
+NEAR_TIE_TOP = 256
+
+
+def near_tie(label, feature, reference):
+    """The feature run's tokens against the reference run's (same traffic
+    without the feature, its requests asking for their NEAR_TIE_TOP top
+    logprobs): equal up to the first position that differs, and there the
+    feature's token is one of the reference's NEAR_TIE_TOP.  The two runs'
+    numerics differ legitimately, so nothing past that position is held.
+    Logged: the reference's top-1/top-2 gap there, the feature token's
+    rank and distance below the top, the largest difference of a chosen
+    token's logprob between the runs before it, and the share of equal
+    positions."""
+    equal = total = 0
+    notes = []
+    for i, (f, r) in enumerate(zip(feature, reference)):
+        a, b = f.output_tokens, r.output_tokens
+        n = min(len(a), len(b))
+        first = next((p for p in range(n) if a[p] != b[p]), None)
+        drift = max((abs(x - y) for x, y in zip(f.token_logprobs[:first],
+                                                r.token_logprobs)),
+                    default=0.0)
+        if first is None:
+            if len(a) != len(b):
+                raise AssertionError(f"{label}: request {i}: {len(a)} "
+                                     f"tokens against {len(b)}")
+            notes.append(f"{i}: equal (logprob drift {drift:.5f})")
+        else:
+            top = r.top_logprobs[first]
+            ids = [t for t, _ in top]
+            if a[first] not in ids:
+                raise AssertionError(
+                    f"{label}: request {i} differs at token {first}: "
+                    f"{a[first]} (logprob {f.token_logprobs[first]:.5f} in "
+                    f"the feature run) is not in the reference's top "
+                    f"{NEAR_TIE_TOP}, {top[:4]} ...")
+            k = ids.index(a[first])
+            notes.append(f"{i}: first difference at {first}, top-2 gap "
+                         f"{top[0][1] - top[1][1]:.5f}, the feature's token "
+                         f"ranked {k + 1}, {top[0][1] - top[k][1]:.5f} "
+                         f"below the top (logprob drift before it "
+                         f"{drift:.5f})")
+        equal += sum(x == y for x, y in zip(a, b))
+        total += n
+    log(f"  {label} against the reference: {equal}/{total} positions equal "
+        f"({equal / total:.3f}); " + "; ".join(notes))
+
+
+def _requests(prompts, n_top=0, **sp):
+    from qqq_tpu_torch.serve.engine import Request
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    return [Request(p, SamplingParams(max_new_tokens=64, top_logprobs=n_top,
+                                      **sp)) for p in prompts]
+
+
+def phase6(dev, params, config, prompts):
+    """6a-6d (see the module docstring) on 3a's g128 weights; each feature
+    run against a reference run of the same traffic without the
+    feature."""
+    from qqq_tpu_torch.serve.engine import Engine
+
+    g128_kernels = SCHEME_KERNELS["g128"]
+    pool_kernels = ("paged_chunk_write_int8", "paged_flash_attention_int8")
+    slot = dict(max_batch=MAX_BATCH, max_len=2048, device=dev)
+    rng = np.random.default_rng(6)
+    vocab = config.vocab_size
+
+    log(f"phase 6a: chunked prefill in slot mode (chunk {CHUNK6}): 3a's "
+        f"requests and a {LONG6}-token prompt that arrives once the first "
+        "of them has its first token; max_batch 5 (3a's four fill 4)")
+    long = [int(t) for t in rng.integers(0, vocab, LONG6)]
+    kw6a = dict(slot, max_batch=MAX_BATCH + 1)
+    eng = Engine(params, config, prefill_chunk=CHUNK6, prefill_batch=2,
+                 **kw6a)
+    feat, feat_late = _requests(prompts), _requests([long])
+    _, events, _ = drive(eng, feat, "g128", "6a chunked", later=feat_late,
+                      must_run=g128_kernels + pool_kernels)
+    base = sum(-(-n // CHUNK6) for n in PROMPT_LENS)
+    n_long = -(-LONG6 // CHUNK6)
+    # rounds 1-2: slots (0, 1), (2, 3), then (2, 3) with the late prompt's
+    # first chunk alone; then one dispatch per remaining chunk
+    want = (base + n_long, 2 + 2 + n_long - 1)
+    got = (eng.stats["prefill_chunks"], eng.stats["prefill_dispatches"])
+    if got != want:
+        raise AssertionError(f"6a: (chunks, dispatches) {got}, expected "
+                             f"{want}")
+    between = {c for i, c in events if i != len(prompts)}
+    gaps = set(range(base + 1, base + n_long))
+    if not gaps <= between:
+        raise AssertionError(f"6a: no decode token delivered after the late "
+                             f"prompt's chunks {sorted(gaps - between)}")
+    log(f"  the decoding rows delivered tokens after each of the late "
+        f"prompt's chunks 1..{n_long - 1} (chunk counts {sorted(gaps)})")
+    del eng
+    ref = Engine(params, config, prefill_buckets=BUCKETS, **kw6a)
+    ref_reqs, ref_late = (_requests(prompts, NEAR_TIE_TOP),
+                          _requests([long], NEAR_TIE_TOP))
+    drive(ref, ref_reqs, "g128", "6a reference (whole-bucket prefill)",
+          later=ref_late)
+    near_tie("6a", feat + feat_late, ref_reqs + ref_late)
+    del ref
+
+    log(f"phase 6b: the slot prefix cache (chunk {CHUNK6}): turn 2 = turn "
+        "1 + its reply + 100 new tokens")
+    eng = Engine(params, config, prefill_chunk=CHUNK6, prefix_cache=True,
+                 **slot)
+    turn1 = _requests([prompts[-1]])
+    drive(eng, turn1, "g128", "6b turn 1", must_run=pool_kernels)
+    turn2 = (prompts[-1] + turn1[0].output_tokens
+             + [int(t) for t in rng.integers(0, vocab, 100)])
+    feat = _requests([turn2])
+    drive(eng, feat, "g128", "6b turn 2, cached")
+    kept = len(prompts[-1]) + len(turn1[0].output_tokens) - 1
+    want = min(kept, len(turn2) - 1) // CHUNK6 * CHUNK6
+    got = (eng.stats["prefix_hits"], eng.stats["prefix_tokens_reused"])
+    if got != (1, want):
+        raise AssertionError(f"6b: (hits, reused) {got}, expected "
+                             f"(1, {want})")
+    del eng
+    # the same history without the cache: turn 1 (warm-up), then turn 2
+    ref = Engine(params, config, prefill_chunk=CHUNK6, **slot)
+    drive(ref, _requests([prompts[-1]]), "g128", "6b turn 1, no prefix cache")
+    ref_reqs = _requests([turn2], NEAR_TIE_TOP)
+    drive(ref, ref_reqs, "g128", "6b turn 2, no prefix cache")
+    log(f"  turn 2 ({len(turn2)} tokens): 1 hit, {want} tokens reused; TTFT "
+        f"{feat[0].ttft:.4f} s with the cache, {ref_reqs[0].ttft:.4f} s "
+        "without")
+    near_tie("6b", feat, ref_reqs)
+    del ref
+
+    log(f"phase 6c: the paged prefix cache (block_size {BS}): a "
+        f"{SYSTEM6}-token system prompt shared by 4 requests with "
+        f"{TAIL6}-token tails; 3 arrive after the first one's first token")
+    system = [int(t) for t in rng.integers(0, vocab, SYSTEM6)]
+
+    def shared(sys_prompt, n_top=0):
+        reqs = _requests([sys_prompt + [int(t) for t in
+                                        rng.integers(0, vocab, TAIL6)]
+                          for _ in range(4)], n_top)
+        return reqs[:1], reqs[1:]
+
+    def whole(e, what):
+        alloc, lru = e.allocators[0].available, len(e._bh_lru)
+        if alloc + lru != e.num_blocks - 1:
+            raise AssertionError(f"6c {what}: {alloc} free + {lru} cached "
+                                 f"blocks, expected {e.num_blocks - 1}")
+        return f"{alloc} free + {lru} cached = {e.num_blocks - 1}"
+
+    paged = dict(slot, paged=True, block_size=BS)
+    eng = Engine(params, config, prefix_cache=True, **paged)
+    first, rest = shared(system)
+    drive(eng, first, "g128", "6c cached", later=rest,
+          must_run=g128_kernels + PAGED_KERNELS)
+    blocks = SYSTEM6 // BS
+    got = (eng.stats["prefix_hits"], eng.stats["prefix_tokens_reused"])
+    if got != (3, 3 * blocks * BS):
+        raise AssertionError(f"6c: (hits, reused) {got}, expected "
+                             f"(3, {3 * blocks * BS}): {blocks} blocks each")
+    log(f"  3 hits, {blocks} blocks adopted each; pool {whole(eng, 'run')}")
+    del eng
+    ref = Engine(params, config, **paged)
+    ref_first = _requests([r.prompt_tokens for r in first], NEAR_TIE_TOP)
+    ref_rest = _requests([r.prompt_tokens for r in rest], NEAR_TIE_TOP)
+    drive(ref, ref_first, "g128", "6c reference (no prefix cache)",
+          later=ref_rest)
+    near_tie("6c", first + rest, ref_first + ref_rest)
+    del ref
+    # 13 usable: wave 1 holds at most 4 shared + 4 x 2 own blocks, then
+    # caches 8 of them (the shared 4 and each request's fifth), so the 5
+    # left free cannot hold wave 2, a new system prompt, without evicting
+    tight = 14
+    eng = Engine(params, config, prefix_cache=True, num_blocks=tight,
+                 **paged)
+    evicted = [0]
+    evict = eng._evict_cached_blocks
+
+    def counting(need):
+        n = len(eng._bh_lru)
+        evict(need)
+        evicted[0] += n - len(eng._bh_lru)
+
+    eng._evict_cached_blocks = counting
+    for wave in (1, 2):
+        first, rest = shared(system if wave == 1 else
+                             [int(t) for t in rng.integers(0, vocab,
+                                                           SYSTEM6)])
+        drive(eng, first, "g128", f"6c over {tight} blocks, wave {wave}",
+              later=rest)
+        log(f"    pool {whole(eng, f'wave {wave}')}; {evicted[0]} cached "
+            "blocks evicted so far")
+    if not evicted[0]:
+        raise AssertionError("6c: the tight pool evicted no cached block")
+    del eng
+
+    log(f"phase 6d: prompt-lookup speculation (spec_ngram {SPEC_NGRAM}, "
+        f"spec_k {SPEC_K}): a prompt of {RICH6} distinct tokens, 3a's "
+        "requests, a 64-token block repeated 4 times and a seeded sampled "
+        "request (temperature 0.8)")
+    block = [int(t) for t in rng.integers(0, vocab, 64)]
+    traffic = ([[int(t) for t in rng.permutation(vocab)[:RICH6]]] + prompts
+               + [block * 4, [int(t) for t in rng.integers(0, vocab, 200)]])
+
+    def spec_reqs(n_top=0):
+        return _requests(traffic[:-1], n_top) + _requests(
+            traffic[-1:], n_top, temperature=0.8, seed=1234)
+
+    greedy = len(traffic) - 1
+    for mode, kw in (("slot", dict(slot, prefill_buckets=BUCKETS)),
+                     ("paged", paged)):
+        must = g128_kernels + pool_kernels + (
+            PAGED_KERNELS if mode == "paged" else slot_kernels(2048))
+        spec = dict(spec_ngram=SPEC_NGRAM, spec_k=SPEC_K)
+        eng = Engine(params, config, **kw, **spec)
+        feat = spec_reqs()
+        _, _, on = drive(eng, feat, "g128", f"6d {mode}, captured verify",
+                         must_run=must)
+        st = eng.stats
+        spec_keys = [k for k in eng._graphs if k[0] == "spec"]
+        if not (st["spec_drafted"] > 0
+                and sum(eng._graphs[k].replays for k in spec_keys) > 0):
+            raise AssertionError(f"6d {mode}: no draft verified by a replay "
+                                 f"({st['spec_drafted']} drafted, graphs "
+                                 f"{sorted(map(str, eng._graphs))})")
+        # one replay of a verify graph against the plain tick's of the same
+        # sampling branch and extras
+        pairs = [(k, (1,) + k[2:]) for k in spec_keys
+                 if (1,) + k[2:] in eng._graphs]
+        if not pairs:
+            raise AssertionError(f"6d {mode}: no plain tick beside a verify "
+                                 "of the same sampling key: "
+                                 f"{sorted(map(str, eng._graphs))}")
+        timed = {}
+        for name, key in zip(("verify", "plain"), pairs[0]):
+            graph = eng._graphs[key]
+            graph.replay()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(20):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                graph.replay()
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            timed[name] = statistics.median(times)
+        log(f"  6d {mode}: one replay, CUDA-event median of 20 "
+            f"({pairs[0][0][2]}, {pairs[0][0][4]}): verify (B {MAX_BATCH}, "
+            f"T {1 + SPEC_K}) {timed['verify']:.4f} ms, plain tick "
+            f"{timed['plain']:.4f} ms "
+            f"({timed['verify'] / timed['plain']:.3f}x)")
+        del eng
+        eng = Engine(params, config, **kw, **spec)
+        eager = spec_reqs()
+        drive(eng, eager, "g128", f"6d {mode}, eager ticks", eager=True)
+        if [r.output_tokens for r in eager] != \
+                [r.output_tokens for r in feat]:
+            raise AssertionError(f"6d {mode}: the captured verify's tokens "
+                                 "differ from the eager verify's")
+        log(f"  6d {mode}: tokens equal to the eager run's")
+        del eng
+        ref = Engine(params, config, **kw)
+        _, _, off = drive(ref, spec_reqs(), "g128",
+                          f"6d {mode}, no speculation")
+        log(f"  6d {mode}: decode {on:.1f} tok/s with speculation, {off:.1f} "
+            f"without ({on / off:.3f}x)")
+        ref_reqs = spec_reqs(NEAR_TIE_TOP)
+        drive(ref, ref_reqs, "g128", f"6d {mode} reference (no speculation, "
+              f"top {NEAR_TIE_TOP} logprobs)")
+        near_tie(f"6d {mode}", feat[:greedy], ref_reqs[:greedy])
+        same = sum(a == b for a, b in zip(feat[-1].output_tokens,
+                                          ref_reqs[-1].output_tokens))
+        log(f"  6d {mode}: the seeded row's tokens equal at {same}/64 "
+            "positions with speculation off (not asserted: the verify's "
+            "flash and the decode kernel give other logits)")
+        del ref
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2036,6 +2452,11 @@ def main() -> int:
                                   for n in PROMPT_LENS])
     del loaded
     check_marlin(dev, params, config, 128)
+    t6 = time.perf_counter()
+    rng = np.random.default_rng(0)  # 3a's prompts (serve)
+    phase6(dev, params, config, [[int(t) for t in rng.integers(0, V, n)]
+                                 for n in PROMPT_LENS])
+    log(f"phase 6 took {time.perf_counter() - t6:.1f} s")
     del params
     torch.cuda.empty_cache()
     log("phase 3b: serve Llama-2-7B (per-channel W4A8, gate/up GLU-fused, "

@@ -34,9 +34,17 @@ def parse_args(argv=None):
     p.add_argument("--max_length", type=int, default=2048)
     p.add_argument("--kv_int8", action="store_true", default=True)
     p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--prefill_chunk", type=int, default=0,
+                   help=">0 enables chunked prefill: prompts prefill this "
+                        "many tokens per tick interleaved with decode")
+    p.add_argument("--prefix_cache", action="store_true",
+                   help="with --prefill_chunk: prompts sharing a prefix "
+                        "with a finished one skip re-prefilling it")
     p.add_argument("--spec_ngram", type=int, default=0,
-                   help="not ported yet: >0 is refused")
-    p.add_argument("--spec_k", type=int, default=4)
+                   help=">0: prompt-lookup speculative decoding (exact "
+                        "for greedy; faster on repetitive continuations)")
+    p.add_argument("--spec_k", type=int, default=4,
+                   help="max draft tokens verified per speculative tick")
     p.add_argument("--device", default="cuda",
                    help="the CUDA card by default; 'cpu' runs the plain "
                         "PyTorch versions of the kernels")
@@ -72,6 +80,7 @@ def main(argv=None):
     outs = generate(
         params, config, prompts, sampling, max_batch=max(len(prompts), 1),
         max_len=args.max_length, kv_quantized=args.kv_int8, dtype=dtype,
+        prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
         spec_ngram=args.spec_ngram, spec_k=args.spec_k, device=args.device,
     )
     for label, out in zip(labels, outs):

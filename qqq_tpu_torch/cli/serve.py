@@ -947,13 +947,24 @@ def parse_args(argv=None):
                    help=">1 fuses that many decode steps in each captured "
                         "tick (chunked EOS checks)")
     p.add_argument("--prefill_chunk", type=int, default=0,
-                   help="paged mode: prompt tokens prefilled per chunk (0 = "
-                        "the engine's default); not ported in slot mode")
+                   help=">0 enables chunked prefill: prompts prefill this "
+                        "many tokens per tick interleaved with decode "
+                        "(bounds batchmates' decode latency under load); "
+                        "with --paged, 0 takes the engine's default chunk")
     p.add_argument("--prefix_cache", action="store_true",
-                   help="not ported yet: refused at startup")
+                   help="with --prefill_chunk (or --paged): freed slots "
+                        "keep their KV (paged: full blocks, content-hashed) "
+                        "and new prompts sharing a prefix skip "
+                        "re-prefilling it (multi-turn chat / shared system "
+                        "prompts)")
     p.add_argument("--spec_ngram", type=int, default=0,
-                   help="not ported yet: >0 is refused at startup")
-    p.add_argument("--spec_k", type=int, default=4)
+                   help=">0 enables prompt-lookup speculative decoding "
+                        "(exact for greedy rows): draft by matching the "
+                        "last N generated tokens in the request's history; "
+                        "composes with --steps_per_tick (no-draft ticks "
+                        "fall back to the fused multi-step decode)")
+    p.add_argument("--spec_k", type=int, default=4,
+                   help="max draft tokens verified per speculative tick")
     p.add_argument("--kv_int8", action="store_true", default=True)
     p.add_argument("--paged", action="store_true",
                    help="paged KV cache (block pool + block tables, "

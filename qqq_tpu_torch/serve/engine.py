@@ -20,16 +20,32 @@ Two KV layouts, as in JAX:
 * **slot mode** (default): a fixed (max_batch, max_len) cache; prompts
   prefill whole, padded to a bucket; same-bucket pending requests prefill
   together in power-of-two sub-batches into a bucket-sized scratch cache,
-  whose rows are then copied into their slots;
+  whose rows are then copied into their slots.  With ``prefill_chunk`` a
+  request claims its slot at once and prefills ``prefill_chunk`` tokens
+  per scheduling round instead, up to ``prefill_batch`` slots per (g, C)
+  dispatch, straight into its slot: the (max_batch, nkv, max_len, hd)
+  cache is read as a block pool of ``max_batch`` blocks of ``max_len``
+  tokens, each row's table the one entry [slot], so the chunk runs
+  through the paged write and paged flash kernels with no copy of a
+  slot's rows;
 * **paged mode** (``paged=True``): a pool of ``num_blocks`` blocks of
   ``block_size`` tokens shared by all slots (serve/paged_kv.py), with
   per-slot block tables grown on demand, so KV memory follows the tokens
-  in flight.  A request claims a slot at once and prefills
-  ``prefill_chunk`` tokens per scheduling round, up to ``prefill_batch``
-  slots per (R, C) dispatch, straight into its blocks; when the pool runs
-  dry the latest-admitted request is preempted (its blocks free, and it
-  re-enters the queue to re-prefill prompt + generated tokens: the vLLM
-  recompute policy).
+  in flight.  Prefill is always chunked, straight into the blocks; when
+  the pool runs dry the engine first evicts unreferenced prefix-cache
+  blocks (LRU), then preempts the latest-admitted request (its blocks
+  free, and it re-enters the queue to re-prefill prompt + generated
+  tokens: the vLLM recompute policy).
+
+Scheduler features, as in JAX: ``prefix_cache`` (chunked prefill only)
+reuses KV across requests, at slot granularity in slot mode (a freed slot
+keeps its KV and a prompt sharing its prefix is admitted into it) and by
+content-hashed full blocks in paged mode (adopted read-only, reference
+counted); ``spec_ngram`` turns on prompt-lookup speculative decoding:
+each tick drafts up to ``spec_k`` tokens per row from the row's own
+history and verifies them in one (max_batch, 1 + spec_k) forward, on the
+card one replay of a captured graph beside the decode ticks'; a tick where
+no row drafts takes the plain (multi-step) tick.
 
 Both run the JAX engine's default GEMM fusion (``fuse=True``: gate/up
 through the GLU-fused kernel) and every per-request sampling feature:
@@ -49,13 +65,13 @@ server scores prompts that way, so no other thread touches the card while
 a graph is captured), and :meth:`Engine.latency_summary` reports TTFT and
 TPOT percentiles.
 
-Chunked prefill in slot mode, the prefix cache, speculative decoding and
-meshes keep the JAX engine's argument names and raise
+Meshes keep the JAX engine's argument name and raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import os
@@ -159,10 +175,6 @@ def _bucket(n: int, buckets) -> int:
     raise ValueError(f"prompt length {n} exceeds max bucket {buckets[-1]}")
 
 
-def _later_slice(name: str) -> NotImplementedError:
-    return NotImplementedError(f"{name} is not ported yet")
-
-
 class Engine:
     def __init__(
         self,
@@ -199,18 +211,18 @@ class Engine:
         defaults to the widest chunk ≤ 512 that divides ``max_len`` and is
         a whole number of blocks; ``num_blocks`` (null block included)
         defaults to ``1 + max_batch · max_len / block_size``, which never
-        preempts — size it down to oversubscribe."""
-        del spec_k  # meaningful only with speculative decoding
+        preempts — size it down to oversubscribe.
+
+        ``prefill_chunk > 0`` in slot mode chunks the prefill as paged
+        mode does (``max_len`` must be a multiple of it);
+        ``prefix_cache`` needs chunked prefill (and, paged, chunks of
+        whole blocks); ``spec_ngram > 0`` drafts by matching the last
+        ``spec_ngram`` tokens against the request's own history and
+        verifies up to ``spec_k`` drafted tokens a tick."""
         if steps_per_tick < 1:
             raise ValueError(f"steps_per_tick {steps_per_tick} < 1")
-        for on, name in ((mesh is not None, "mesh"),
-                         (prefill_chunk and not paged,
-                          "chunked prefill in slot mode (prefill_chunk "
-                          "without paged)"),
-                         (spec_ngram, "speculative decoding (spec_ngram)"),
-                         (prefix_cache, "prefix_cache")):
-            if on:
-                raise _later_slice(name)
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported yet")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -239,9 +251,10 @@ class Engine:
                 while c > block_size and (max_len % c or c % block_size):
                     c -= block_size
                 prefill_chunk = max(c, block_size)
-            if max_len % prefill_chunk:
-                raise ValueError(f"max_len {max_len} must be a multiple of "
-                                 f"prefill_chunk {prefill_chunk}")
+            if prefix_cache and prefill_chunk % block_size:
+                raise ValueError(
+                    "paged prefix_cache needs prefill_chunk % block_size "
+                    f"== 0, got {prefill_chunk} % {block_size}")
             self.block_size = block_size
             #: per-slot virtual-block capacity (max_len tokens)
             self._nbmax = max_len // block_size
@@ -259,6 +272,18 @@ class Engine:
                                            device=self.device)
             self._tables_dirty = True
             self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
+            # the block-level prefix cache (JAX :284-299, one shard): full
+            # blocks registered under the tuple of every token up to their
+            # end, adopted read-only by later requests; a reference count of
+            # slot owners per registered block, 0 = evictable, oldest first
+            self._bh_key2blk: Dict[tuple, int] = {}
+            self._bh_blk2key: Dict[int, tuple] = {}
+            self._bh_ref: Dict[int, int] = {}
+            self._bh_lru: "collections.OrderedDict[int, None]" = \
+                collections.OrderedDict()
+            #: per slot: leading ``slot_blocks`` already registered or
+            #: adopted (skipped by _register_blocks)
+            self.slot_reg = [0] * max_batch
             self.caches = paged_kv.init(config, num_blocks, block_size,
                                         quantized=kv_quantized, dtype=dtype,
                                         device=self.device)
@@ -266,6 +291,28 @@ class Engine:
             self.caches = kv_cache.init(config, max_batch, max_len,
                                         quantized=kv_quantized, dtype=dtype,
                                         device=self.device)
+            #: the slot cache read as a pool of max_batch blocks of max_len
+            #: tokens: row b's table is [b] (the verify forward's tables;
+            #: a chunk dispatch takes its rows' slots)
+            self._slot_tables = torch.arange(
+                max_batch, dtype=torch.int32, device=self.device)[:, None]
+        if prefill_chunk and max_len % prefill_chunk:
+            # every C-wide chunk then ends inside the cache: no write clamps
+            raise ValueError(f"max_len {max_len} must be a multiple of "
+                             f"prefill_chunk {prefill_chunk}")
+        if prefix_cache and not prefill_chunk:
+            raise ValueError("prefix_cache needs chunked prefill "
+                             "(prefill_chunk > 0)")
+        self.spec_ngram = spec_ngram
+        self.spec_k = spec_k
+        self.prefix_cache = prefix_cache
+        #: positions a masked row may write past a freed slot's kept prefix
+        #: in one tick (JAX :355): keeps those writes inside the cache
+        self._free_margin = max(steps_per_tick,
+                                spec_k + 1 if spec_ngram else 1)
+        #: slot mode with prefix_cache: the tokens whose KV a freed slot
+        #: still holds (its slot_len stays their count)
+        self.slot_tokens: List[List[int]] = [[] for _ in range(max_batch)]
         self.prefill_chunk = prefill_chunk
         if prefill_batch is None:
             # each admitted row costs a bucket-sized KV scratch across every
@@ -288,7 +335,7 @@ class Engine:
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_len = np.zeros(max_batch, np.int32)
         self.slot_last_tok = np.zeros(max_batch, np.int32)
-        #: slot → prompt tokens not yet prefilled (paged mode); a slot
+        #: slot → prompt tokens not yet prefilled (chunked prefill); a slot
         #: present here is mid-prefill and excluded from decode
         self.slot_prefill: Dict[int, List[int]] = {}
         #: admission order per slot: preemption evicts the latest admitted
@@ -297,8 +344,10 @@ class Engine:
         self.generator = torch.Generator(device=self.device).manual_seed(0)
         #: the decode tick's packed inputs (_TICK_ROWS, max_batch) on the
         #: device, one tensor for the engine's life, and the (pinned, on the
-        #: card) host buffer that each tick fills and copies into it
-        self._tick_in = torch.zeros((_TICK_ROWS, max_batch),
+        #: card) host buffer that each tick fills and copies into it; with
+        #: spec_ngram, spec_k more rows hold each slot's drafts
+        rows = _TICK_ROWS + (spec_k if spec_ngram else 0)
+        self._tick_in = torch.zeros((rows, max_batch),
                                     dtype=torch.int32, device=self.device)
         self._tick_host = self._tick_in
         if self.device.type == "cuda":
@@ -341,11 +390,16 @@ class Engine:
             "prefills": 0, "prefill_tokens": 0, "prefill_chunks": 0,
             "prefill_dispatches": 0,
             "generated_tokens": 0, "decode_ticks": 0, "preemptions": 0,
+            "spec_drafted": 0, "spec_accepted": 0,
+            "prefix_hits": 0, "prefix_tokens_reused": 0,
             "prefill_s": 0.0, "decode_s": 0.0,
-            # decode steps (a tick fuses up to steps_per_tick), ticks
-            # replayed from a captured graph, graphs captured and the
-            # seconds of the ticks that captured (their eager run included)
-            "decode_steps": 0, "graph_replays": 0, "graph_captures": 0,
+            # decode steps of the plain ticks (a tick fuses up to
+            # steps_per_tick), speculative ticks (one verify forward each;
+            # decode_ticks counts both kinds), ticks replayed from a
+            # captured graph, graphs captured and the seconds of the ticks
+            # that captured (their eager run included)
+            "decode_steps": 0, "spec_ticks": 0,
+            "graph_replays": 0, "graph_captures": 0,
             "graph_capture_s": 0.0,
             # (rows, bucket or chunk) of each prefill dispatch, in order
             "prefill_shapes": [],
@@ -573,22 +627,27 @@ class Engine:
                                else (tops[0][i], tops[1][i]))
 
     @torch.inference_mode()
-    def _prefill_chunk_paged(self, rows: List[Optional[int]]) -> None:
+    def _prefill_chunk(self, rows: List[Optional[int]]) -> None:
         """One (R, C) chunked-prefill dispatch, R = len(rows): each slot's
         next ``prefill_chunk`` prompt tokens at its ``slot_len``, written
-        straight into its blocks through its table row; ``None`` rows ride
-        along on a null table.  The padded tail of a chunk is written too:
-        positions past the allocated blocks land in the null block, the
-        rest are rewritten by the next chunk or decode step before anything
-        attends to them.  A slot whose prompt this chunk completes samples
-        its first token (JAX: _prefill_chunk_paged :835 and the dispatch
-        half of _progress_chunk_prefills_paged :1693)."""
+        straight into its KV through its table row: its block table in
+        paged mode, in slot mode the one block [slot] of the cache read as
+        a pool of max_len-token blocks (a chunk ends at or below max_len,
+        so no position leaves that block); ``None`` rows (paged mode) ride
+        along on a null table.  The padded
+        tail of a chunk is written too: positions past the allocated
+        blocks land in the null block, the rest are rewritten by the next
+        chunk or decode step before anything attends to them.  A slot
+        whose prompt this chunk completes samples its first token (JAX:
+        _prefill_chunk_step :792, _prefill_chunk_paged :835 and the
+        dispatch half of _progress_chunk_prefills :1599 and _paged
+        :1693)."""
         t0 = time.perf_counter()
         C, R = self.prefill_chunk, len(rows)
         toks = np.zeros((R, C), np.int64)
         ks = np.zeros((R,), np.int32)
         tns = np.ones((R,), np.int64)
-        tabs = np.zeros((R, self._nbmax), np.int32)
+        tabs = np.zeros((R, self._nbmax if self.paged else 1), np.int32)
         reqs: List[Optional[Request]] = [None] * R
         finals = [False] * R
         for i, slot in enumerate(rows):
@@ -598,7 +657,7 @@ class Engine:
             toks[i, :len(part)] = part
             ks[i] = self.slot_len[slot]
             tns[i] = len(part)
-            tabs[i] = self.tables[slot]
+            tabs[i] = self.tables[slot] if self.paged else slot
             reqs[i] = self.slot_req[slot]
             finals[i] = len(self.slot_prefill[slot]) <= C
         dev = self.device
@@ -623,6 +682,7 @@ class Engine:
             if slot is None:
                 continue
             self.slot_len[slot] = ks[i] + tns[i]
+            self._register_blocks(slot)  # completed blocks adoptable
             self.slot_prefill[slot] = self.slot_prefill[slot][C:]
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += int(tns[i])
@@ -649,6 +709,39 @@ class Engine:
             self._planes[key] = (host, dev)
         return self._planes[key]
 
+    def _tick_planes(self, ex: TickExtras):
+        """The static tick inputs as the sampler takes them: (cache_len,
+        active, the (temp, top_k, top_p, min_p) planes, penalty bundle,
+        bias pair, guided ids), each extra ``None`` when ``ex`` lacks it."""
+        buf = self._tick_in
+        temp, topp, minp, pres, freq, rep = (
+            buf[r].view(torch.float32) for r in (3, 5, 6, 7, 8, 9))
+        pen = ((self.counts, self.rep_mask, pres, freq, rep)
+               if ex.penalties else None)
+        bias = None
+        if ex.bias_k:
+            planes = self._plane("bias", ex.bias_k)[1]
+            bias = (planes[0], planes[1].view(torch.float32))
+        allow = self._plane("allow", ex.allow_k)[1] if ex.allow_k else None
+        return (buf[1], buf[2] != 0, (temp, buf[4], topp, minp), pen, bias,
+                allow)
+
+    def _seeded(self, ex: TickExtras, ahead: int):
+        """The seeded rows' (mask, seed, generation index + ``ahead``)
+        from the tick input, or () when no row has a seed."""
+        buf = self._tick_in
+        return (buf[10] != 0, buf[11], buf[12] + ahead) if ex.seeded else ()
+
+    @staticmethod
+    def _report(last: torch.Tensor, tok: torch.Tensor, n_top: int):
+        """(2 + 2N, rows) f32: the tokens, their raw log-probabilities and
+        with N = ``n_top`` the top ids and top values."""
+        parts = [tok.to(torch.float32), chosen_logprob(last, tok)]
+        if n_top:
+            vals, ids = top_logprobs(last, n_top)
+            parts += [*ids.T.to(torch.float32), *vals.T]
+        return torch.stack(parts)
+
     def _decode_steps(self, n: int, branch: str,
                       ex: TickExtras) -> torch.Tensor:
         """``n`` decode steps across all slots from the static tick inputs
@@ -658,20 +751,8 @@ class Engine:
         token 0, ``cache_len + 1`` carried.  Returns (2 + 2N, max_batch, n)
         f32: tokens, their log-probabilities, then with N = ``ex.n_top``
         the top ids and top values.  This is what a graph captures."""
-        buf = self._tick_in
-        tok = buf[0].to(torch.int64)
-        cache_len = buf[1]
-        active = buf[2] != 0
-        temp, topp, minp, pres, freq, rep = (
-            buf[r].view(torch.float32) for r in (3, 5, 6, 7, 8, 9))
-        topk = buf[4]
-        pen = ((self.counts, self.rep_mask, pres, freq, rep)
-               if ex.penalties else None)
-        bias = None
-        if ex.bias_k:
-            planes = self._plane("bias", ex.bias_k)[1]
-            bias = (planes[0], planes[1].view(torch.float32))
-        allow = self._plane("allow", ex.allow_k)[1] if ex.allow_k else None
+        cache_len, active, planes, pen, bias, allow = self._tick_planes(ex)
+        tok = self._tick_in[0].to(torch.int64)
         tables = self._tables_dev if self.paged else None
         steps = []
         for s in range(n):
@@ -680,32 +761,62 @@ class Engine:
                 cache_len=cache_len, block_tables=tables)
             last = logits[:, -1, :]
             x = self._alter_logits(last, pen, bias, allow)
-            seeded = ((buf[10] != 0, buf[11], buf[12] + s) if ex.seeded
-                      else ())
             nxt = torch.where(active, sample_batched(
-                x, self.generator, temp, topk, topp, minp, *seeded,
+                x, self.generator, *planes, *self._seeded(ex, s),
                 branch=branch), 0)
             if ex.penalties:  # the sampled token is now generated
                 self.counts.scatter_add_(1, nxt.to(torch.int64)[:, None],
                                          active.to(torch.int32)[:, None])
-            parts = [nxt.to(torch.float32), chosen_logprob(last, nxt)]
-            if ex.n_top:
-                vals, ids = top_logprobs(last, ex.n_top)
-                parts += [*ids.T.to(torch.float32), *vals.T]
-            steps.append(torch.stack(parts))
+            steps.append(self._report(last, nxt, ex.n_top))
             tok = nxt.to(torch.int64)
             cache_len = cache_len + 1
         return torch.stack(steps, -1)
 
-    def _run_tick(self, n: int, branch: str, ex: TickExtras) -> torch.Tensor:
-        """:meth:`_decode_steps` eagerly on the CPU (and with
-        ``_eager_tick``); on the card by replaying the graph of this
-        (steps, branch, GEMM route flag, extras), which the first such tick
-        captures after running eagerly on the capture stream: that run
-        does every kernel's first-call host work."""
+    def _verify_step(self, branch: str, ex: TickExtras) -> torch.Tensor:
+        """The speculative verify (JAX: _spec_verify_step :719): one
+        (max_batch, 1 + k) forward over each row's [last token, drafts]
+        at ``cache_len``, the model's sampled continuation at every
+        position.  Position 0 alone takes the extras' stack and is counted
+        into ``counts`` (rows that alter logits never draft, so their
+        later positions are never read); position j samples with
+        generation index ``ngen + j``, so a seeded row draws the noise of
+        its plain stream.  Returns (2 + 2N, max_batch, 1 + k) f32 as
+        :meth:`_decode_steps` does.  In slot mode the forward reads the
+        cache as a pool of max_len-token blocks (``_slot_tables``); the
+        gate in :meth:`run` keeps every row's 1 + k writes below max_len.
+        This is what a verify graph captures."""
+        cache_len, active, planes, pen, bias, allow = self._tick_planes(ex)
+        buf, k = self._tick_in, self.spec_k
+        toks = torch.cat([buf[:1], buf[_TICK_ROWS:_TICK_ROWS + k]]).T
+        tables = self._tables_dev if self.paged else self._slot_tables
+        logits, _ = M.forward(
+            self.params, self.config, toks.to(torch.int64),
+            caches=self.caches, cache_len=cache_len, block_tables=tables)
+        x0 = self._alter_logits(logits[:, 0], pen, bias, allow)
+        cols = [torch.where(active, sample_batched(
+            x0, self.generator, *planes, *self._seeded(ex, 0),
+            branch=branch), 0)]
+        for j in range(1, 1 + k):
+            cols.append(sample_batched(
+                logits[:, j], self.generator, *planes, *self._seeded(ex, j),
+                branch=branch))
+        if ex.penalties:
+            self.counts.scatter_add_(1, cols[0].to(torch.int64)[:, None],
+                                     active.to(torch.int32)[:, None])
+        B, T, V = logits.shape
+        samp = torch.stack(cols, 1)  # (B, T)
+        out = self._report(logits.reshape(B * T, V), samp.reshape(B * T),
+                           ex.n_top)
+        return out.reshape(-1, B, T)
+
+    def _run_graph(self, key: tuple, run: Callable[[], torch.Tensor]
+                   ) -> torch.Tensor:
+        """``run()`` eagerly on the CPU (and with ``_eager_tick``); on the
+        card by replaying the graph kept under ``key``, which the first
+        such tick captures after running eagerly on the capture stream:
+        that run does every kernel's first-call host work."""
         if self.device.type != "cuda" or self._eager_tick:
-            return self._decode_steps(n, branch, ex)
-        key = (n, branch, w4a8_gemm.FUSE_ACT_QUANT, ex)
+            return run()
         graph = self._graphs.get(key)
         if graph is not None:
             self.stats["graph_replays"] += 1
@@ -716,21 +827,37 @@ class Engine:
         stream, main = self._graph_stream, torch.cuda.current_stream()
         stream.wait_stream(main)
         with torch.cuda.stream(stream):
-            out = self._decode_steps(n, branch, ex)
+            out = run()
         main.wait_stream(stream)
-        self._graphs[key] = TickGraph(
-            lambda: self._decode_steps(n, branch, ex), self.generator, stream)
+        self._graphs[key] = TickGraph(run, self.generator, stream)
         self.stats["graph_captures"] += 1
         self.stats["graph_capture_s"] += time.perf_counter() - t0
         return out
 
-    def _pack_tick(self, active: np.ndarray,
-                   rows: List[Optional[Request]]) -> Tuple[str, TickExtras]:
-        """Fill the tick's host buffers (JAX: _pack_tick_args) and copy
-        them into the tick's device tensors; return the sampling branch and
-        the extras of the active rows."""
+    def _run_tick(self, n: int, branch: str, ex: TickExtras) -> torch.Tensor:
+        """``n`` decode steps through the graph of this (steps, branch,
+        GEMM route flag, extras)."""
+        return self._run_graph((n, branch, w4a8_gemm.FUSE_ACT_QUANT, ex),
+                               lambda: self._decode_steps(n, branch, ex))
+
+    def _run_verify(self, branch: str, ex: TickExtras) -> torch.Tensor:
+        """The verify through the graph of ("spec", k, branch, GEMM route
+        flag, extras)."""
+        return self._run_graph(
+            ("spec", self.spec_k, branch, w4a8_gemm.FUSE_ACT_QUANT, ex),
+            lambda: self._verify_step(branch, ex))
+
+    def _pack_tick(self, active: np.ndarray, rows: List[Optional[Request]],
+                   drafts: Optional[List[List[int]]] = None
+                   ) -> Tuple[str, TickExtras]:
+        """Fill the tick's host buffers (JAX: _pack_tick_args), each slot's
+        ``drafts`` in rows _TICK_ROWS.. of the same buffer, and copy them
+        into the tick's device tensors; return the sampling branch and the
+        extras of the active rows."""
         h = self._tick_host.numpy()
         h[:] = 0
+        for slot, d in enumerate(drafts or ()):
+            h[_TICK_ROWS:_TICK_ROWS + len(d), slot] = d
         h[0] = self.slot_last_tok
         h[1] = self.slot_len
         h[2] = active
@@ -767,43 +894,117 @@ class Engine:
             seeded=seeds is not None, n_top=self._ntop(rows))
         return sampling_branch(temp, topk, topp, minp), ex
 
-    @torch.inference_mode()
-    def _decode_tick(self, active: np.ndarray, n: int = 1) -> None:
-        """``n`` fused decode steps across all slots (inactive rows are
-        masked), then the emit loop of JAX's run (:2064-2083): a row that
-        finishes mid-chunk drops the rest of its chunk.  In paged mode the
-        masked rows still write their K/V from ``slot_len`` on through
-        their table row: an empty slot's table is all null, and a
-        mid-prefill slot's positions are rewritten by its next chunk."""
-        t0 = time.perf_counter()
-        rows = [r if active[i] else None for i, r in enumerate(self.slot_req)]
-        branch, ex = self._pack_tick(active, rows)
+    def _sync_tables(self) -> None:
+        """Copy the block tables into their device tensor if they changed
+        (paged mode)."""
         if self.paged and self._tables_dirty:
             self._tables_dev.copy_(torch.from_numpy(self.tables))
             self._tables_dirty = False
+
+    def _deliver(self, slot: int, req: Request, toks, lps, tops) -> None:
+        """Append one tick's tokens of a row in order (``tops``: its (N, n)
+        top ids and values, or None), then emit (JAX :2064-2083 and
+        :1537-1552): a row that finishes on one of them drops the rest, and
+        in paged mode the row's newly completed blocks are registered."""
+        for t, tok in enumerate(toks):
+            if self.slot_req[slot] is None:
+                break  # finished mid-tick: drop the overshoot
+            req.output_tokens.append(int(tok))
+            req.token_logprobs.append(float(lps[t]))
+            if tops is not None and req.sampling.top_logprobs:
+                req.top_logprobs.append(self._top_list(
+                    req, tops[0][:, t], tops[1][:, t]))
+            self.slot_len[slot] += 1
+            self.slot_last_tok[slot] = tok
+            self._maybe_finish(slot)
+        if self.paged:
+            self._register_blocks(slot)
+        self._emit(req)
+        self._release_if_cancelled(slot)
+
+    @staticmethod
+    def _unpack(out: np.ndarray, n_top: int):
+        """(tokens, logprobs, (top ids, top values) or None) of a tick's
+        (2 + 2N, max_batch, n) report."""
+        tops = (out[2:2 + n_top], out[2 + n_top:]) if n_top else None
+        return out[0].astype(np.int32), out[1], tops
+
+    @torch.inference_mode()
+    def _decode_tick(self, active: np.ndarray, n: int = 1) -> None:
+        """``n`` fused decode steps across all slots (inactive rows are
+        masked), then the emit loop of JAX's run: a row that finishes
+        mid-chunk drops the rest of its chunk.  The masked rows still
+        write their K/V from ``slot_len`` on: in paged mode through their
+        table row (an empty slot's table is all null), in slot mode past a
+        freed slot's kept prefix; a mid-prefill slot's positions are
+        rewritten by its next chunk."""
+        t0 = time.perf_counter()
+        rows = [r if active[i] else None for i, r in enumerate(self.slot_req)]
+        branch, ex = self._pack_tick(active, rows)
+        self._sync_tables()
         out = self._run_tick(n, branch, ex).cpu().numpy()  # one copy back
-        toks, lps = out[0].astype(np.int32), out[1]
-        top_ids, top_vals = out[2:2 + ex.n_top], out[2 + ex.n_top:]
+        toks, lps, tops = self._unpack(out, ex.n_top)
         self.stats["decode_ticks"] += 1
         self.stats["decode_steps"] += n
         self.stats["decode_s"] += time.perf_counter() - t0
         for slot, req in enumerate(self.slot_req):
+            if req is not None and active[slot]:
+                self._deliver(slot, req, toks[slot], lps[slot],
+                              None if tops is None
+                              else (tops[0][:, slot], tops[1][:, slot]))
+
+    def _propose_draft(self, req: Request) -> List[int]:
+        """Prompt-lookup drafting (JAX :1459, vLLM's "[ngram]"): the
+        continuation, up to ``spec_k`` tokens, of the latest earlier
+        occurrence of the last ``spec_ngram`` tokens of the request's
+        prompt + output."""
+        n, k = self.spec_ngram, self.spec_k
+        ctx = req.prompt_tokens + req.output_tokens
+        if len(ctx) <= n:
+            return []
+        tail = ctx[-n:]
+        for i in range(len(ctx) - n - 1, -1, -1):
+            if ctx[i:i + n] == tail:
+                return ctx[i + n:i + n + k]
+        return []
+
+    @torch.inference_mode()
+    def _spec_tick(self, active: np.ndarray) -> bool:
+        """One speculative tick (JAX :1474): drafts per active row (none
+        for rows whose sampling alters logits), one verify across all
+        slots, and per row the longest draft prefix equal to the model's
+        own sampled tokens plus the token after it.  Returns False without
+        touching the device when no row drafted: the caller then runs the
+        plain tick."""
+        drafts: List[List[int]] = [[] for _ in range(self.max_batch)]
+        for slot, req in enumerate(self.slot_req):
+            if active[slot] and not req.sampling.alters_logits:
+                drafts[slot] = self._propose_draft(req)
+        if not any(drafts):
+            return False
+        t0 = time.perf_counter()
+        rows = [r if active[i] else None for i, r in enumerate(self.slot_req)]
+        branch, ex = self._pack_tick(active, rows, drafts)
+        self._sync_tables()
+        out = self._run_verify(branch, ex).cpu().numpy()  # one copy back
+        toks, lps, tops = self._unpack(out, ex.n_top)
+        self.stats["decode_ticks"] += 1
+        self.stats["spec_ticks"] += 1
+        self.stats["decode_s"] += time.perf_counter() - t0
+        for slot, req in enumerate(self.slot_req):
             if req is None or not active[slot]:
                 continue
-            for t in range(n):
-                if self.slot_req[slot] is None:
-                    break  # finished mid-chunk: drop the overshoot
-                tok = int(toks[slot, t])
-                req.output_tokens.append(tok)
-                req.token_logprobs.append(float(lps[slot, t]))
-                if ex.n_top and req.sampling.top_logprobs:
-                    req.top_logprobs.append(self._top_list(
-                        req, top_ids[:, slot, t], top_vals[:, slot, t]))
-                self.slot_len[slot] += 1
-                self.slot_last_tok[slot] = tok
-                self._maybe_finish(slot)
-            self._emit(req)
-            self._release_if_cancelled(slot)
+            d = drafts[slot]
+            j = 0
+            while j < len(d) and d[j] == toks[slot, j]:
+                j += 1
+            self.stats["spec_drafted"] += len(d)
+            self.stats["spec_accepted"] += j
+            self._deliver(slot, req, toks[slot, :j + 1], lps[slot, :j + 1],
+                          None if tops is None
+                          else (tops[0][:, slot, :j + 1],
+                                tops[1][:, slot, :j + 1]))
+        return True
 
     def _chunk_len(self, active: np.ndarray) -> int:
         """Steps of the next tick (JAX :1984-1999): ``steps_per_tick``,
@@ -916,26 +1117,35 @@ class Engine:
                or any(r is not None for r in self.slot_req)):
             self._drain_inbox()
             self._reject_unservable()
-            if self.paged:
+            if self.prefill_chunk:
                 self._admit_chunked()
-                self._progress_chunk_prefills_paged()
-                self._grow_for_decode()
+                self._progress_chunk_prefills()
             else:
                 self._admit_whole()
+            if self.paged:
+                self._grow_for_decode()
             active = np.array(
                 [r is not None and i not in self.slot_prefill
                  for i, r in enumerate(self.slot_req)], bool)
-            if active.any():
-                self._decode_tick(active, self._chunk_len(active))
+            if not active.any():
+                continue
+            # every row's verify writes 1 + spec_k positions from its
+            # slot_len (masked rows too): near max_len the whole tick takes
+            # the plain path (JAX :1972-1982)
+            if (self.spec_ngram
+                    and int(self.slot_len.max()) + self.spec_k < self.max_len
+                    and self._spec_tick(active)):
+                continue
+            self._decode_tick(active, self._chunk_len(active))
         return requests
 
     def _reject_unservable(self) -> None:
         """Finish the pending requests that can never run: cancelled
         ("stop"), no tokens asked ("length"), an empty prompt, one too
-        long for ``max_len`` or the largest bucket, or in paged mode one
-        whose KV cannot fit the pool even with every other request
-        preempted ("error"; a preempted request that grew past that has run
-        out of room: "length")."""
+        long for ``max_len`` or, prefilled whole, for the largest bucket,
+        or in paged mode one whose KV cannot fit the pool even with every
+        other request preempted ("error"; a preempted request that grew
+        past that has run out of room: "length")."""
         keep = []
         for r in self._pending:
             stream = r._resume or r.prompt_tokens
@@ -945,7 +1155,7 @@ class Engine:
                 # prefill always samples one token, which would leak out
                 r.done, r.finish_reason = True, "length"
             elif (not stream or len(stream) + 1 > self.max_len
-                  or (not self.paged
+                  or (not self.prefill_chunk
                       and len(stream) > self.prefill_buckets[-1])
                   or (self.paged
                       and -(-(len(stream) + 1) // self.block_size)
@@ -979,26 +1189,61 @@ class Engine:
                 self._admit_batch(group[:pb], free[:pb], bucket)
                 group, free = group[pb:], free[pb:]
 
+    def _pick_slot(self, prompt: List[int]) -> Tuple[int, int]:
+        """(free slot, reused tokens) for ``prompt`` (JAX :1035): with
+        ``prefix_cache`` the free slot whose kept KV shares the longest
+        prefix with it, the reuse capped at len(prompt) - 1 (one token must
+        run to give logits) and rounded down to a multiple of the chunk
+        (every later chunk then ends inside the cache)."""
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        if not self.prefix_cache:
+            return free[0], 0
+        best, best_m = free[0], 0
+        for i in free:
+            m = 0
+            for a, b in zip(self.slot_tokens[i], prompt):
+                if a != b:
+                    break
+                m += 1
+            m = min(m, len(prompt) - 1)
+            m = (m // self.prefill_chunk) * self.prefill_chunk
+            if m > best_m:
+                best, best_m = i, m
+        return best, best_m
+
     def _admit_chunked(self) -> None:
-        """Paged mode: each pending request claims the first free slot at
-        once; :meth:`_progress_chunk_prefills_paged` then prefills its
-        prompt (a preempted one's prompt + generated tokens) chunk by
-        chunk."""
+        """Chunked prefill: each pending request claims a free slot at once
+        (JAX :1896-1920), with the prefix cache the one holding the longest
+        reusable prefix (slot mode) or the first, adopting the cached
+        blocks of its prefix (paged mode); :meth:`_progress_chunk_prefills`
+        then prefills the rest of its prompt (a preempted one's prompt +
+        generated tokens) chunk by chunk."""
         while self._pending and None in self.slot_req:
             req = self._pending.pop(0)
-            slot = self.slot_req.index(None)
+            stream = req._resume or req.prompt_tokens
+            if self.paged and self.prefix_cache:
+                slot = self.slot_req.index(None)
+                reuse = self._adopt_prefix(slot, stream)
+            else:
+                slot, reuse = self._pick_slot(stream)
             self.slot_req[slot] = req
             self._admit_seq += 1
             self.slot_seq[slot] = self._admit_seq
-            self.slot_len[slot] = 0
-            self.slot_prefill[slot] = list(req._resume or req.prompt_tokens)
+            self.slot_len[slot] = reuse
+            self.slot_prefill[slot] = list(stream[reuse:])
+            self.slot_tokens[slot] = []
+            if reuse:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_tokens_reused"] += reuse
 
-    def _progress_chunk_prefills_paged(self) -> None:
+    def _progress_chunk_prefills(self) -> None:
         """Advance every mid-prefill slot by one chunk: up to
-        ``prefill_batch`` slots per dispatch, rows rounded up to a power of
-        two (padding rows ride on a null table), rounds repeating until each
-        slot advanced once.  Growing a slot's blocks may preempt another
-        slot of the same round, which then drops out of it (JAX :1693)."""
+        ``prefill_batch`` slots per dispatch, rounds repeating until each
+        slot advanced once.  In paged mode rows are rounded up to a power
+        of two (padding rows ride on a null table), and growing a slot's
+        blocks may preempt another slot of the same round, which then drops
+        out of it (JAX :1599 and :1693).  Slot mode has no null block to
+        pad with, and needs none: a dispatch takes exactly its slots."""
         C = self.prefill_chunk
         progressed: set = set()
         while True:
@@ -1006,8 +1251,9 @@ class Engine:
                      if s not in progressed][:self.prefill_batch]
             if not picks:
                 break
-            g = min(1 << max(0, len(picks) - 1).bit_length(),
-                    self.prefill_batch)
+            g = len(picks)
+            if self.paged:
+                g = min(1 << max(0, g - 1).bit_length(), self.prefill_batch)
             rows: List[Optional[int]] = picks + [None] * (g - len(picks))
             progressed.update(picks)
             for i, slot in enumerate(rows):
@@ -1020,40 +1266,119 @@ class Engine:
                     rows[i] = None
                     continue
                 part = self.slot_prefill[slot][:C]
-                if not self._ensure_blocks(
+                if self.paged and not self._ensure_blocks(
                         slot, int(self.slot_len[slot]) + len(part)):
                     self._finish_out_of_room(slot)
                     rows[i] = None
             # a later row's growth may have preempted an earlier row
             rows = [s if s in self.slot_prefill else None for s in rows]
+            if not self.paged:
+                rows = [s for s in rows if s is not None]
             if any(s is not None for s in rows):
-                self._prefill_chunk_paged(rows)
+                self._prefill_chunk(rows)
 
     def _grow_for_decode(self) -> None:
-        """Grow every decoding slot's table to cover this tick's writes, up
-        to ``steps_per_tick`` of them, up front (JAX :1950-1962); a
+        """Grow every decoding slot's table to cover this tick's writes up
+        front (JAX :1949-1965): ``steps_per_tick`` of them, or with
+        speculation 1 + ``spec_k`` if more, whichever tick runs; a
         preemption frees some other slot, which then drops out of the
         tick."""
+        need = self.steps_per_tick
+        if self.spec_ngram:
+            need = max(1 + self.spec_k, need)
         for slot, r in enumerate(self.slot_req):
             if r is not None and slot not in self.slot_prefill:
                 if not self._ensure_blocks(
-                        slot, min(int(self.slot_len[slot])
-                                  + self.steps_per_tick, self.max_len)):
+                        slot, min(int(self.slot_len[slot]) + need,
+                                  self.max_len)):
                     self._finish_out_of_room(slot)
 
     # -- paged block management (host side) --------------------------------
 
     def _release_blocks(self, slot: int) -> None:
-        self.allocators[0].free(self.slot_blocks[slot])
+        """Drop the slot's blocks (JAX :1308): a registered block loses one
+        owner and, at none, joins the eviction LRU; the rest return to the
+        allocator."""
+        for blk in self.slot_blocks[slot]:
+            if blk in self._bh_blk2key:
+                self._bh_ref[blk] -= 1
+                if self._bh_ref[blk] == 0:
+                    self._bh_lru[blk] = None
+            else:
+                self.allocators[0].free([blk])
         self.slot_blocks[slot] = []
         self.tables[slot, :] = 0
         self._tables_dirty = True
+        self.slot_reg[slot] = 0
+
+    def _evict_cached_blocks(self, need: int) -> None:
+        """Free unreferenced prefix-cache blocks, oldest first, until
+        ``need`` blocks are available (JAX :1326)."""
+        alloc = self.allocators[0]
+        while alloc.available < need and self._bh_lru:
+            blk, _ = self._bh_lru.popitem(last=False)
+            del self._bh_key2blk[self._bh_blk2key.pop(blk)]
+            del self._bh_ref[blk]
+            alloc.free([blk])
+
+    def _register_blocks(self, slot: int) -> None:
+        """Register the slot's newly completed blocks in the prefix map
+        (JAX :1335) under the tuple of every token up to their end: KV
+        depends on (token, position) alone, so equal keys hold equal KV.
+        Full blocks are never written again (writes land at slot_len and
+        beyond), so sharing them needs no copy-on-write.  A block whose key
+        is already registered stays the slot's own."""
+        if not (self.paged and self.prefix_cache):
+            return
+        req = self.slot_req[slot]
+        if req is None:
+            return
+        bs = self.block_size
+        n_full = int(self.slot_len[slot]) // bs
+        if n_full <= self.slot_reg[slot]:
+            return
+        stream = (req._resume or req.prompt_tokens) + req.output_tokens
+        for i in range(self.slot_reg[slot], n_full):
+            blk = self.slot_blocks[slot][i]
+            if blk not in self._bh_blk2key:
+                key = tuple(stream[:(i + 1) * bs])
+                if key not in self._bh_key2blk:
+                    self._bh_key2blk[key] = blk
+                    self._bh_blk2key[blk] = key
+                    self._bh_ref[blk] = 1
+        self.slot_reg[slot] = n_full
+
+    def _adopt_prefix(self, slot: int, stream: List[int]) -> int:
+        """Adopt, read-only, the cached blocks of ``stream``'s longest
+        registered prefix of whole blocks into ``slot``'s table (JAX
+        :1365); returns the tokens reused, capped so that at least one
+        token still prefills.  Reuse needs no chunk alignment: the padded
+        tail of a chunk past the allocated blocks lands in the null
+        block."""
+        bs = self.block_size
+        limit = min(len(stream) - 1, self._nbmax * bs)
+        matched = 0
+        while ((matched + 1) * bs <= limit
+               and tuple(stream[:(matched + 1) * bs]) in self._bh_key2blk):
+            matched += 1
+        for i in range(matched):
+            blk = self._bh_key2blk[tuple(stream[:(i + 1) * bs])]
+            if self._bh_ref[blk] == 0:
+                self._bh_lru.pop(blk, None)
+            self._bh_ref[blk] += 1
+            self.slot_blocks[slot].append(blk)
+            self.tables[slot, i] = blk
+            self._tables_dirty = True
+        self.slot_reg[slot] = matched
+        return matched * bs
 
     def _preempt(self, protect: int) -> bool:
         """Free the latest-admitted request other than ``protect`` and
         requeue it at the front with its resume stream (prompt +
         generated): the oldest requests keep their blocks, and greedy
-        streams are unchanged, since re-prefill rebuilds the same KV."""
+        streams are unchanged, since re-prefill rebuilds the same KV.  Its
+        completed blocks are registered first, so that its re-admission
+        adopts them back."""
         cands = [i for i, r in enumerate(self.slot_req)
                  if r is not None and i != protect]
         if not cands:
@@ -1063,6 +1388,7 @@ class Engine:
         self.slot_prefill.pop(victim, None)
         req._resume = list(req.prompt_tokens) + list(req.output_tokens)
         self._pending.insert(0, req)
+        self._register_blocks(victim)
         self._release_blocks(victim)
         self.slot_req[victim] = None
         self.slot_len[victim] = 0
@@ -1070,17 +1396,23 @@ class Engine:
         return True
 
     def _ensure_blocks(self, slot: int, upto: int) -> bool:
-        """Grow ``slot``'s table to cover positions [0, upto), preempting
-        other requests while the pool is dry.  False when even that cannot
-        make room; the caller then finishes the request with "length"."""
+        """Grow ``slot``'s table to cover positions [0, upto), evicting
+        unreferenced cached blocks and then preempting other requests while
+        the pool is dry (a victim's registered blocks join the LRU, so it
+        is drained again after each preemption; JAX :1420).  False when
+        even that cannot make room; the caller then finishes the request
+        with "length"."""
         have = len(self.slot_blocks[slot])
         need = min(-(-upto // self.block_size), self._nbmax) - have
         if need <= 0:
             return True
-        while self.allocators[0].available < need:
+        alloc = self.allocators[0]
+        self._evict_cached_blocks(need)
+        while alloc.available < need:
             if not self._preempt(protect=slot):
                 return False
-        got = self.allocators[0].alloc(need)
+            self._evict_cached_blocks(need)
+        got = alloc.alloc(need)
         self.slot_blocks[slot].extend(got)
         self.tables[slot, have:have + need] = got
         self._tables_dirty = True
@@ -1125,10 +1457,26 @@ class Engine:
         if req.ttft is not None:
             self._latency.append((req.ttft, req.tpot))
             del self._latency[:-1000]
-        self.slot_len[slot] = 0
-        self.slot_req[slot] = None
         if self.paged:
+            # registered full blocks stay in the prefix map, the rest return
+            # to the pool; the zeroed table sends masked writes to the null
+            # block
+            self._register_blocks(slot)
+            self.slot_len[slot] = 0
             self._release_blocks(slot)
+        elif self.prefix_cache:
+            # keep the KV of (prompt + output)[:slot_len] (the last output
+            # token's KV is never written), clamped so that a masked row's
+            # writes of a tick (_free_margin of them) stay past it and
+            # inside the cache (JAX :2106-2137)
+            seq = req.prompt_tokens + req.output_tokens
+            keep = max(0, min(int(self.slot_len[slot]), len(seq),
+                              self.max_len - self._free_margin))
+            self.slot_tokens[slot] = seq[:keep]
+            self.slot_len[slot] = keep
+        else:
+            self.slot_len[slot] = 0
+        self.slot_req[slot] = None
 
     def _release_if_cancelled(self, slot: int) -> None:
         req = self.slot_req[slot]

@@ -66,6 +66,15 @@ class SamplingParams:
                 or self.frequency_penalty != 0.0
                 or self.repetition_penalty != 1.0)
 
+    @property
+    def alters_logits(self) -> bool:
+        """The row samples from other than the raw model distribution
+        (penalties, a logit bias or a guided choice): speculative decoding
+        gives it no drafts, since only a verify's position 0 takes that
+        stack."""
+        return (self.has_penalties or bool(self.logit_bias)
+                or bool(self.guided_choice))
+
 
 def _topk_topp_filter(
     scaled: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,

@@ -5,6 +5,7 @@
                                            [--group-size 128] [--paged]
                                            [--llama31] [--fuse-act-quant]
                                            [--steps-per-tick 1]
+                                           [--spec-k 0]
 
 Builds the Llama-2-7B-geometry port model (random weights from a seeded
 generator, RTN-packed in groups of 128, or per channel with
@@ -35,6 +36,11 @@ chip_smoke.py's config: 8 kv heads, llama3 RoPE scaling) over a
 tokens long (buckets 128, 512, 2048 and 16384, one dispatch each, profiled
 together, once, with no warm-up: the kernels are built before it): every
 decode tick runs the S-tiled decode kernel.
+
+With ``--spec-k k`` each tick is instead the speculative verify of
+``Engine(spec_ngram=1, spec_k=k)`` (one (4, 1 + k) forward, every row
+given k drafted tokens, eager and then replayed from its captured graph),
+which rewrites the same k + 1 positions of each row every tick.
 """
 
 from __future__ import annotations
@@ -122,6 +128,9 @@ def main() -> int:
                     help="set FUSE_ACT_QUANT for the run")
     ap.add_argument("--steps-per-tick", type=int, default=1,
                     help="decode steps fused in each tick")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="profile the speculative verify of k drafts a row "
+                         "in place of the decode tick")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -164,6 +173,8 @@ def main() -> int:
                         SamplingParams(max_new_tokens=1000))
                 for n in lens]
 
+    if args.spec_k:
+        kw.update(spec_ngram=1, spec_k=args.spec_k)
     eng = Engine(params, cfg, max_batch=4, max_len=max_len, paged=args.paged,
                  device=dev, steps_per_tick=args.steps_per_tick, **kw)
     active = np.ones(4, bool)
@@ -173,7 +184,7 @@ def main() -> int:
         if args.paged:
             eng._pending = requests()
             eng._admit_chunked()
-            eng._progress_chunk_prefills_paged()
+            eng._progress_chunk_prefills()
         elif args.llama31:
             eng._pending = requests()
             eng._admit_whole()
@@ -183,7 +194,13 @@ def main() -> int:
     def tick():
         if args.paged:
             eng._grow_for_decode()
-        eng._decode_tick(active, args.steps_per_tick)
+        if not args.spec_k:
+            eng._decode_tick(active, args.steps_per_tick)
+            return
+        branch, ex = eng._pack_tick(active, list(eng.slot_req),
+                                    [[1] * args.spec_k] * 4)
+        eng._sync_tables()
+        eng._run_verify(branch, ex).cpu()
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     if args.llama31:
@@ -231,7 +248,9 @@ def main() -> int:
                 tick()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        report(f"decode, {mode} tick of {args.steps_per_tick} step(s), batch "
+        what = (f"verify of {args.spec_k} drafts a row" if args.spec_k
+                else f"tick of {args.steps_per_tick} step(s)")
+        report(f"decode, {mode} {what}, batch "
                f"4, cache lengths {eng.slot_len.tolist()}", wall, prof,
                per=args.ticks, unit="tick")
         spans = device_spans(prof)

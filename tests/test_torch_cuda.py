@@ -1123,3 +1123,127 @@ def test_score_prompt_while_the_worker_captures(tick_model):
         [r.output_tokens for r in reqs_e]
     assert eng.stats["graph_captures"] >= 2 and eng.stats["graph_replays"]
     assert scores and all(s == want for s in scores)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the scheduler: speculative verify, chunked slot prefill, the
+# paged prefix cache
+
+
+def _spec_serve(tick_model, mode, eager):
+    """Speculative decoding (2-gram drafts, 4 a tick) on the tick model:
+    three greedy rows whose prompts repeat (drafts), one with its top 3
+    logprobs, and a seeded sampled row.  Returns the engine and its
+    requests."""
+    from qqq_tpu_torch.serve.engine import Engine, Request
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    params, cfg = tick_model
+    rng = np.random.default_rng(1)
+    eng = Engine(params, cfg, spec_ngram=2, spec_k=4, **_TICK_MODES[mode])
+    eng._eager_tick = eager
+    sps = [SamplingParams(max_new_tokens=20),
+           SamplingParams(max_new_tokens=20, top_logprobs=3),
+           SamplingParams(max_new_tokens=20),
+           SamplingParams(max_new_tokens=20, temperature=0.8, seed=5)]
+    reqs = []
+    for n, sp in zip((6, 9, 12, 7), sps):
+        p = [int(t) for t in rng.integers(0, 256, n)]
+        reqs.append(Request(p * 3, sp))
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    return eng, reqs
+
+
+@pytest.mark.parametrize("mode", sorted(_TICK_MODES))
+def test_captured_verify_matches_eager(tick_model, mode):
+    """The speculative verify replayed from its captured graph gives the
+    eager verify's tokens, logprobs and top-N lists, bit-equal, slot (the
+    forward over the cache read as a pool) and paged (the tight pool
+    preempts); drafts are verified through replays of ("spec", k, ...)
+    graphs, which the engine keeps beside the plain ticks'."""
+    eng_e, reqs_e = _spec_serve(tick_model, mode, eager=True)
+    eng, reqs = _spec_serve(tick_model, mode, eager=False)
+    for got, want in ((r, e) for r, e in zip(reqs, reqs_e)):
+        assert got.output_tokens == want.output_tokens
+        assert got.token_logprobs == want.token_logprobs
+        assert got.top_logprobs == want.top_logprobs
+    st = eng.stats
+    assert st["spec_drafted"] > 0 and st["spec_ticks"] > 0
+    assert st["spec_accepted"] == eng_e.stats["spec_accepted"]
+    assert sum(g.replays for k, g in eng._graphs.items()
+               if k[0] == "spec") > 0
+    assert st["graph_replays"] + st["graph_captures"] == st["decode_ticks"]
+    if mode == "paged":
+        assert st["preemptions"] > 0
+
+
+@pytest.mark.parametrize("kv_quantized", [True, False])
+def test_slot_chunk_prefill_equals_gathered_rows(tick_model, kv_quantized):
+    """Chunked prefill in slot mode writes, through the cache read as a
+    pool of max_len-token blocks, the bytes that the route JAX takes
+    writes: gather the slots' whole rows, one slot-cache forward at
+    ``cache_len``, scatter the rows back."""
+    from qqq_tpu_torch.models import llama as M
+    from qqq_tpu_torch.serve import kv_cache
+    from qqq_tpu_torch.serve.engine import Engine, Request
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    params, cfg = tick_model
+    rng = np.random.default_rng(2)
+    lens, C = (40, 17, 70), 32
+    prompts = [[int(t) for t in rng.integers(0, 256, n)] for n in lens]
+    eng = Engine(params, cfg, max_batch=3, max_len=128, prefill_chunk=C,
+                 kv_quantized=kv_quantized)
+    eng.run([Request(p, SamplingParams(max_new_tokens=1)) for p in prompts])
+    assert eng.stats["prefill_chunks"] == sum(-(-n // C) for n in lens)
+
+    ref = kv_cache.init(cfg, 3, 128, quantized=kv_quantized,
+                        dtype=torch.bfloat16, device="cuda")
+    fused = M.fuse_inference_params(params, cfg)
+    for start in range(0, max(lens), C):
+        slots = [s for s, n in enumerate(lens) if n > start]
+        toks = torch.zeros((len(slots), C), dtype=torch.int64, device="cuda")
+        for i, s in enumerate(slots):
+            part = prompts[s][start:start + C]
+            toks[i, :len(part)] = torch.tensor(part)
+        idx = torch.tensor(slots, device="cuda")
+        rows = [{k: v[idx] for k, v in c.items()} for c in ref]
+        M.forward(fused, cfg, toks, caches=rows,
+                  cache_len=torch.full((len(slots),), start,
+                                       dtype=torch.int32, device="cuda"))
+        for c, r in zip(ref, rows):
+            for k in c:
+                c[k][idx] = r[k]
+    for c, r in zip(eng.caches, ref):
+        for k in c:
+            for s, n in enumerate(lens):
+                assert torch.equal(c[k][s, :, :n], r[k][s, :, :n]), (k, s)
+
+
+def test_adopted_prefix_block_equals_a_fresh_prefill(tick_model):
+    """A paged prefix-cache block adopted by a second request holds the
+    bytes that a fresh chunked prefill of the same prefix writes (KV
+    depends on token and position alone), and the adoption is counted."""
+    from qqq_tpu_torch.serve.engine import Engine, Request
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    params, cfg = tick_model
+    rng = np.random.default_rng(3)
+    system = [int(t) for t in rng.integers(0, 256, 24)]
+    a, b = system + [1, 2, 3, 4, 5], system + [9, 8, 7]
+    kw = dict(max_batch=2, max_len=128, paged=True, block_size=8,
+              prefill_chunk=16, prefix_cache=True)
+    eng = Engine(params, cfg, **kw)
+    eng.run([Request(a, SamplingParams(max_new_tokens=2))])
+    eng.run([Request(b, SamplingParams(max_new_tokens=2))])
+    assert (eng.stats["prefix_hits"], eng.stats["prefix_tokens_reused"]) \
+        == (1, 24)
+    fresh = Engine(params, cfg, **kw)
+    fresh.run([Request(b, SamplingParams(max_new_tokens=2))])
+    for i in range(3):
+        key = tuple(system[:8 * (i + 1)])
+        blk, blk_f = eng._bh_key2blk[key], fresh._bh_key2blk[key]
+        for c, cf in zip(eng.caches, fresh.caches):
+            for k in c:
+                assert torch.equal(c[k][blk], cf[k][blk_f]), (i, k)

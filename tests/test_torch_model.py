@@ -236,20 +236,22 @@ def test_prefill_batch_follows_scratch_budget_like_jax(
 
 
 def test_engine_later_slice_features_raise(models):
-    """The paged pool and the per-request sampling extras are ported; the
-    prefix cache, chunked prefill in slot mode and speculative decoding
-    are not."""
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
-        Engine(models[1], TCFG, paged=True, prefix_cache=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="slot mode"):
-        Engine(models[1], TCFG, prefill_chunk=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="spec_ngram"):
-        Engine(models[1], TCFG, spec_ngram=2, device="cpu")
-    eng = Engine(models[1], TCFG, device="cpu", **_engine_kw())
-    req = Request([1, 2], SamplingParams(repetition_penalty=1.2,
-                                         max_new_tokens=2))
-    eng.run([req])  # served, no longer refused
-    assert req.done and len(req.output_tokens) == 2
+    """Every scheduler feature of the JAX engine is ported but the mesh:
+    chunked prefill in slot mode, the prefix cache (slot and paged) and
+    speculative decoding serve; ``mesh`` alone raises."""
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Engine(models[1], TCFG, mesh=object(), device="cpu")
+    for kw in (dict(prefill_chunk=16),
+               dict(prefill_chunk=16, prefix_cache=True),
+               dict(paged=True, block_size=8, prefix_cache=True),
+               dict(spec_ngram=1, spec_k=2),
+               dict(paged=True, block_size=8, spec_ngram=1, spec_k=2)):
+        eng = Engine(models[1], TCFG, device="cpu", **{**_engine_kw(), **kw})
+        req = Request([1, 2, 1, 2, 1], SamplingParams(
+            repetition_penalty=1.2 if "spec_ngram" not in kw else 1.0,
+            max_new_tokens=3))
+        eng.run([req])  # served, no longer refused
+        assert req.done and len(req.output_tokens) == 3, kw
 
 
 def test_sampling_filter_matches_jax():

@@ -387,20 +387,28 @@ def test_generate_cli_on_a_checkpoint(checkpoint, capsys):
 
 
 def test_serve_cli_builds_engine_and_refuses_unported(checkpoint):
-    """``cli/serve``'s flags build the Engine on a checkpoint; the flags of
-    unported scheduler features are refused at startup, and the default
-    device, the card, raises without one."""
+    """``cli/serve``'s flags build the Engine on a checkpoint, the
+    scheduler features' flags included (chunked prefill in slot mode, the
+    prefix cache, speculative decoding), and the engine they build serves;
+    the default device, the card, raises without one."""
     path, _, _ = checkpoint
     base = ["--model_path", path, "--device", "cpu", "--dtype", "float32",
             "--max_length", "64"]
     eng = build_engine(parse_args(base + ["--paged", "--block_size", "8"]))
     assert eng.paged and eng.prefill_chunk == 64
-    for extra, what in ((["--spec_ngram", "2"], "spec_ngram"),
-                        (["--prefix_cache", "--paged", "--block_size", "8"],
-                         "prefix_cache"),
-                        (["--prefill_chunk", "32"], "slot mode")):
-        with pytest.raises(NotImplementedError, match=what):
-            build_engine(parse_args(base + extra))
+    for extra, want in (
+            (["--spec_ngram", "2", "--spec_k", "3"],
+             dict(spec_ngram=2, spec_k=3, prefill_chunk=0)),
+            (["--prefix_cache", "--paged", "--block_size", "8"],
+             dict(prefix_cache=True, paged=True, prefill_chunk=64)),
+            (["--prefill_chunk", "32", "--prefix_cache"],
+             dict(prefix_cache=True, paged=False, prefill_chunk=32))):
+        eng = build_engine(parse_args(base + extra))
+        for k, v in want.items():
+            assert getattr(eng, k) == v, (extra, k)
+        req = Request([1, 2, 3, 1, 2, 3], SamplingParams(max_new_tokens=3))
+        eng.run([req])
+        assert req.done and len(req.output_tokens) == 3, extra
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_engine(parse_args(["--model_path", path]))
