@@ -85,7 +85,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    pool whole after every run; (d) prompt-lookup speculation, slot and
    paged: drafts verified by replays of the verify's captured graph,
    tokens equal to an eager run's; one verify replay timed against one
-   plain tick's, decode tok/s with speculation on and off.
+   plain tick's, decode tok/s with speculation on and off;
+7. QQQ calibration on the card (no kernel of its own: dense PyTorch ops,
+   f32 products without TF32), on 16 synthetic samples of 2048 tokens
+   (the reference calibrates on 128: a cut for time): (a) a seeded random
+   bf16 HF directory of Llama-2-7B's width, 2 layers deep, through
+   ``python -m qqq_tpu_torch.cli.quantize``: rotation + g128 + the MSE
+   grid, os+ smoothing + per channel, each again with ``--pack_only``
+   (bit-identical), the Marlin format, and GPTQ alone with ``--offload``
+   (bit-identical to the resident run); each checkpoint loaded with
+   ``load_any`` and decoded through the Engine; (b) the library at full
+   depth: a 2-layer f32 cut rotated must keep its logits (2e-3 of their
+   largest), then ``fuse_layer_norms`` → ``rotate_model`` →
+   ``apply_gptq`` (g128, MSE grid, act-order), whose loss must lie below
+   the Hessian-weighted error of round-to-nearest on GPTQ's own scales in
+   every layer; GPTQ on the
+   card against the CPU at (4096, 11008) and (11008, 4096) from card
+   Hessians; the final logits of GPTQ and RTN against the dense model;
+   the packed result serves 3a's requests with every launch count as
+   implied.  Seconds of each step and the peak device memory are logged.
 
 The last lines are a ``{"kernels": [...]}`` report, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -96,8 +114,10 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -2324,6 +2344,373 @@ def phase6(dev, params, config, prompts):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: QQQ calibration on the card
+
+#: calibration samples of 7a and 7b, each CALIB_SEQLEN tokens (the reference
+#: calibrates on 128: the cut is for time)
+CALIB_NSAMPLES, CALIB_SEQLEN = 16, 2048
+#: the depth of 7a's HF checkpoint (full width)
+CLI_LAYERS = 2
+#: where phase 7 writes its HF directory and checkpoints (inside the
+#: checkout, git-ignored); removed at the end of the run
+CALIB_DIR = HERE / "build" / "chip_smoke_calib"
+#: GPTQ on the card against the CPU, tests/test_torch_calib.py's rule: under
+#: GPTQ_SHARE of the dequantized entries differ at (rtol, atol)
+GPTQ_SHARE, GPTQ_RTOL, GPTQ_ATOL = 0.02, 1e-4, 1e-5
+#: rotation keeps the function: max |rotated − plain| ≤ ROTATION_TOL ·
+#: max |plain| of the f32 logits (JAX's own bound, tests/test_rotation.py)
+ROTATION_TOL = 2e-3
+#: held-out prompt of 7b's logit comparisons (the loader's test split)
+HELD_OUT = 256
+
+
+def dense_llama2(dev, n_layers, seed):
+    """Seeded random dense bf16 Llama-2-7B params, ``n_layers`` deep, with
+    norms drawn in [0.5, 1.5) so that the rotation's folds carry them."""
+    from qqq_tpu_torch.models import ModelConfig, init_params
+
+    config = ModelConfig(vocab_size=V, hidden_size=H, intermediate_size=I,
+                         num_hidden_layers=n_layers, num_attention_heads=NH,
+                         num_key_value_heads=NKV)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(config, gen, dtype=torch.bfloat16, device=dev)
+
+    def norm():
+        return (0.5 + torch.rand(H, generator=gen, device=dev)).to(
+            torch.bfloat16)
+
+    for layer in params["layers"]:
+        layer["input_layernorm"] = norm()
+        layer["post_attention_layernorm"] = norm()
+    params["norm"] = norm()
+    return params, config
+
+
+def quantize_cli(hf_dir, out, *flags):
+    """``python -m qqq_tpu_torch.cli.quantize`` on the card, in a process
+    of its own; returns its wall time."""
+    cmd = [sys.executable, "-m", "qqq_tpu_torch.cli.quantize",
+           "--model_path", str(hf_dir), "--save_path", str(out),
+           "--calib_dataset", "synthetic", "--nsamples", str(CALIB_NSAMPLES),
+           "--max_length", str(CALIB_SEQLEN), *flags]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=900)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        log(r.stdout[-4000:] + r.stderr[-8000:])
+        raise AssertionError(f"quantize {' '.join(flags)} exited with "
+                             f"{r.returncode}")
+    notes = [m.group(0) for m in re.finditer(
+        r"layer \d+ quantized in [\d.]+s|total [\d.]+s|re-packed .* in "
+        r"[\d.]+s|loaded \S+ in [\d.]+s", r.stderr)]
+    log(f"  cli/quantize {' '.join(flags)}: {wall:.1f} s wall "
+        f"({'; '.join(notes)})")
+    return wall
+
+
+def _same_file(a, b, name="model.safetensors"):
+    import filecmp
+
+    return filecmp.cmp(a / name, b / name, shallow=False)
+
+
+def greedy_tokens(dev, params, config, prompts, new=8):
+    """A few greedy tokens of each prompt through the default Engine."""
+    from qqq_tpu_torch.serve.engine import Engine, Request
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    eng = Engine(params, config, max_batch=len(prompts), max_len=2048,
+                 prefill_buckets=BUCKETS, device=dev)
+    reqs = [Request(prompt_tokens=p,
+                    sampling=SamplingParams(max_new_tokens=new))
+            for p in prompts]
+    eng.run(reqs)
+    toks = [r.output_tokens for r in reqs]
+    if not all(len(t) == new and all(0 <= x < config.vocab_size for x in t)
+               for t in toks):
+        raise AssertionError(f"greedy decode returned {toks}")
+    return toks
+
+
+def phase7a(dev, prompts):
+    """The CLI at full width, CLI_LAYERS deep: the reference's canonical
+    recipes, each pack-only rerun bit-identical, the Marlin format, and the
+    GPTQ-only recipe with --offload bit-identical to the resident run; every
+    checkpoint loaded with load_any and decoded through the Engine."""
+    from qqq_tpu_torch.cli.eval import load_any
+    from qqq_tpu_torch.models.loader import save_hf_model
+
+    from qqq_tpu_torch.models import forward
+    from qqq_tpu_torch.utils.data import get_loaders
+
+    shutil.rmtree(CALIB_DIR, ignore_errors=True)
+    hf = CALIB_DIR / "llama2_7b_hf"
+    params, config = dense_llama2(dev, CLI_LAYERS, seed=1)
+    held = torch.from_numpy(get_loaders(
+        "synthetic", nsamples=1, seed=0, seqlen=CALIB_SEQLEN,
+        vocab_size=V)[1][:HELD_OUT]).to(dev, torch.int64)[None]
+    dense_logits, _ = forward(params, config, held)
+    t0 = time.perf_counter()
+    save_hf_model(str(hf), params, config)
+    del params
+    torch.cuda.empty_cache()
+    log(f"  a seeded random bf16 HF directory (Llama-2-7B width, "
+        f"{CLI_LAYERS} layers: depth cut for time) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    walls = {}
+    rot, smooth, plain = (CALIB_DIR / n for n in ("rotate", "smooth",
+                                                  "gptq"))
+    rotate = ("--rotate", "hadamard", "--w_group_size", "128", "--gptq_mse",
+              "true")
+    smoothing = ("--smooth_method", "os+", "--w_group_size", "-1")
+    walls["rotate"] = quantize_cli(hf, rot, *rotate)
+    walls["rotate pack_only"] = quantize_cli(
+        hf, CALIB_DIR / "rotate_repack", *rotate, "--pack_only",
+        "--quantizers_path", f"{rot}_quantizers.npz")
+    if not _same_file(rot, CALIB_DIR / "rotate_repack"):
+        raise AssertionError("7a: --pack_only differs from the rotation "
+                             "recipe's checkpoint")
+    walls["marlin"] = quantize_cli(
+        hf, CALIB_DIR / "rotate_marlin", *rotate, "--pack_only",
+        "--save_format", "marlin", "--quantizers_path",
+        f"{rot}_quantizers.npz")
+    walls["smooth"] = quantize_cli(hf, smooth, *smoothing)
+    shutil.copy(f"{smooth}_scale_list.npz",
+                f"{CALIB_DIR / 'smooth_repack'}_scale_list.npz")
+    walls["smooth pack_only"] = quantize_cli(
+        hf, CALIB_DIR / "smooth_repack", *smoothing, "--pack_only",
+        "--quantizers_path", f"{smooth}_quantizers.npz")
+    if not _same_file(smooth, CALIB_DIR / "smooth_repack"):
+        raise AssertionError("7a: --pack_only differs from the smoothing "
+                             "recipe's checkpoint")
+    walls["gptq"] = quantize_cli(hf, plain, "--w_group_size", "128")
+    walls["gptq offload"] = quantize_cli(
+        hf, CALIB_DIR / "gptq_offload", "--w_group_size", "128",
+        "--offload", "true")
+    if not _same_file(plain, CALIB_DIR / "gptq_offload"):
+        raise AssertionError("7a: --offload differs from the resident run")
+    log("  --pack_only reruns bit-identical (rotation, smoothing), "
+        "--offload bit-identical to the resident run")
+    for name in ("rotate", "rotate_marlin", "smooth", "gptq"):
+        loaded, cfg = load_any(str(CALIB_DIR / name), torch.bfloat16,
+                               device=dev)
+        toks = greedy_tokens(dev, loaded, cfg, prompts)
+        logits, _ = forward(loaded, cfg, held)
+        log(f"  {name}: loaded with load_any; final logits on a held-out "
+            f"synthetic prompt of {HELD_OUT} tokens at relative RMS "
+            f"{_rel_rms(logits, dense_logits):.4f} of the dense model's; "
+            f"greedy tokens {json.dumps([t[:4] for t in toks])}...")
+        del loaded
+        torch.cuda.empty_cache()
+    log(f"  cli/quantize wall times (s): {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+    shutil.rmtree(CALIB_DIR)
+
+
+def weighted_errors(layer, names, H, results, spec, percdamp=0.01):
+    """½ tr((W − Q)ᵀ H_d (W − Q)), H_d = H damped as GPTQ damps it (the
+    quantity GPTQ's loss accumulates for its own Q), of the linears
+    ``names`` concatenated: (round-to-nearest Q on GPTQ's own scales and
+    zeros (the MSE grid, bf16 scales), GPTQ's Q)."""
+    from qqq_tpu_torch.core.quant import (
+        dequantize_weight_int, quantize_weight_int,
+    )
+
+    def cat(key):
+        return torch.cat([getattr(results[n], key) for n in names], dim=1)
+
+    W = torch.cat([layer[n]["w"].to(torch.float32) for n in names], dim=1)
+    dead = torch.diagonal(H) == 0
+    Hd = H + torch.diag(dead.to(H.dtype))
+    W[dead] = 0.0
+    Hd = Hd + torch.eye(H.shape[0], device=H.device) * (
+        percdamp * torch.mean(torch.diagonal(Hd)))
+    s, z = cat("scale"), cat("zero")
+    rtn = dequantize_weight_int(quantize_weight_int(W, s, z, spec), s, spec)
+
+    def err(Q):
+        D = W - Q
+        return 0.5 * float((D * (Hd @ D)).sum())
+
+    return err(rtn), err(cat("w_deq"))
+
+
+class _EagerBlocks:
+    """Stands in for ``calib/gptq.py:_BlockRunner`` to run every block's
+    row loop eagerly on the card (a comparison only)."""
+
+    def __init__(self, blocksize, N, maxq, sym_pc, device):
+        self.args = (maxq, sym_pc)
+        self.Err = torch.empty((blocksize, N), dtype=torch.float32,
+                               device=device)
+
+    def __call__(self, Wb, Hb, sb, zb):
+        from qqq_tpu_torch.calib import gptq
+
+        gptq._block_step(Wb, Hb, sb, zb, self.Err, *self.args)
+        return self.Err
+
+
+def gptq_card_vs_cpu(label, W, H):
+    """gptq_quantize_matrix on the card and on the CPU from the same W and
+    card-captured H, g128 without the MSE grid (scale and zero must then be
+    bit-equal), act-order, bf16 scales.  On the card also with every
+    block's row loop eager instead of replayed: bit-equal, and timed."""
+    from qqq_tpu_torch.calib import gptq
+    from qqq_tpu_torch.core.quant import QuantSpec
+
+    spec = QuantSpec(bits=4, group_size=128)
+    kw = dict(actorder=True, scale_store_dtype=torch.bfloat16)
+
+    def on_card():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gptq.gptq_quantize_matrix(W, H, spec, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    card, card_s = on_card()
+    runner, gptq._BlockRunner = gptq._BlockRunner, _EagerBlocks
+    try:
+        eager, eager_s = on_card()
+    finally:
+        gptq._BlockRunner = runner
+    if not (torch.equal(eager.q4, card.q4)
+            and torch.equal(eager.w_deq, card.w_deq)):
+        raise AssertionError(f"GPTQ {label}: the replayed row loops differ "
+                             "from the eager ones")
+    log(f"  GPTQ {label}: {card_s:.3f} s on the card with each block's row "
+        f"loop a graph replay, {eager_s:.3f} s eager (bit-equal)")
+    t0 = time.perf_counter()
+    cpu = gptq.gptq_quantize_matrix(W.cpu(), H.cpu(), spec, **kw)
+    cpu_s = time.perf_counter() - t0
+    differ = float((~torch.isclose(card.w_deq.cpu(), cpu.w_deq,
+                                   rtol=GPTQ_RTOL, atol=GPTQ_ATOL))
+                   .float().mean())
+    flips = float((card.q4.cpu() != cpu.q4).float().mean())
+    rel = abs(float(card.loss) / float(cpu.loss) - 1)
+    log(f"  GPTQ {label} {tuple(W.shape)}: card {card_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s; {differ:.4%} of the dequantized entries differ "
+        f"(bound {GPTQ_SHARE:.0%}), {flips:.4%} of the codes, loss "
+        f"{float(card.loss):.6g} vs {float(cpu.loss):.6g} ({rel:.2e} "
+        f"relative)")
+    if differ >= GPTQ_SHARE:
+        raise AssertionError(f"GPTQ {label}: {differ:.4%} of the entries "
+                             "differ between the card and the CPU")
+    if not (torch.equal(card.scale.cpu(), cpu.scale)
+            and torch.equal(card.zero.cpu(), cpu.zero)):
+        raise AssertionError(f"GPTQ {label}: scale or zero differ")
+    if rel >= (5e-3 if flips else 1e-3):
+        raise AssertionError(f"GPTQ {label}: the losses differ by {rel:.2e}")
+
+
+def rotation_invariance(dev, params, config, prompt):
+    """A 2-layer cut of the dense model in f32, rotated: its logits must
+    equal the unrotated cut's within ROTATION_TOL · max |logits|."""
+    from qqq_tpu_torch.calib.rotation import fuse_layer_norms, rotate_model
+    from qqq_tpu_torch.models import forward
+
+    cfg2 = dataclasses.replace(config, num_hidden_layers=2)
+    cut = _tree_map(lambda t: t.to(torch.float32),
+                    {**params, "layers": params["layers"][:2]})
+    base, _ = forward(cut, cfg2, prompt)
+    rotated, _ = rotate_model(fuse_layer_norms(cut, cfg2), cfg2,
+                              mode="hadamard", seed=0)
+    rot, _ = forward(rotated, cfg2, prompt)
+    err = float((rot - base).abs().max())
+    scale = float(base.abs().max())
+    log(f"  rotation keeps the function (2-layer f32 cut, {prompt.shape[1]} "
+        f"tokens): max |rotated − plain| = {err:.3e} = {err / scale:.2e} of "
+        f"max |logits| (bound {ROTATION_TOL:.0e}), relative RMS "
+        f"{_rel_rms(rot, base):.3e}")
+    if err > ROTATION_TOL * scale:
+        raise AssertionError("rotation changed the 2-layer cut's logits")
+
+
+def phase7b(dev):
+    """The library at full width and depth: fuse_layer_norms →
+    rotate_model("hadamard") → apply_gptq (g128, MSE grid, act-order) on
+    CALIB_NSAMPLES synthetic samples, then the packed result served."""
+    from qqq_tpu_torch.calib.pipeline import GPTQ_GROUPS, apply_gptq
+    from qqq_tpu_torch.calib.rotation import fuse_layer_norms, rotate_model
+    from qqq_tpu_torch.core.quant import QuantSpec
+    from qqq_tpu_torch.models import forward, quantize_params_rtn
+    from qqq_tpu_torch.utils.data import get_loaders
+
+    params, config = dense_llama2(dev, L, seed=2)
+    calib, test = get_loaders("synthetic", nsamples=CALIB_NSAMPLES, seed=0,
+                              seqlen=CALIB_SEQLEN, vocab_size=V)
+    held = torch.from_numpy(test[:HELD_OUT]).to(dev, torch.int64)[None]
+    rotation_invariance(dev, params, config, held[:, :128])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t_run = time.perf_counter()
+    params, _ = rotate_model(fuse_layer_norms(params, config), config,
+                             mode="hadamard", seed=0)
+    torch.cuda.synchronize()
+    rot_s = time.perf_counter() - t_run
+    dense_logits, _ = forward(params, config, held)
+    spec = QuantSpec(bits=4, group_size=128, mse=True)
+    rtn_err, gptq_err, hess0 = [], [], {}
+
+    def hook(li, layer, Hs, results):
+        errs = [weighted_errors(layer, names, Hs[key], results, spec)
+                for names, key in GPTQ_GROUPS]
+        rtn_err.append(sum(e[0] for e in errs))
+        gptq_err.append(sum(e[1] for e in errs))
+        if li == 0:
+            hess0.update(gup=Hs["gup"].clone(), down=Hs["down"].clone())
+
+    timings = {}
+    t0 = time.perf_counter()
+    packed, stats = apply_gptq(params, config, calib, spec, device=dev,
+                               timings=timings, layer_hook=hook)
+    torch.cuda.synchronize()
+    gptq_s = time.perf_counter() - t0
+    total_s = time.perf_counter() - t_run
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  calibrated {L} layers on {CALIB_NSAMPLES} synthetic samples of "
+        f"{CALIB_SEQLEN} tokens (the reference's default is 128 samples: "
+        f"cut for time): rotation {rot_s:.2f} s, apply_gptq {gptq_s:.1f} s, "
+        f"the whole run {total_s:.1f} s; per layer (s) Hessians "
+        f"{json.dumps([round(t, 3) for t in timings['hessian']])}, GPTQ "
+        f"{json.dumps([round(t, 3) for t in timings['gptq']])}, replay "
+        f"{json.dumps([round(t, 3) for t in timings['replay']])}; sums "
+        f"{sum(timings['hessian']):.1f} / {sum(timings['gptq']):.1f} / "
+        f"{sum(timings['replay']):.1f} s; torch.cuda.max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({held_before / 2**30:.2f} GiB allocated "
+        f"when the run began: the dense model and what earlier phases "
+        f"hold)")
+    gptq_loss = [sum(d.values()) for d in stats["layer_losses"]]
+    ratios = [g / r for g, r in zip(gptq_loss, rtn_err)]
+    own = max(abs(e / g - 1) for e, g in zip(gptq_err, gptq_loss))
+    log(f"  GPTQ loss / RTN's Hessian-weighted error (RTN on GPTQ's own "
+        f"scales) per layer: {json.dumps([round(x, 4) for x in ratios])}; "
+        f"GPTQ's loss against its own Hessian-weighted error: at most "
+        f"{own:.2e} apart")
+    if len(ratios) != L or not all(x < 1 for x in ratios):
+        raise AssertionError("GPTQ did not beat RTN in every layer")
+    rtn = quantize_params_rtn(params, config, 128)
+    g_logits, _ = forward(packed, config, held)
+    r_logits, _ = forward(rtn, config, held)
+    del rtn
+    log(f"  final logits on a held-out synthetic prompt of {HELD_OUT} "
+        f"tokens, relative RMS against the dense (rotated) model: GPTQ "
+        f"{_rel_rms(g_logits, dense_logits):.4f}, RTN "
+        f"{_rel_rms(r_logits, dense_logits):.4f}")
+    gptq_card_vs_cpu("gate_proj of layer 0", params["layers"][0]["gate_proj"]
+                     ["w"], hess0["gup"])
+    gptq_card_vs_cpu("down_proj of layer 0", params["layers"][0]["down_proj"]
+                     ["w"], hess0["down"])
+    del params, hess0
+    torch.cuda.empty_cache()
+    log("  the calibrated checkpoint served: 3a's requests through the "
+        "Engine's defaults")
+    serve(dev, packed, config, "g128")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2506,7 +2893,23 @@ def main() -> int:
     card_vs_cpu(dev, params, config31, prompt31, max_len=16384,
                 batched=False)
     del params
+    gc.collect()  # engines of earlier phases sit in reference cycles
     torch.cuda.empty_cache()
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    t7 = time.perf_counter()
+    log(f"phase 7a: cli/quantize on the card ({smi})")
+    rng = np.random.default_rng(0)  # 3a's prompts (serve)
+    phase7a(dev, [[int(t) for t in rng.integers(0, V, n)]
+                  for n in PROMPT_LENS])
+    log("phase 7b: QQQ calibration of Llama-2-7B at full depth on the card "
+        f"({smi})")
+    phase7b(dev)
+    log(f"phase 7 took {time.perf_counter() - t7:.1f} s")
 
     # each kernel's launches from the first run whose path it is on
     launches = {k: next((r[k] for r in runs.values() if r[k]), 0)
@@ -2524,11 +2927,6 @@ def main() -> int:
             **{key: r[key] for key in ("prefill", "crossover", "device_ms")
                if key in r},
         })
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

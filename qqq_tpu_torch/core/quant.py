@@ -8,8 +8,9 @@
 
 Weights are ``(K, N) = (in_features, out_features)``.  Rounding is
 half-to-even everywhere (``torch.round``), as in the JAX package, so codes
-are bit-identical between the two.  The MSE grid search of
-``find_params_weight`` waits for the calibration port.
+are bit-identical between the two.  ``find_params_weight`` with
+``spec.mse`` runs the reference's shrink grid (``p = 1 − i/grid``, error
+``Σ|q(w) − w|^norm``, the first best kept).
 
 The g128 requant route of the GEMM regrids the INT4 codes to INT8 through
 the double scale ``s_frac = s_group / s_extra`` (``s_extra`` derived from
@@ -21,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -81,18 +83,11 @@ def _group(spec: QuantSpec, K: int) -> int:
     return K if spec.per_channel else spec.group_size
 
 
-def find_params_weight(
-    w: torch.Tensor, spec: QuantSpec
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Min/max quantization parameters ``(scale, zero)`` of shape (G, N),
-    G = K // group_size (1 for per-channel)."""
-    if spec.mse:
-        raise NotImplementedError(
-            "the MSE grid search arrives with the calibration port"
-        )
-    w = w.to(torch.float32)
+def _minmax_ranges(w: torch.Tensor, spec: QuantSpec, g: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(group, channel) ``(xmin, xmax)`` (G, N) of ``w`` (K, N) f32,
+    symmetrized for ``spec.sym``; an all-zero group takes (-1, 1)."""
     K, N = w.shape
-    g = _group(spec, K)
     wg = w.reshape(K // g, g, N)
     xmin = torch.clamp_max(wg.amin(dim=1), 0.0)
     xmax = torch.clamp_min(wg.amax(dim=1), 0.0)
@@ -102,15 +97,76 @@ def find_params_weight(
     degenerate = (xmin == 0) & (xmax == 0)
     xmin = torch.where(degenerate, -1.0, xmin)
     xmax = torch.where(degenerate, 1.0, xmax)
+    return xmin, xmax
+
+
+def _params_from_ranges(xmin: torch.Tensor, xmax: torch.Tensor,
+                        spec: QuantSpec, reciprocal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     maxq = spec.maxq
+
+    def over_maxq(r):
+        if reciprocal:
+            return r * torch.tensor(np.float32(1.0) / np.float32(maxq),
+                                    device=r.device)
+        return true_div(r, maxq)
+
     if spec.per_channel and spec.sym:
-        return true_div(xmax, maxq), torch.zeros_like(xmax)
-    scale = true_div(xmax - xmin, maxq)
+        return over_maxq(xmax), torch.zeros_like(xmax)
+    scale = over_maxq(xmax - xmin)
     if spec.sym:
         zero = torch.full_like(scale, (maxq + 1) / 2)
     else:
         zero = torch.round(-xmin / scale)
     return scale, zero
+
+
+def find_params_weight(
+    w: torch.Tensor, spec: QuantSpec, *, reciprocal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantization parameters ``(scale, zero)`` of shape (G, N),
+    G = K // group_size (1 for per-channel): min/max, or with ``spec.mse``
+    the best of ``int(maxshrink · grid)`` ranges shrunk by ``p = 1 − i/grid``
+    under the error ``Σ|q(w) − w|^norm`` per (group, channel), a later
+    candidate taken only when strictly better.
+
+    The min/max scale is ``range / maxq``, one IEEE division, as the JAX
+    package computes it op by op; with ``reciprocal`` it is ``range ·
+    f32(1/maxq)``, as XLA compiles it inside the JAX package's jitted GPTQ
+    (the grid's scales always take that form)."""
+    w = w.to(torch.float32)
+    K, N = w.shape
+    g = _group(spec, K)
+    xmin0, xmax0 = _minmax_ranges(w, spec, g)
+    scale0, zero0 = _params_from_ranges(xmin0, xmax0, spec, reciprocal)
+    if not spec.mse:
+        return scale0, zero0
+    wg = w.reshape(K // g, g, N)
+    sym_pc = spec.per_channel and spec.sym
+    best_err = torch.full_like(scale0, float("inf"))
+    best_scale, best_zero = scale0, zero0
+    # the grid's arithmetic as XLA compiles the JAX package's scan: the
+    # shrink factor 1 − i · f32(1/grid) rounded once (a fused multiply-add),
+    # the range times the f32 reciprocal of maxq
+    step = np.float64(np.float32(1.0) / np.float32(spec.grid))
+    for i in range(int(spec.maxshrink * spec.grid)):
+        p = torch.tensor(np.float32(1.0 - i * step), device=w.device)
+        xmin1, xmax1 = p * xmin0, p * xmax0
+        scale1, zero1 = _params_from_ranges(xmin1, xmax1, spec,
+                                            reciprocal=True)
+        if spec.sym:
+            zero1 = zero0
+        s, z = scale1[:, None, :], zero1[:, None, :]
+        if sym_pc:
+            deq = s * torch.clamp(torch.round(wg / s), -spec.maxq, spec.maxq)
+        else:
+            deq = s * (torch.clamp(torch.round(wg / s) + z, 0, spec.maxq) - z)
+        err = torch.sum(torch.pow(torch.abs(deq - wg), spec.norm), dim=1)
+        better = err < best_err
+        best_err = torch.where(better, err, best_err)
+        best_scale = torch.where(better, scale1, best_scale)
+        best_zero = torch.where(better, zero1, best_zero)
+    return best_scale, best_zero
 
 
 def quantize_weight_int(
@@ -128,6 +184,39 @@ def quantize_weight_int(
     else:
         q = torch.clamp(torch.round(wg / s) + z, 0, maxq) - z
     return q.reshape(K, N).to(torch.int8)
+
+
+def dequantize_weight_int(q: torch.Tensor, scale: torch.Tensor,
+                          spec: QuantSpec) -> torch.Tensor:
+    """Signed codes (K, N) back to f32: ``q · scale[g]``."""
+    K, N = q.shape
+    g = _group(spec, K)
+    qg = q.to(torch.float32).reshape(K // g, g, N)
+    return (qg * scale[:, None, :]).reshape(K, N)
+
+
+def fake_quantize_weight(
+    w: torch.Tensor, spec: QuantSpec, scale: Optional[torch.Tensor] = None,
+    zero: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Quantize-dequantize round trip of ``w`` (K, N) → f32."""
+    if scale is None:
+        scale, zero = find_params_weight(w, spec)
+    q = quantize_weight_int(w, scale, zero, spec)
+    return dequantize_weight_int(q, scale, spec)
+
+
+def int8_channel_scale(w_deq: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel symmetric INT8 scale ``absmax / 127`` (N,) f32 of
+    dequantized INT4 weights (K, N); an all-zero channel takes 1 / 127."""
+    absmax = w_deq.to(torch.float32).abs().amax(dim=0)
+    absmax = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
+    return true_div(absmax, 127.0)
+
+
+def double_scale(scale: torch.Tensor, s_extra: torch.Tensor) -> torch.Tensor:
+    """The per-group kernel scale ``scale / s_extra`` (G, N) f32."""
+    return (scale / s_extra[None, :]).to(torch.float32)
 
 
 def s_extra_from_group_scales(s_group: torch.Tensor) -> torch.Tensor:

@@ -201,6 +201,41 @@ def load_hf_model(model_path: str, dtype: torch.dtype = torch.bfloat16,
     return params, config
 
 
+def save_hf_model(out_path: str, params: Dict[str, Any],
+                  config: ModelConfig) -> None:
+    """Write dense params as an HF Llama/Qwen2 directory (one
+    ``model.safetensors`` and ``config.json``) that :func:`load_hf_model`
+    reads back bit for bit: linears transposed to (out, in), every tensor
+    in its own dtype."""
+    sd: Dict[str, torch.Tensor] = {
+        "model.embed_tokens.weight": params["embed"],
+        "model.norm.weight": params["norm"],
+    }
+
+    def linear(prefix: str, lin: Dict[str, torch.Tensor]) -> None:
+        sd[f"{prefix}.weight"] = lin["w"].T.contiguous()
+        if "b" in lin:
+            sd[f"{prefix}.bias"] = lin["b"]
+
+    for i, layer in enumerate(params["layers"]):
+        pre = f"model.layers.{i}"
+        sd[f"{pre}.input_layernorm.weight"] = layer["input_layernorm"]
+        sd[f"{pre}.post_attention_layernorm.weight"] = layer[
+            "post_attention_layernorm"]
+        for ours, theirs in _LAYER_LINEARS:
+            linear(f"{pre}.{theirs}", layer[ours])
+    if params.get("lm_head") is not None:
+        linear("lm_head", params["lm_head"])
+    os.makedirs(out_path, exist_ok=True)
+    _st_write(os.path.join(out_path, "model.safetensors"), sd,
+              metadata={"format": "pt"})
+    cfg = {k: v for k, v in config.__dict__.items() if v is not None}
+    if config.rope_scaling is not None:
+        cfg["rope_scaling"] = config.rope_scaling_dict
+    with open(os.path.join(out_path, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+
+
 # ---------------------------------------------------------------------------
 # quantized checkpoints (the JAX package's native format)
 

@@ -1247,3 +1247,91 @@ def test_adopted_prefix_block_equals_a_fresh_prefill(tick_model):
         for c, cf in zip(eng.caches, fresh.caches):
             for k in c:
                 assert torch.equal(c[k][blk], cf[k][blk_f]), (i, k)
+
+
+# ---------------------------------------------------------------------------
+# calibration on the card against the same code on the CPU (no kernel: the
+# card runs PyTorch's own ops, full f32 products, no TF32).  GPTQ to the
+# CPU parity rule of tests/test_torch_calib.py: under 2 % of the dequantized
+# entries differ at rtol 1e-4, atol 1e-5; scale and zero bit-equal without
+# the MSE grid; the loss within 1e-3 relative (5e-3 where a code flipped).
+# The MSE grid: at most 1 % of the scales differ.  os+ migration: the same
+# candidate (the chosen scale within rtol 1e-5).
+
+
+def _calib_problem(dev, K, N, tokens=1024, seed=0):
+    from qqq_tpu_torch.calib.gptq import hessian_init, hessian_update
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    W = torch.randn((K, N), generator=g, device=dev) * 0.02
+    X = torch.randn((tokens, K), generator=g, device=dev)
+    X = X @ (torch.eye(K, device=dev)
+             + 0.1 * torch.randn((K, K), generator=g, device=dev))
+    H, n = hessian_init(K, dev)
+    for xb in X.split(256):
+        H, n = hessian_update(H, n, xb)
+    return W, H
+
+
+@pytest.mark.parametrize("group_size,actorder,mse", [
+    (-1, True, False), (128, True, False), (128, False, True),
+    (-1, False, True)])
+def test_gptq_on_the_card_matches_the_cpu(dev, group_size, actorder, mse):
+    from qqq_tpu_torch.calib.gptq import gptq_quantize_matrix
+    from qqq_tpu_torch.core.quant import QuantSpec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    W, H = _calib_problem(dev, 512, 384)
+    spec = QuantSpec(bits=4, group_size=group_size, mse=mse)
+    kw = dict(actorder=actorder, scale_store_dtype=torch.bfloat16)
+    card = gptq_quantize_matrix(W, H, spec, **kw)
+    cpu = gptq_quantize_matrix(W.cpu(), H.cpu(), spec, **kw)
+    differ = ~torch.isclose(card.w_deq.cpu(), cpu.w_deq, rtol=1e-4,
+                            atol=1e-5)
+    assert differ.float().mean() < 0.02
+    if mse:
+        assert (card.scale.cpu() != cpu.scale).float().mean() <= 0.01
+    else:
+        assert torch.equal(card.scale.cpu(), cpu.scale)
+    assert torch.equal(card.zero.cpu(), cpu.zero)
+    flips = bool((card.q4.cpu() != cpu.q4).any())
+    assert abs(float(card.loss) / float(cpu.loss) - 1) < (
+        5e-3 if flips else 1e-3)
+
+
+@pytest.mark.parametrize("group_size", [-1, 128])
+def test_mse_grid_on_the_card_matches_the_cpu(dev, group_size):
+    from qqq_tpu_torch.core.quant import QuantSpec, find_params_weight
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    w = torch.randn((1024, 640), generator=g, device=dev) * 0.02
+    spec = QuantSpec(bits=4, group_size=group_size, mse=True)
+    s, z = find_params_weight(w, spec)
+    s_cpu, z_cpu = find_params_weight(w.cpu(), spec)
+    assert (s.cpu() != s_cpu).float().mean() <= 0.01
+    assert torch.equal(z.cpu(), z_cpu)
+
+
+def test_os_plus_migrate_on_the_card_matches_the_cpu(dev):
+    from qqq_tpu_torch.calib.smooth import migrate
+    from qqq_tpu_torch.models.config import ModelConfig
+    from qqq_tpu_torch.models.llama import rope_inv_freq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(vocab_size=256, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=1,
+                      num_attention_heads=4, num_key_value_heads=2)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((1, 64, 256), generator=g, device=dev)
+    x[..., 11] *= 15.0  # an outlier channel
+    w = torch.randn((256, 256 + 2 * 128), generator=g, device=dev) * 0.05
+    pos = torch.arange(64, dtype=torch.int32, device=dev)[None]
+
+    def extra(d):
+        return {"config": cfg, "positions": pos.to(d),
+                "inv_freq": rope_inv_freq(cfg, d)}
+
+    s = migrate("qkv", x, w, extra(dev), method="os+", n_grid=24)
+    s_cpu = migrate("qkv", x.cpu(), w.cpu(), extra("cpu"), method="os+",
+                    n_grid=24)
+    torch.testing.assert_close(s.cpu(), s_cpu, rtol=1e-5, atol=0)
