@@ -10,8 +10,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    tensor-core kernels (slot flash, g128 requant, the per-channel GEMM's
    weight stream and wgmma tiles, the exact g128 GEMMs' weight stream:
    plain, GLU and activation-quant-fused) and of the split decode;
-2. check each of the sixteen kernels against its plain PyTorch version on
-   the card at the Llama-2-7B and Llama-3.1-8B shapes of the served paths
+2. check each of the sixteen kernels (and the int8-QKᵀ route of slot and
+   paged flash, ``qk_int8=True``, beside their default route: q's codes
+   and row scales bit-equal to the plain version's at every case, and a
+   control case whose q has an outlier channel, where the bf16 route's
+   output must fail the int8 route's check) against its
+   plain PyTorch version on the card at the Llama-2-7B and Llama-3.1-8B
+   shapes of the served paths
    (the GEMMs, the activation-quant-fused ones included (at M = 1, 4 and
    64, the per-channel one also at 8), and the KV writes bit-exact, requant
    also at ragged M
@@ -51,6 +56,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    decode tok/s.  3a runs again with every tick eager (tokens must equal
    the captured run's), and 3a and 3c again with 8 decode steps fused in
    each tick (``steps_per_tick=8``; tokens must equal the one-step runs').
+   The int8-QKᵀ route, off by default as in JAX, is on no served path: its
+   launches come from one call of each flash wrapper with
+   ``qk_int8=True`` (phase 2q).
    Each run checks every kernel's launch count against what its
    dispatches and decode steps imply;
 4. teacher-force a 2-layer cut of the g128 weights on the card and on the
@@ -65,7 +73,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    checkpoint over HTTP (``cli/serve.make_server`` on 127.0.0.1, the
    default Engine): greedy ``/generate`` equal to a direct run, requests
    with penalties, a logit bias, a guided choice, top-N logprobs and a
-   seed (its tokens equal in two batches), ``/v1/completions`` streamed as
+   seed (its tokens equal in two batches; the seeded noise, JAX's threefry
+   stream, equal on the card and the CPU: bits and uniforms bit for bit), ``/v1/completions`` streamed as
    SSE equal to the plain reply, echo scoring, one cancel; graphs keyed by
    the sampling extras must replay, every kernel count must be as expected,
    and each graph's replay is timed.  2-layer full-width cuts of the g128
@@ -103,7 +112,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    card against the CPU at (4096, 11008) and (11008, 4096) from card
    Hessians; the final logits of GPTQ and RTN against the dense model;
    the packed result serves 3a's requests with every launch count as
-   implied.  Seconds of each step and the peak device memory are logged.
+   implied.  Seconds of each step and the peak device memory are logged;
+8. evaluation (run after phase 6, on phase 5's checkpoint): (a)
+   ``python -m qqq_tpu_torch.cli.eval --eval_ppl --allow_synthetic
+   --max_windows 4`` at seqlen 2048 (its ``main`` in this process, the
+   launch counts read around it: the requant GEMM, 7 a layer a window);
+   (b) the same windows through the dense bf16 weights of the same seed
+   (the quantization gap); (c) a 2-layer cut's window logits, card against
+   CPU (relative RMS, as phase 4);
+   (d) ``loglikelihood_batch`` against ``loglikelihood`` pair by pair.
 
 The last lines are a ``{"kernels": [...]}`` report, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -116,6 +133,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -721,50 +739,96 @@ def check_decode(dev, gen, timer):
     return report
 
 
+def flash_bound(nbytes: float, pairs: int, qk_int8: bool):
+    """The flash kernels' bound: the bytes at the HBM rate against QKᵀ and
+    P·V, 2·hd operations each per visible (query, key) pair, both at the
+    bf16 rate or, with ``qk_int8``, QKᵀ at the int8 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * HD * pairs * 1e3 * (
+        1 / BF16_FLOPS_PER_S
+        + 1 / (INT8_OPS_PER_S if qk_int8 else BF16_FLOPS_PER_S))
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: the flash wrappers' two QKᵀ routes, by report row (slot, paged): the
+#: bf16 tensor cores (the default) and the int8 ones (``qk_int8=True``,
+#: counted in each wrapper's ``qk_int8_launches`` too)
+FLASH_ROUTES = {False: ("flash_attention_int8",
+                        "paged_flash_attention_int8"),
+                True: ("flash_attention_int8 qk_int8",
+                       "paged_flash_attention_int8 qk_int8")}
+
+
+def check_q_codes(q, what):
+    """The int8 route's quantization of q (``quantize_q_int8``, the kernel
+    that the route launches ahead of flash) bit-equal to the plain
+    version's: codes and row scales, so that the s32 scores are too."""
+    from qqq_tpu_torch.kernels.attention import (
+        quantize_q_int8, quantize_q_int8_plain,
+    )
+
+    codes, qs = quantize_q_int8(q)
+    codes_p, qs_p = quantize_q_int8_plain(q)
+    if not (torch.equal(codes, codes_p) and torch.equal(qs, qs_p)):
+        raise AssertionError(
+            f"{what}: quantize_q_int8 differs from its plain version in "
+            f"{int((codes != codes_p).sum())} codes and "
+            f"{int((qs != qs_p).sum())} row scales")
+
+
 def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
-                nkv=NKV, report_at=(2, 512)):
+                nkv=NKV, report_at=(2, 512), qk_int8=False):
     """Slot flash at each case of ``cases``: (B, T) with T = S (a fresh
     bucket-sized prefill cache, cache_len 0), or (B, T, S, cache lengths),
     each row of the output within two bf16 ulps of its own largest value
     (:func:`ulp_rows`: a causal prefill's first row sees one key and would
-    set a whole-output bound far above the long rows).  Yardstick: SDPA on
-    the dequantized bf16 K/V, kv heads repeated for GQA, causal (with the
-    cache offset as a mask where cache_len > 0)."""
+    set a whole-output bound far above the long rows); with ``qk_int8`` the
+    int8-QKᵀ route too, checked and timed beside the default route, its q
+    codes and row scales bit-equal to the plain version's, and the bf16
+    route's output held to the int8 route's plain version as well (logged:
+    how far the rule separates the routes on this data).
+    Yardstick: SDPA on the dequantized bf16 K/V, kv heads repeated for GQA,
+    causal (with the cache offset as a mask where cache_len > 0).  Returns
+    each route's report row at ``report_at``, by wrapper name."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels.attention import (
         flash_attention_int8, flash_attention_int8_plain,
     )
 
-    report, err = None, 0.0
+    routes = (False, True) if qk_int8 else (False,)
+    reports, errs = {}, dict.fromkeys(routes, 0.0)
     for case in cases:
         B, T = case[:2]
         S, clens = case[2:] if len(case) > 2 else (T, (0,) * B)
         clen = torch.tensor(clens, dtype=torch.int32, device=dev)
         q = torch.randn((B, NH, T, HD), generator=gen, device=dev).to(
             torch.bfloat16)
-        kc = torch.randint(-128, 128, (B, nkv, S, HD), generator=gen,
-                           device=dev, dtype=torch.int8)
-        vc = torch.randint(-128, 128, (B, nkv, S, HD), generator=gen,
-                           device=dev, dtype=torch.int8)
-        ks = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
-        vs = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
+        kc, ks, vc, vs = _rand_slot_cache(dev, gen, B, S, nkv)
         args = (q, kc, ks, vc, vs, clen)
-        out = flash_attention_int8(*args)
-        ref = flash_attention_int8_plain(*args)
-        torch.cuda.synchronize()
-        e, worst = ulp_rows(out, ref)
-        if not worst <= 1:
-            raise AssertionError(f"flash_attention_int8 B={B} T={T} S={S} "
-                                 f"nkv={nkv} cache_len {clens}: a row differs"
-                                 f" by {worst:.3g} times its bound of "
-                                 f"{ATTN_ULPS} bf16 ulps")
-        err = max(err, e)
-        del out, ref
+        what = f"B={B} T={T} S={S} nkv={nkv} cache_len {clens}"
+        checked, outs, refs = {}, {}, {}
+        for qk in routes:
+            outs[qk] = flash_attention_int8(*args, qk_int8=qk)
+            refs[qk] = flash_attention_int8_plain(*args, True, qk)
+            torch.cuda.synchronize()
+            e, worst = ulp_rows(outs[qk], refs[qk])
+            if not worst <= 1:
+                raise AssertionError(
+                    f"flash_attention_int8 (qk_int8={qk}) {what}: a row "
+                    f"differs by {worst:.3g} times its bound of {ATTN_ULPS} "
+                    "bf16 ulps")
+            errs[qk] = max(errs[qk], e)
+            checked[qk] = (e, worst)
+        if qk_int8:
+            check_q_codes(q, f"flash_attention_int8 qk_int8 {what}")
+            cross = ulp_rows(outs[False], refs[True])[1]
+            log(f"  {what}: q codes and row scales bit-equal to the plain "
+                f"version's; the bf16 route's output at {cross:.3g} of the "
+                "int8 route's bound")
+        del outs, refs
         kd = _dequant(kc, ks).repeat_interleave(NH // nkv, dim=1)
         vd = _dequant(vc, vs).repeat_interleave(NH // nkv, dim=1)
-        ms = timer.ms(lambda: flash_attention_int8(*args))
-        plain = timer.ms(lambda: flash_attention_int8_plain(*args))
         if any(clens) or S != T:
             qpos = clen[:, None] + torch.arange(T, device=dev)[None, :]
             mask = (torch.arange(S, device=dev)[None, None, :]
@@ -779,20 +843,31 @@ def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
         pairs = NH * sum(T * c + T * (T + 1) // 2 for c in clens)
         keys = sum(c + T for c in clens)
         nbytes = 2 * B * NH * T * HD * 2 + keys * nkv * (HD + 4) * 2 + B * 4
-        b, by = bound_ms(nbytes, 4.0 * HD * pairs)
-        log(f"  flash_attention_int8 B={B} T={T} S={S} nkv={nkv} cache_len "
-            f"{clens}: max |diff| {e:.3g} (worst row {worst:.3g} of its "
-            f"bound); {ms:.4f} ms (bound {b:.4f} by {by}, plain "
-            f"{plain:.4f}, sdpa {lib:.4f})")
-        if (B, T) == report_at and len(case) == 2:
-            report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                          bound_by=by, shape=f"B={B} T=S={T} causal, clen 0")
+        times = {}
+        for qk in routes:
+            ms = timer.ms(lambda: flash_attention_int8(*args, qk_int8=qk))
+            plain = timer.ms(lambda: flash_attention_int8_plain(*args, True,
+                                                                qk))
+            times[qk] = ms
+            b, by = flash_bound(nbytes, pairs, qk)
+            e, worst = checked[qk]
+            log(f"  flash_attention_int8{' qk_int8' if qk else ''} B={B} "
+                f"T={T} S={S} nkv={nkv} cache_len {clens}: max |diff| "
+                f"{e:.3g} (worst row {worst:.3g} of its bound); {ms:.4f} ms "
+                f"(bound {b:.4f} by {by}, plain {plain:.4f}, sdpa {lib:.4f}"
+                + (f", the bf16 route {times[False]:.4f}" if qk else "")
+                + ")")
+            if (B, T) == report_at and len(case) == 2:
+                reports[FLASH_ROUTES[qk][0]] = dict(
+                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                    bound_by=by, shape=f"B={B} T=S={T} causal, clen 0")
         del kc, vc, kd, vd
         torch.cuda.empty_cache()
-    if report is not None:
-        report["max_abs_err"] = err
-    return report
-
+    for qk, report in zip(routes, (reports.get(FLASH_ROUTES[r][0])
+                                   for r in routes)):
+        if report is not None:
+            report["max_abs_err"] = errs[qk]
+    return reports
 
 def _flash_decode_cases(dev, gen, timer, nh, nkv, hd, S, clens):
     """The S-tiled decode at B = 4 over one random slot cache of S keys and
@@ -901,6 +976,18 @@ def _scrambled_tables(dev, rows: int, seed: int):
     return perm.reshape(rows, NBMAX).to(torch.int32).to(dev)
 
 
+def _rand_slot_cache(dev, gen, B, S, nkv=NKV):
+    """A Llama-2-7B layer's slot cache of B rows and S keys: (k codes, k
+    scales, v codes, v scales), drawn as :func:`check_flash` draws them."""
+    kc = torch.randint(-128, 128, (B, nkv, S, HD), generator=gen,
+                       device=dev, dtype=torch.int8)
+    vc = torch.randint(-128, 128, (B, nkv, S, HD), generator=gen,
+                       device=dev, dtype=torch.int8)
+    ks = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
+    vs = torch.rand((B, nkv, S), generator=gen, device=dev) * 0.02 + 1e-3
+    return kc, ks, vc, vs
+
+
 def _rand_pool(dev, gen, nkv=NKV):
     """A Llama-2-7B layer's pool: 65 blocks × 32 kv heads (or ``nkv``) ×
     128 × 128."""
@@ -982,12 +1069,15 @@ def _gathered_bf16(pool, tables):
 def check_paged_flash(dev, gen, timer):
     """Paged flash at the served chunk (R = 2 rows of T = 512) over
     scrambled tables, after 300 and 1400 cached keys (the chunk attends to
-    earlier blocks), and one row of a fresh prompt: each output row within
-    two bf16 ulps of its own largest value (:func:`ulp_rows`), and bit-equal
-    to slot flash on the pool gathered through the tables (the two differ
-    only in where a key row is read; that kernel's time is logged beside
-    it).  Yardstick: SDPA with the causal offset mask on the gathered
-    K/V."""
+    earlier blocks), and one row of a fresh prompt, by both QKᵀ routes
+    (bf16, and int8 with ``qk_int8``): each output row within two bf16 ulps
+    of its own largest value (:func:`ulp_rows`), and bit-equal to slot
+    flash of the same route on the pool gathered through the tables (the
+    two differ only in where a key row is read; that kernel's time is
+    logged beside it).  Yardstick: SDPA with the causal offset mask on the
+    gathered K/V.  The int8 route's q codes and row scales are held
+    bit-equal to the plain version's.  Returns each route's report row, by
+    name."""
     import torch.nn.functional as F
 
     from qqq_tpu_torch.kernels.attention import (
@@ -996,7 +1086,7 @@ def check_paged_flash(dev, gen, timer):
     )
     from qqq_tpu_torch.serve.paged_kv import gather
 
-    report, err = None, 0.0
+    reports, errs = {}, {False: 0.0, True: 0.0}
     T = 512
     for clen in ((300, 1400), (0,)):
         R = len(clen)
@@ -1006,49 +1096,162 @@ def check_paged_flash(dev, gen, timer):
         q = torch.randn((R, NH, T, HD), generator=gen, device=dev).to(
             torch.bfloat16)
         args = (q, *pool, tables, cl)
-        out = paged_flash_attention_int8(*args)
-        ref = paged_flash_attention_int8_plain(*args)
         slot_args = (q, *(gather(t, tables) for t in pool), cl)
-        slot = flash_attention_int8(*slot_args)
-        torch.cuda.synchronize()
-        e, worst = ulp_rows(out, ref)
-        if not worst <= 1:
-            raise AssertionError(f"paged_flash_attention_int8 cache_len "
-                                 f"{clen}: a row differs by {worst:.3g} "
-                                 f"times its bound of {ATTN_ULPS} bf16 ulps")
-        if not torch.equal(out, slot):
-            raise AssertionError(f"paged_flash_attention_int8 cache_len "
-                                 f"{clen}: not bit-equal to "
-                                 "flash_attention_int8 on the gathered pool")
-        err = max(err, e)
-        del out, ref, slot
+        checked = {}
+        check_q_codes(q, f"paged_flash_attention_int8 qk_int8 cache_len "
+                         f"{clen}")
+        for qk in (False, True):
+            out = paged_flash_attention_int8(*args, qk_int8=qk)
+            ref = paged_flash_attention_int8_plain(*args, True, qk)
+            slot = flash_attention_int8(*slot_args, qk_int8=qk)
+            torch.cuda.synchronize()
+            e, worst = ulp_rows(out, ref)
+            if not worst <= 1:
+                raise AssertionError(
+                    f"paged_flash_attention_int8 (qk_int8={qk}) cache_len "
+                    f"{clen}: a row differs by {worst:.3g} times its bound "
+                    f"of {ATTN_ULPS} bf16 ulps")
+            if not torch.equal(out, slot):
+                raise AssertionError(
+                    f"paged_flash_attention_int8 (qk_int8={qk}) cache_len "
+                    f"{clen}: not bit-equal to flash_attention_int8 on the "
+                    "gathered pool")
+            errs[qk] = max(errs[qk], e)
+            checked[qk] = (e, worst)
+            del out, ref, slot
         kd, vd = _gathered_bf16(pool, tables)
         key = torch.arange(NBMAX * BS, device=dev)
         qpos = cl[:, None] + torch.arange(T, device=dev)[None, :]  # (R, T)
         mask = (key[None, None, :] <= qpos[:, :, None])[:, None]
-        ms = timer.ms(lambda: paged_flash_attention_int8(*args))
-        slot_ms = timer.ms(lambda: flash_attention_int8(*slot_args))
-        plain = timer.ms(lambda: paged_flash_attention_int8_plain(*args))
         lib = timer.ms(lambda: F.scaled_dot_product_attention(
             q, kd, vd, attn_mask=mask))
         pairs = NH * sum(T * c + T * (T + 1) // 2 for c in clen)
         keys = sum(c + T for c in clen)
         nbytes = (2 * R * NH * T * HD * 2 + keys * NKV * (HD + 4) * 2
                   + R * 4 + sum(-(-(c + T) // BS) for c in clen) * 4)
-        b, by = bound_ms(nbytes, 4.0 * HD * pairs)
-        log(f"  paged_flash_attention_int8 R={R} T={T} cache_len {clen}: "
-            f"max |diff| {e:.3g} (worst row {worst:.3g} of its bound), "
-            f"bit-equal to slot flash on the gathered pool; {ms:.4f} ms "
-            f"(bound {b:.4f} by {by}, slot flash on the gathered pool "
-            f"{slot_ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f})")
-        if report is None:
-            report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                          bound_by=by, shape=f"R={R} T={T} causal, cache_len "
-                          f"{list(clen)}, scrambled tables")
+        times = {}
+        for qk in (False, True):
+            ms = timer.ms(lambda: paged_flash_attention_int8(*args,
+                                                             qk_int8=qk))
+            slot_ms = timer.ms(lambda: flash_attention_int8(*slot_args,
+                                                            qk_int8=qk))
+            plain = timer.ms(lambda: paged_flash_attention_int8_plain(
+                *args, True, qk))
+            times[qk] = ms
+            b, by = flash_bound(nbytes, pairs, qk)
+            e, worst = checked[qk]
+            log(f"  paged_flash_attention_int8{' qk_int8' if qk else ''} "
+                f"R={R} T={T} cache_len {clen}: max |diff| {e:.3g} (worst "
+                f"row {worst:.3g} of its bound), bit-equal to slot flash on "
+                f"the gathered pool; {ms:.4f} ms (bound {b:.4f} by {by}, "
+                f"slot flash on the gathered pool {slot_ms:.4f}, plain "
+                f"{plain:.4f}, sdpa {lib:.4f}"
+                + (f", the bf16 route {times[False]:.4f}" if qk else "")
+                + ")")
+            name = FLASH_ROUTES[qk][1]
+            if name not in reports:
+                reports[name] = dict(
+                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                    bound_by=by, shape=f"R={R} T={T} causal, cache_len "
+                    f"{list(clen)}, scrambled tables")
         del pool, kd, vd, slot_args
-    report["max_abs_err"] = err
-    return report
+    for qk in (False, True):
+        reports[FLASH_ROUTES[qk][1]]["max_abs_err"] = errs[qk]
+    return reports
 
+
+#: the control's outlier channel: channel 5 of every q row times 8, as an
+#: activation outlier would be; the int8 step of the other channels grows
+#: with it, and the two QKᵀ routes part well past the two-ulp rule
+QK_CONTROL_OUTLIER = 8.0
+
+
+def check_qk_int8_control(dev, gen):
+    """A case that a kernel ignoring ``qk_int8`` (bf16 QKᵀ on either flag)
+    could not pass: slot flash at B = 2, T = S = 512 and paged flash at R =
+    2, T = 512 after 300 and 1400 cached keys, with q's channel 5 scaled by
+    ``QK_CONTROL_OUTLIER``.  Each route within two bf16 ulps of its own
+    plain version per row (:func:`ulp_rows`), the int8 route's q codes and
+    row scales bit-equal to the plain version's, and the bf16 route's
+    output past that rule against the int8 route's plain version (the
+    control: the rule tells the routes apart).  Runs on any device."""
+    from qqq_tpu_torch.kernels.attention import (
+        flash_attention_int8, flash_attention_int8_plain,
+        paged_flash_attention_int8, paged_flash_attention_int8_plain,
+    )
+
+    T = 512
+    slot = (lambda q, qk: flash_attention_int8(*q, qk_int8=qk),
+            lambda q, qk: flash_attention_int8_plain(*q, True, qk))
+    paged = (lambda q, qk: paged_flash_attention_int8(*q, qk_int8=qk),
+             lambda q, qk: paged_flash_attention_int8_plain(*q, True, qk))
+    for name, (fn, plain), clen, rest in (
+            ("flash_attention_int8", slot, (0, 0),
+             _rand_slot_cache(dev, gen, 2, T)),
+            ("paged_flash_attention_int8", paged, (300, 1400),
+             (*_rand_pool(dev, gen), _scrambled_tables(dev, 2, seed=12)))):
+        q = torch.randn((2, NH, T, HD), generator=gen, device=dev)
+        q[..., 5] *= QK_CONTROL_OUTLIER
+        q = q.to(torch.bfloat16)
+        args = (q, *rest, torch.tensor(clen, dtype=torch.int32, device=dev))
+        what = (f"{name}, q channel 5 x {QK_CONTROL_OUTLIER:g}, cache_len "
+                f"{clen}")
+        check_q_codes(q, what)
+        out = {qk: fn(args, qk) for qk in (False, True)}
+        ref = {qk: plain(args, qk) for qk in (False, True)}
+        own = {qk: ulp_rows(out[qk], ref[qk])[1] for qk in (False, True)}
+        cross = ulp_rows(out[False], ref[True])[1]
+        log(f"  control, {what}: each route's worst row at {own[False]:.3g} "
+            f"(bf16) / {own[True]:.3g} (int8) of the rule against its own "
+            f"plain version; the bf16 route's against the int8 route's "
+            f"plain version at {cross:.3g}")
+        if not max(own.values()) <= 1:
+            raise AssertionError(f"control, {what}: a route differs from "
+                                 f"its plain version ({own})")
+        if not cross > 1:
+            raise AssertionError(f"control, {what}: the bf16 route passes "
+                                 f"the int8 route's check ({cross:.3g})")
+
+
+def drive_qk_int8_route(dev, gen):
+    """The int8-QKᵀ route's own path.  It is off by default, as in JAX, so
+    no served run takes it: one call of each flash wrapper with
+    ``qk_int8=True`` at the report shapes (slot B = 2, T = S = 512; paged R
+    = 2, T = 512 after 300 and 1400 cached keys), every count set to 0 just
+    before and read just after.  Returns the route's launches by report
+    row."""
+    from qqq_tpu_torch.kernels import attention
+
+    T = 512
+    q = torch.randn((2, NH, T, HD), generator=gen, device=dev).to(
+        torch.bfloat16)
+    slot_cache = _rand_slot_cache(dev, gen, 2, T)
+    kc, ks, vc, vs = _rand_pool(dev, gen)
+    wrappers = (attention.flash_attention_int8,
+                attention.paged_flash_attention_int8)
+    fns = kernel_fns()
+    for fn, _, _ in fns.values():
+        fn.launches = 0
+    for fn in wrappers:
+        fn.qk_int8_launches = 0
+    attention.flash_attention_int8(
+        q, *slot_cache, torch.zeros((2,), dtype=torch.int32, device=dev),
+        qk_int8=True)
+    attention.paged_flash_attention_int8(
+        q, kc, ks, vc, vs, _scrambled_tables(dev, 2, seed=12),
+        torch.tensor((300, 1400), dtype=torch.int32, device=dev),
+        qk_int8=True)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, (fn, _, _) in fns.items()}
+    route = {row: fn.qk_int8_launches
+             for row, fn in zip(FLASH_ROUTES[True], wrappers)}
+    expect = {**dict.fromkeys(launches, 0),
+              **dict.fromkeys(FLASH_ROUTES[False], 1)}
+    if launches != expect or set(route.values()) != {1}:
+        raise AssertionError(f"the qk_int8 route's calls launched {launches},"
+                             f" on the route {route}")
+    log(f"phase 2q: the int8-QKᵀ route through its entry points: {route}")
+    return route
 
 def check_paged_decode(dev, gen, timer):
     """Paged decode at B = 4 over scrambled tables of all 64 blocks: cache
@@ -1129,6 +1332,13 @@ KV_ATTN_KERNELS = {
         "qqq_tpu_torch/csrc/split_decode_attention.cu",
         "qqq_tpu/kernels/attention.py:543"),
 }
+#: the qk_int8 branch of #14 and #15 (its s8 QKᵀ at :133-146, :157-168):
+#: report row → (CUDA source, TPU kernel replaced)
+QK_INT8_KERNELS = dict(zip(FLASH_ROUTES[True], (
+    ("qqq_tpu_torch/csrc/flash_attention.cu",
+     "qqq_tpu/kernels/attention.py:133"),
+    ("qqq_tpu_torch/csrc/flash_attention.cu",
+     "qqq_tpu/kernels/attention.py:410"))))
 
 
 def kernel_fns():
@@ -1613,15 +1823,19 @@ HTTP_NEW = 32
 #: where phase 5 writes its checkpoints (inside the checkout, git-ignored);
 #: removed at the end of the run
 CKPT_DIR = HERE / "build" / "chip_smoke_checkpoints"
+#: 3a's weights as phase 5 saves them (phase 8 evaluates them)
+CKPT_G128 = CKPT_DIR / "llama2_7b_g128"
 
 
 def save_and_load(dev, params, config):
-    """``save_quantized`` the served params and ``load_any`` them back onto
-    the card: every tensor's dtype, shape and bits must be equal."""
+    """``save_quantized`` the served params to ``CKPT_G128`` (kept for
+    phase 8; the run removes ``CKPT_DIR`` at its end) and ``load_any`` them
+    back onto the card: every tensor's dtype, shape and bits must be
+    equal."""
     from qqq_tpu_torch.cli.eval import load_any
     from qqq_tpu_torch.models.loader import _flatten, save_quantized
 
-    path = CKPT_DIR / "llama2_7b_g128"
+    path = CKPT_G128
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     save_quantized(str(path), params, config,
@@ -1648,8 +1862,7 @@ def save_and_load(dev, params, config):
         f"GB/s, card → file) and loaded them with load_any in {read_s:.3f} "
         f"s ({nbytes / 1e9 / read_s:.3f} GB/s, file → card): every tensor "
         f"bit-equal")
-    shutil.rmtree(path)
-    return loaded, cfg
+    return loaded, cfg  # the checkpoint stays for phase 8
 
 
 def check_marlin(dev, params, config, group_size):
@@ -2711,6 +2924,203 @@ def phase7b(dev):
     serve(dev, packed, config, "g128")
 
 
+def check_seeded_noise(dev):
+    """A seeded request's noise is JAX's stream (serve/sampling.py:
+    threefry2x32, fold_in, the partitionable bits) in int64 torch ops: on
+    the card its bits and uniforms equal the CPU's bit for bit and its
+    Gumbel noise lies within 2 ulps of max(|g|, 1) of the CPU's (each of its
+    two logs may round the other way), at Llama-2's and Llama-3's
+    vocabularies; one (4, 32000) draw is timed (CUDA-event median of 20)."""
+    from qqq_tpu_torch.serve import sampling as S
+
+    seeds = torch.tensor([0, 1, 1234, 0x7FFFFFFF], dtype=torch.int32)
+    ngen = torch.tensor([0, 5, 63, 100000], dtype=torch.int32)
+    on = (seeds.to(dev), ngen.to(dev))
+    worst = 0.0
+    for vocab in (V, LLAMA31_8B["vocab_size"]):
+        if not torch.equal(S.seeded_bits(*on, vocab).cpu(),
+                           S.seeded_bits(seeds, ngen, vocab)):
+            raise AssertionError(f"seeded bits at V={vocab}: the card's "
+                                 "differ from the CPU's")
+        if not torch.equal(
+                S.seeded_uniform(*on, vocab).cpu().view(torch.int32),
+                S.seeded_uniform(seeds, ngen, vocab).view(torch.int32)):
+            raise AssertionError(f"seeded uniforms at V={vocab}: the card's "
+                                 "differ from the CPU's")
+        g = S.seeded_gumbel(*on, vocab).cpu()
+        ref = S.seeded_gumbel(seeds, ngen, vocab)
+        scale = torch.clamp_min(ref.abs(), 1.0)
+        ulp = torch.nextafter(scale, torch.full_like(scale, 2.0 ** 60)) - scale
+        worst = max(worst, float(((g - ref).abs() / ulp).max()))
+    if worst > 2:
+        raise AssertionError(f"seeded Gumbel noise: card vs CPU {worst} ulps")
+    times = []
+    S.seeded_gumbel(*on, V)
+    for _ in range(20):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        S.seeded_gumbel(*on, V)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    log(f"  seeded noise (JAX's threefry stream): bits and uniforms equal "
+        f"to the CPU's at V = {V} and {LLAMA31_8B['vocab_size']}, Gumbel "
+        f"noise within {worst:.3g} ulps of max(|g|, 1); one (4, {V}) draw "
+        f"{statistics.median(times):.4f} ms (eager, wrapper included)")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: evaluation (cli/eval, utils/eval) on the card
+
+#: cli/eval's windows: seqlen and count (the reference's WikiText2 window)
+PPL_SEQLEN, PPL_WINDOWS = 2048, 4
+#: the 2-layer cut's window, card against CPU (M = 512: the requant route)
+CUT_SEQLEN = 512
+#: loglikelihood_batch against per-pair loglikelihood on the card: the
+#: same kernels at the same (8, bucket) shapes, each pair's row at another
+#: position of the batch
+LL_BATCH_TOL = 1e-3
+
+
+def phase8(dev, params, config):
+    """Evaluation on the card, on phase 5's saved checkpoint of 3a's
+    weights (``params``, still resident):
+
+    (a) ``python -m qqq_tpu_torch.cli.eval`` (its ``main``, in this process
+        so that the kernel counts can be read: set to 0 just before, read
+        just after) with ``--eval_ppl --allow_synthetic --max_windows 4``
+        at seqlen 2048, on the synthetic corpus (named outright, so no
+        loader tries a download): ppl, mean NLL per token, seconds per
+        window, tokens/s; every W4A8 linear of a window (q, k, v, o, gate,
+        up, down: the checkpoint's layers unfused, as JAX's eval runs them)
+        is one launch of the requant GEMM (#3) at M = 2048, and no other
+        kernel runs (the cache-free forward attends in PyTorch ops, as
+        JAX's does);
+    (b) the same windows through ``utils/eval.perplexity`` on the resident
+        params (equal to the CLI's), then through the dense bf16 weights of
+        the same seed (``torch.matmul``): the quantization gap;
+    (c) a 2-layer cut's logits over one 512-token window, the cache-free
+        forward that the eval runs, on the card (kernels) and on the CPU
+        (plain versions): relative RMS within ``CARD_VS_CPU_TOL``, phase
+        4's bound and reasoning (a fault in a kernel moves the logits by
+        O(100 %)); the mean NLLs beside it, logged;
+    (d) ``loglikelihood_batch`` (buckets of 64, 128 and 256, 8 rows each: M
+        = 512 to 2048) against ``loglikelihood`` pair by pair, full depth,
+        within ``LL_BATCH_TOL``, greedy flags equal."""
+    from qqq_tpu_torch.cli import eval as ecli
+    import torch.nn.functional as F
+
+    from qqq_tpu_torch.models import forward, init_params
+    from qqq_tpu_torch.utils.data import get_loaders
+    from qqq_tpu_torch.utils.eval import (
+        loglikelihood, loglikelihood_batch, perplexity,
+    )
+
+    argv = ["--model_path", str(CKPT_G128), "--eval_ppl", "--allow_synthetic",
+            "--ppl_dataset", "synthetic", "--max_windows", str(PPL_WINDOWS),
+            "--max_length", str(PPL_SEQLEN)]
+    log(f"phase 8a: python -m qqq_tpu_torch.cli.eval {' '.join(argv)}")
+    fns = kernel_fns()
+    for fn, _, _ in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = ecli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, (fn, _, _) in fns.items()}
+    n = res["synthetic_windows"]
+    expect = dict.fromkeys(launches, 0)
+    expect["w4a8_gemm_requant"] = 7 * config.num_hidden_layers * n
+    if n != PPL_WINDOWS or launches != expect:
+        raise AssertionError(f"cli/eval: {n} windows, launches {launches}, "
+                             f"expected {expect}")
+    ppl = res["synthetic_ppl"]
+    if not (math.isfinite(ppl) and ppl > 1):
+        raise AssertionError(f"cli/eval: perplexity {ppl}")
+    log(f"  ppl {ppl}, mean NLL {res['synthetic_nll_per_token']:.5f} a "
+        f"token, {res['synthetic_seconds_per_window']:.4f} s a window, "
+        f"{res['synthetic_tokens_per_s']:.1f} tokens/s ({n} windows of "
+        f"{PPL_SEQLEN}; the whole command {wall:.1f} s with the checkpoint "
+        f"load); launches: w4a8_gemm_requant {launches['w4a8_gemm_requant']}"
+        f" = 7 linears x {config.num_hidden_layers} layers x {n} windows at "
+        f"M = {PPL_SEQLEN}, every other kernel 0")
+
+    _, tokens = get_loaders("synthetic", seqlen=PPL_SEQLEN, vocab_size=V)
+    t0 = time.perf_counter()
+    q_ppl = perplexity(params, config, tokens, seqlen=PPL_SEQLEN,
+                       max_windows=PPL_WINDOWS)
+    q_s = time.perf_counter() - t0
+    # the CLI rounds to 4 decimals; the weights it loaded are these, bit
+    # for bit (phase 5)
+    if not abs(q_ppl - ppl) <= 1e-4 + 1e-6 * ppl:
+        raise AssertionError(f"utils/eval on the resident weights: ppl "
+                             f"{q_ppl}, the CLI's {ppl}")
+    dense = init_params(config, torch.Generator(device=dev).manual_seed(0),
+                        dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    d_ppl = perplexity(dense, config, tokens, seqlen=PPL_SEQLEN,
+                       max_windows=PPL_WINDOWS)
+    d_s = time.perf_counter() - t0
+    del dense
+    torch.cuda.empty_cache()
+    log(f"phase 8b: the same {PPL_WINDOWS} windows, W4A8 g128 (utils/eval, "
+        f"the resident weights: equal to the CLI's) ppl {q_ppl:.4f} (NLL "
+        f"{math.log(q_ppl):.5f}, {q_s / PPL_WINDOWS:.4f} s a window) against "
+        f"dense bf16 of the same seed ppl {d_ppl:.4f} (NLL "
+        f"{math.log(d_ppl):.5f}, {d_s / PPL_WINDOWS:.4f} s a window): "
+        f"quantization gap {math.log(q_ppl) - math.log(d_ppl):+.5f} nats a "
+        f"token")
+
+    cfg2 = dataclasses.replace(config, num_hidden_layers=2)
+    cut = {**params, "layers": params["layers"][:2]}
+    cpu = _tree_map(lambda t: t.cpu(), cut)
+    window = torch.from_numpy(tokens[None, :CUT_SEQLEN].astype(np.int32))
+    sides = {}
+    for side, p in (("card", cut), ("CPU", cpu)):
+        t0 = time.perf_counter()
+        lg = forward(p, cfg2, window.to(p["embed"].device))[0][0].float()
+        nll = float(F.cross_entropy(
+            lg[:-1], window[0, 1:].to(lg.device, torch.int64)))
+        sides[side] = (lg.cpu(), nll, time.perf_counter() - t0)
+        del lg
+    rel = _rel_rms(sides["card"][0], sides["CPU"][0])
+    log(f"phase 8c: 2-layer cut, one {CUT_SEQLEN}-token window: logits card "
+        f"vs CPU {rel:.3%} RMS (bound {CARD_VS_CPU_TOL:.0%}); mean NLL card "
+        f"{sides['card'][1]:.5f} ({sides['card'][2]:.3f} s) vs CPU "
+        f"{sides['CPU'][1]:.5f} ({sides['CPU'][2]:.3f} s), "
+        f"{abs(sides['card'][1] - sides['CPU'][1]) / sides['CPU'][1]:.3%} "
+        "apart")
+    if not rel <= CARD_VS_CPU_TOL:
+        raise AssertionError(f"8c: card vs CPU logits {rel:.3%} RMS apart")
+    del cpu
+
+    rng = np.random.default_rng(8)
+    pairs = [([int(t) for t in rng.integers(0, V, c)],
+              [int(t) for t in rng.integers(0, V, k)])
+             for c, k in ((20, 3), (50, 1), (60, 4), (100, 5), (180, 2),
+                          (240, 8))]
+    t0 = time.perf_counter()
+    batched = loglikelihood_batch(params, config, pairs)
+    t_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = [loglikelihood(params, config, c, t) for c, t in pairs]
+    t_s = time.perf_counter() - t0
+    worst = max(abs(a[0] - b[0]) / max(abs(b[0]), 1.0)
+                for a, b in zip(batched, single))
+    if worst > LL_BATCH_TOL or [a[1] for a in batched] != \
+            [b[1] for b in single]:
+        raise AssertionError(f"8d: batched vs per-pair log-likelihoods "
+                             f"{worst:.3g} apart, greedy flags "
+                             f"{[a[1] for a in batched]} vs "
+                             f"{[b[1] for b in single]}")
+    log(f"phase 8d: loglikelihood_batch of {len(pairs)} pairs (buckets 64, "
+        f"128 and 256, 8 rows each) in {t_b:.3f} s against one batch a pair "
+        f"in "
+        f"{t_s:.3f} s: log-likelihoods {[round(a[0], 3) for a in batched]}, "
+        f"{worst:.3g} apart at most (relative), greedy flags equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2743,9 +3153,9 @@ def main() -> int:
         **check_gemm_family(dev, gen, timer),
         "slot_decode_write_int8": check_kv_write(dev, gen, timer),
         "decode_attention_int8": check_decode(dev, gen, timer),
-        "flash_attention_int8": check_flash(dev, gen, timer),
+        **check_flash(dev, gen, timer, qk_int8=True),
         **check_paged_writes(dev, gen, timer),
-        "paged_flash_attention_int8": check_paged_flash(dev, gen, timer),
+        **check_paged_flash(dev, gen, timer),
         "paged_decode_attention_int8": check_paged_decode(dev, gen, timer),
         **check_fused(dev, gen, timer),
         "flash_decode_attention_int8": check_flash_decode(dev, gen, timer),
@@ -2759,9 +3169,12 @@ def main() -> int:
     log("  the existing kernels at run 3e's Llama-3.1-8B shapes:")
     check_kv_write(dev, gen, timer, B=4, S=L31_MAX_LEN, nkv=NKV3)
     check_flash(dev, gen, timer, cases=L31_FLASH_CASES, nkv=NKV3,
-                report_at=None)
+                report_at=None, qk_int8=True)
     check_gemm_family(dev, gen, timer, L31_GEMM_CHECKS)
     del timer
+    log("  the int8-QKᵀ route's control (q with an outlier channel):")
+    check_qk_int8_control(dev, gen)
+    qk_launches = drive_qk_int8_route(dev, gen)
     torch.cuda.empty_cache()
 
     config = ModelConfig(vocab_size=V, hidden_size=H, intermediate_size=I,
@@ -2838,12 +3251,16 @@ def main() -> int:
     serve_http(dev, loaded, cfg, [[int(t) for t in rng.integers(0, V, n)]
                                   for n in PROMPT_LENS])
     del loaded
+    check_seeded_noise(dev)
     check_marlin(dev, params, config, 128)
     t6 = time.perf_counter()
     rng = np.random.default_rng(0)  # 3a's prompts (serve)
     phase6(dev, params, config, [[int(t) for t in rng.integers(0, V, n)]
                                  for n in PROMPT_LENS])
     log(f"phase 6 took {time.perf_counter() - t6:.1f} s")
+    t8 = time.perf_counter()
+    phase8(dev, params, config)
+    log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
     del params
     torch.cuda.empty_cache()
     log("phase 3b: serve Llama-2-7B (per-channel W4A8, gate/up GLU-fused, "
@@ -2926,6 +3343,15 @@ def main() -> int:
             "shape": r["shape"],
             **{key: r[key] for key in ("prefill", "crossover", "device_ms")
                if key in r},
+        })
+    for kname, (source, replaces) in QK_INT8_KERNELS.items():
+        r = rows[kname]
+        report.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": qk_launches[kname],
+            **{key: r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")},
         })
     print(json.dumps({"kernels": report}))
     print(smi)

@@ -1,8 +1,8 @@
 """Attention over the INT8 slot cache and the paged INT8 block pool (port
 of qqq_tpu/kernels/attention.py: decode_attention_int8,
 flash_decode_attention_int8, decode_attention_auto, flash_attention_int8,
-paged_flash_attention_int8 and paged_decode_attention_int8, with
-``qk_int8=False``).
+paged_flash_attention_int8 and paged_decode_attention_int8; the flash
+pair with both values of ``qk_int8``).
 
 On CUDA tensors the wrappers launch csrc/split_decode_attention.cu and
 csrc/flash_attention.cu; on CPU tensors they run the plain PyTorch versions
@@ -17,7 +17,11 @@ kernel tiles by 1024 keys, or by the block size over the pool).  The flash
 kernel steps its softmax 32 keys at a time whatever its load stage (64
 keys for its tensor cores).  Over the pool it is the same kernel with each
 key row looked up through the tables, and the paged flash version gathers
-the pool through the tables and is then the flash version.  The S-tiled
+the pool through the tables and is then the flash version.  With
+``qk_int8`` (JAX's opt-in branch) q is quantized per row to int8 and QKᵀ
+is an exact s8·s8→s32 dot with the cache's K codes, rescaled by the row
+and column scales: the codes, the scales and so the scores equal JAX's bit
+for bit, and only the softmax's steps differ.  The S-tiled
 decode (caches past the whole-cache switch) and paged decode share
 numerics of their own (bf16 q, bf16 probabilities times v_scale, rounded
 against the running maximum after each of JAX's key tiles) and one
@@ -38,6 +42,9 @@ from qqq_tpu_torch.kernels import build
 
 _NEG_INF = -1e30
 _IO_DTYPES = (torch.bfloat16, torch.float32)
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+#: f32(1/127): XLA turns the branch's ``qa / 127.0`` into this product
+_INV_127 = float(torch.tensor(1.0) / torch.tensor(127.0))
 
 #: decode_attention_int8 is the path up to this many positions at hd = 128
 #: (qqq_tpu/kernels/attention.py:_DECODE_WHOLE_S_LIMIT); past it the S-tiled
@@ -47,6 +54,11 @@ _DECODE_WHOLE_S_LIMIT = 8192
 
 def _sqrt_hd(hd: int) -> torch.Tensor:
     return torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+
+
+def _inv_sqrt_hd(hd: int) -> float:
+    """f32(1 / f32(√hd)): XLA makes JAX's ``/ jnp.sqrt(hd)`` this product."""
+    return float(torch.tensor(1.0) / _sqrt_hd(hd))
 
 
 def _check_args(q, k_cache, k_scale, v_cache, v_scale, cache_len, nkv, S):
@@ -354,13 +366,65 @@ def _check_flash_args(nh: int, nkv: int, hd: int) -> None:
 _FLASH_KEY_TILE = 32
 
 
+def quantize_q_int8_plain(q: torch.Tensor):
+    """The ``qk_int8`` branch's per-row quantization of q (JAX
+    qqq_tpu/kernels/attention.py:317-340, as XLA compiles it): with rs =
+    f32(1/√hd), ``qa = max(max|q·rs|, tiny)``; codes ``clip(round(q ·
+    ((127 / qa) · rs)), −127, 127)`` (XLA folds the two row factors into
+    one before the product; an IEEE division, half to even); ``qs = qa ·
+    f32(1/127)``, flushed to 0 where subnormal (an all-zero row's
+    tiny/127), as XLA flushes it.  Returns (codes like q int8, qs (B, nh, T)
+    f32)."""
+    rs = _inv_sqrt_hd(q.shape[-1])
+    x = q.to(torch.float32)
+    qa = torch.clamp_min((x * rs).abs().amax(dim=-1, keepdim=True),
+                         _F32_TINY)
+    row = (torch.full_like(qa, 127.0) / qa) * rs
+    # an all-zero row: 127 / tiny overflows, 0 · inf is NaN, which XLA's
+    # conversion to int8 makes 0
+    codes = torch.clamp(torch.nan_to_num(torch.round(x * row), nan=0.0),
+                        -127, 127).to(torch.int8)
+    qs = (qa * _INV_127)[..., 0]
+    return codes, torch.where(qs < _F32_TINY, torch.zeros_like(qs), qs)
+
+
+def quantize_q_int8(q: torch.Tensor):
+    """:func:`quantize_q_int8_plain` as the flash kernels' ``qk_int8``
+    route runs it: on a CUDA tensor csrc/flash_attention.cu's
+    ``quantize_q_kernel`` (one warp a row), which the flash wrappers
+    launch ahead of the flash kernel when called with ``qk_int8``."""
+    if q.device.type == "cpu":
+        return quantize_q_int8_plain(q)
+    if q.device.type != "cuda":
+        raise ValueError(f"quantize_q_int8: device {q.device}")
+    if q.dtype not in _IO_DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
+    hd = q.shape[-1]
+    if hd not in _FLASH_HDS:
+        raise ValueError(f"quantize_q_int8 takes hd in {_FLASH_HDS}, not {hd}")
+    build.require(q, q.dtype, tuple(q.shape), "q", q.device)
+    codes = torch.empty(q.shape, dtype=torch.int8, device=q.device)
+    qs = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    fn = build.bind("flash_attention", "flash_quantize_q", "pppiiip")
+    build.check(fn(q.data_ptr(), codes.data_ptr(), qs.data_ptr(),
+                   q.numel() // hd, hd, int(q.dtype == torch.bfloat16),
+                   build.stream_of(q)),
+                "flash_quantize_q")
+    return codes, qs
+
+
 def flash_attention_int8_plain(q, k_cache, k_scale, v_cache, v_scale,
-                               cache_len, causal: bool = True):
+                               cache_len, causal: bool = True,
+                               qk_int8: bool = False):
     """The CUDA kernel's arithmetic, tile for tile: bf16 q (scaled in f32),
     bf16 dequantized K/V, f32 scores, an online softmax over 32-key tiles
     whose probabilities are rounded to bf16 against the running maximum
     before P·V, and an f32 denominator of the unrounded ones.  Tiles past
-    the last visible key change nothing and are skipped.
+    the last visible key change nothing and are skipped.  With ``qk_int8``
+    the scores are JAX's branch's instead: the exact dot of the q codes
+    (:func:`quantize_q_int8_plain`) with the K codes (f32 products and sums
+    of codes stay below 2^24, so exact), times qs (row), times k_scale
+    (column); K is not dequantized.
 
     The step is the kernels' (``_FLASH_KEY_TILE``), not JAX's 1024-key
     tile, so that the card check can hold the kernels to two bf16 ulps; a
@@ -372,9 +436,22 @@ def flash_attention_int8_plain(q, k_cache, k_scale, v_cache, v_scale,
     g = nh // nkv
     M = g * T
     bf, f32 = torch.bfloat16, torch.float32
-    qf = (q.reshape(B, nkv, M, hd).to(f32)
-          / _sqrt_hd(hd).to(q.device)).to(bf).to(f32)
-    kt = (k_cache.to(bf) * k_scale.to(bf)[..., None]).to(f32)
+    if qk_int8:
+        codes, qs = quantize_q_int8_plain(q)
+        qc = codes.reshape(B, nkv, M, hd).to(f32)
+        qs = qs.reshape(B, nkv, M, 1)
+        kq = k_cache.to(f32)
+
+        def scores(s0, s1):
+            return ((qc @ kq[:, :, s0:s1].transpose(-1, -2)) * qs
+                    * k_scale[:, :, None, s0:s1])
+    else:
+        qf = (q.reshape(B, nkv, M, hd).to(f32)
+              / _sqrt_hd(hd).to(q.device)).to(bf).to(f32)
+        kt = (k_cache.to(bf) * k_scale.to(bf)[..., None]).to(f32)
+
+        def scores(s0, s1):
+            return qf @ kt[:, :, s0:s1].transpose(-1, -2)
     vt = (v_cache.to(bf) * v_scale.to(bf)[..., None]).to(f32)
     clen = cache_len.to(torch.int64)
     t_row = torch.arange(M, device=q.device) % T
@@ -384,7 +461,7 @@ def flash_attention_int8_plain(q, k_cache, k_scale, v_cache, v_scale,
     for s0 in range(0, min(S, int(clen.max()) + T), _FLASH_KEY_TILE):
         s1 = min(s0 + _FLASH_KEY_TILE, S)
         key = torch.arange(s0, s1, device=q.device)
-        sc = qf @ kt[:, :, s0:s1].transpose(-1, -2)  # (B, nkv, M, kb)
+        sc = scores(s0, s1)  # (B, nkv, M, kb)
         valid = (key[None, :] < (clen + T)[:, None])[:, None, :]  # (B, 1, kb)
         if causal:
             valid = valid & (key[None, None, :]
@@ -409,35 +486,47 @@ def flash_attention_int8(
     cache_len: torch.Tensor,  # (B,) int32: valid keys BEFORE this chunk
     *,
     causal: bool = True,
+    qk_int8: Optional[bool] = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention over the INT8 cache: query t of the chunk
     sits at ``cache_len + t`` and attends keys ``[0, cache_len + t]``
-    (causal).  Returns (B, n_heads, T, hd) in q.dtype."""
+    (causal).  Returns (B, n_heads, T, hd) in q.dtype.  ``qk_int8`` (None:
+    off, as in JAX) runs QKᵀ on the int8 tensor cores over q quantized per
+    row, as JAX's branch does; that route launches two kernels a call,
+    counted once in ``launches`` and once more in ``qk_int8_launches``."""
     B, nh, T, hd = q.shape
     nkv, S = k_cache.shape[1], k_cache.shape[2]
     if q.device.type == "cpu":
         return flash_attention_int8_plain(q, k_cache, k_scale, v_cache,
-                                          v_scale, cache_len, causal)
+                                          v_scale, cache_len, causal, qk_int8)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8: device {q.device}")
     if q.dtype not in _IO_DTYPES:
         raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
     _check_flash_args(nh, nkv, hd)
     _check_args(q, k_cache, k_scale, v_cache, v_scale, cache_len, nkv, S)
+    qc, qs = quantize_q_int8(q) if qk_int8 else (None, None)
     out = torch.empty_like(q)
     fn = build.bind("flash_attention", "flash_attention_int8",
-                    "pppppppiiiiiiiip")
-    build.check(fn(q.data_ptr(), k_cache.data_ptr(), k_scale.data_ptr(),
-                   v_cache.data_ptr(), v_scale.data_ptr(),
+                    "pppppppppiiiiiiiip")
+    build.check(fn(q.data_ptr(), _ptr(qc), _ptr(qs), k_cache.data_ptr(),
+                   k_scale.data_ptr(), v_cache.data_ptr(), v_scale.data_ptr(),
                    cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, T, S,
                    hd, int(causal), int(q.dtype == torch.bfloat16),
                    build.stream_of(q)),
                 "flash_attention_int8")
     flash_attention_int8.launches += 1
+    if qk_int8:
+        flash_attention_int8.qk_int8_launches += 1
     return out
 
 
 flash_attention_int8.launches = 0  # kernel launches; only CUDA counts
+flash_attention_int8.qk_int8_launches = 0  # of them, on the qk_int8 route
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -460,7 +549,8 @@ def _check_paged(q, k_pool, k_scale, v_pool, v_scale, tables, cache_len):
 
 
 def paged_flash_attention_int8_plain(q, k_pool, k_scale, v_pool, v_scale,
-                                     tables, cache_len, causal: bool = True):
+                                     tables, cache_len, causal: bool = True,
+                                     qk_int8: bool = False):
     """The pool gathered through the tables into the slot cache's
     contiguous (B, nkv, nbmax·bs, hd) layout (codes and scales, not
     dequantized), then :func:`flash_attention_int8_plain`: the kernel's
@@ -469,7 +559,8 @@ def paged_flash_attention_int8_plain(q, k_pool, k_scale, v_pool, v_scale,
 
     return flash_attention_int8_plain(
         q, gather(k_pool, tables), gather(k_scale, tables),
-        gather(v_pool, tables), gather(v_scale, tables), cache_len, causal)
+        gather(v_pool, tables), gather(v_scale, tables), cache_len, causal,
+        qk_int8)
 
 
 def paged_flash_attention_int8(
@@ -482,36 +573,42 @@ def paged_flash_attention_int8(
     cache_len: torch.Tensor,  # (B,) int32: valid keys BEFORE this chunk
     *,
     causal: bool = True,
+    qk_int8: Optional[bool] = None,
 ) -> torch.Tensor:
     """:func:`flash_attention_int8` over the block pool: key ``s`` of row
     b lives in block ``tables[b, s // bs]``.  Returns (B, n_heads, T, hd)
-    in q.dtype."""
+    in q.dtype.  ``qk_int8`` and the counts as there."""
     B, nh, T, hd = q.shape
     nkv, bs = k_pool.shape[1], k_pool.shape[2]
     nbmax = tables.shape[1]
     if q.device.type == "cpu":
         return paged_flash_attention_int8_plain(
-            q, k_pool, k_scale, v_pool, v_scale, tables, cache_len, causal)
+            q, k_pool, k_scale, v_pool, v_scale, tables, cache_len, causal,
+            qk_int8)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_attention_int8: device {q.device}")
     if q.dtype not in _IO_DTYPES:
         raise TypeError(f"q dtype {q.dtype} not in {_IO_DTYPES}")
     _check_flash_args(nh, nkv, hd)
     _check_paged(q, k_pool, k_scale, v_pool, v_scale, tables, cache_len)
+    qc, qs = quantize_q_int8(q) if qk_int8 else (None, None)
     out = torch.empty_like(q)
     fn = build.bind("flash_attention", "paged_flash_attention_int8",
-                    "ppppppppiiiiiiiiip")
-    build.check(fn(q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
-                   v_pool.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-                   cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, T, bs,
-                   nbmax, hd, int(causal), int(q.dtype == torch.bfloat16),
-                   build.stream_of(q)),
+                    "ppppppppppiiiiiiiiip")
+    build.check(fn(q.data_ptr(), _ptr(qc), _ptr(qs), k_pool.data_ptr(),
+                   k_scale.data_ptr(), v_pool.data_ptr(), v_scale.data_ptr(),
+                   tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(), B,
+                   nh, nkv, T, bs, nbmax, hd, int(causal),
+                   int(q.dtype == torch.bfloat16), build.stream_of(q)),
                 "paged_flash_attention_int8")
     paged_flash_attention_int8.launches += 1
+    if qk_int8:
+        paged_flash_attention_int8.qk_int8_launches += 1
     return out
 
 
 paged_flash_attention_int8.launches = 0  # kernel launches; only CUDA counts
+paged_flash_attention_int8.qk_int8_launches = 0  # on the qk_int8 route
 
 
 def paged_decode_tile(bs: int) -> int:

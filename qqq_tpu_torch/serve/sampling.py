@@ -12,12 +12,14 @@ branch.  Sampling is explicit Gumbel-max
 ``torch.Generator``; it gives other numbers than ``jax.random`` for the same
 seed, with the same distribution.
 
-A seeded row's noise is instead a function of (seed, generation index,
-token id) alone (:func:`seeded_gumbel`, a counter-based integer hash in
-torch ops): the seed travels as tensor data, so a captured graph replays
-it, and the row draws the same tokens in any batch position, slot, KV
-layout or number of steps a tick.  The hash is the port's own: seeded
-tokens are not JAX's (``fold_in(PRNGKey(seed), n)``).
+A seeded row's noise is instead JAX's own stream: the i-th generated
+token's noise is ``gumbel(fold_in(PRNGKey(seed), i), (V,))``
+(:func:`seeded_gumbel`), with JAX's threefry2x32, its partitionable random
+bits, its uniform in [tiny, 1) and its Gumbel transform written in int64
+torch ops that hold uint32 values.  The generator is counter-based and
+takes seed and index as tensor data, so a captured graph replays it and
+the row draws the same tokens in any batch position, slot, KV layout or
+number of steps a tick; the tokens are JAX's wherever the logits are.
 """
 
 from __future__ import annotations
@@ -153,28 +155,62 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 _MASK32 = 0xFFFFFFFF
+#: threefry2x32's rotations, alternating by group of four rounds
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finalizer (xorshift-multiply rounds) on int64
-    values in [0, 2^32); every product stays below 2^59."""
-    x = (((x >> 16) ^ x) * 0x45D9F3B) & _MASK32
-    x = (((x >> 16) ^ x) * 0x45D9F3B) & _MASK32
-    return (x >> 16) ^ x
+def _rotl32(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & _MASK32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """JAX's threefry2x32 (jax/_src/prng.py:_threefry2x32_lowering): 20
+    rounds with a key injection after every four, on int64 tensors that
+    hold uint32 values (broadcast against each other)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _MASK32, (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    return x0, x1
+
+
+def seeded_bits(seeds: torch.Tensor, ngen: torch.Tensor, V: int
+                ) -> torch.Tensor:
+    """(B, V) int64 holding uint32: ``jax.random.bits(fold_in(PRNGKey(s),
+    n), (V,))`` for each row's seed s (int32, ≥ 0) and generation index n.
+    ``PRNGKey(s)`` is the key (0, s); ``fold_in`` hashes the counter (0, n)
+    under it into the row's key; the partitionable bits hash the counters
+    (0, j) of the V positions and xor the two words."""
+    s = (seeds.to(torch.int64) & _MASK32)[:, None]
+    n = (ngen.to(torch.int64) & _MASK32)[:, None]
+    zero = torch.zeros_like(s)
+    k0, k1 = threefry2x32(zero, s, zero, n)
+    j = torch.arange(V, dtype=torch.int64, device=seeds.device)[None, :]
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(j), j)
+    return b0 ^ b1
+
+
+def seeded_uniform(seeds: torch.Tensor, ngen: torch.Tensor, V: int
+                   ) -> torch.Tensor:
+    """(B, V) f32: ``jax.random.uniform(key, (V,), minval=tiny,
+    maxval=1)`` of :func:`seeded_bits`' keys: the top 23 bits as the
+    mantissa of a float in [1, 2), minus 1, times (1 − tiny) = 1 in f32,
+    plus tiny, at least tiny (jax/_src/random.py:_uniform)."""
+    bits = seeded_bits(seeds, ngen, V)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(f + _F32_TINY, _F32_TINY)
 
 
 def seeded_gumbel(seeds: torch.Tensor, ngen: torch.Tensor, V: int
                   ) -> torch.Tensor:
-    """(B, V) Gumbel noise of each row a function of (its seed, its
-    generation index ``ngen``, the token id) only."""
-    row = _mix32(seeds.to(torch.int64) & _MASK32)
-    row = _mix32(((row ^ (ngen.to(torch.int64) & _MASK32)) + 0x9E3779B9)
-                 & _MASK32)
-    tok = torch.arange(V, dtype=torch.int64, device=seeds.device)
-    h = _mix32((row[:, None] ^ _mix32(tok)[None, :]) & _MASK32)
-    # the top 23 bits, centred in their cell: u in (0, 1), exact in f32
-    u = ((h >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
-    return -torch.log(-torch.log(u))
+    """(B, V) f32 Gumbel noise ``jax.random.gumbel(fold_in(PRNGKey(seed),
+    ngen), (V,))`` (mode "low": ``-log(-log(u))``) of each row."""
+    return -torch.log(-torch.log(seeded_uniform(seeds, ngen, V)))
 
 
 def sampling_branch(temperature, top_k, top_p, min_p) -> str:

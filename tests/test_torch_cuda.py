@@ -19,7 +19,10 @@ within two ulps of the output dtype at the largest output (bf16: 2^-6,
 f32: 2^-22 relative to max |ref|, plus the flash, paged decode and S-tiled
 decode kernels' bf16 probabilities: 2^-7 relative in f32), slot and paged
 flash, the S-tiled decode and paged decode per output row, at its own
-largest value; paged flash bit-equal to slot flash on the gathered pool.
+largest value; paged flash bit-equal to slot flash on the gathered pool,
+for both QKᵀ routes (bf16, and int8 with ``qk_int8=True``, whose q codes and
+scales are bit-exact); the seeded sampling noise's bits and uniforms
+bit-equal to the CPU's, its Gumbel values within 2 ulps of max(|g|, 1).
 """
 
 import numpy as np
@@ -1335,3 +1338,114 @@ def test_os_plus_migrate_on_the_card_matches_the_cpu(dev):
     s_cpu = migrate("qkv", x.cpu(), w.cpu(), extra("cpu"), method="os+",
                     n_grid=24)
     torch.testing.assert_close(s.cpu(), s_cpu, rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# flash attention's qk_int8 route (s8 tensor cores for QKᵀ) and the seeded
+# sampling noise
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+def test_quantize_q_kernel_bit_exact(dev, dtype, hd):
+    """The route's q quantization kernel: codes and row scales equal the
+    plain version's on the card and on the CPU bit for bit, an all-zero row
+    (scale flushed to 0) and rows not a multiple of the kernel's 8 among
+    them."""
+    from qqq_tpu_torch.kernels.attention import (
+        quantize_q_int8, quantize_q_int8_plain,
+    )
+
+    q = (torch.randn((2, 4, 37, hd), generator=_gen(dev), device=dev)
+         * 3).to(dtype)
+    q[0, 1, 3] = 0
+    codes, qs = quantize_q_int8(q)
+    for ref_c, ref_s in (quantize_q_int8_plain(q),
+                         quantize_q_int8_plain(q.cpu())):
+        assert torch.equal(codes.cpu(), ref_c.cpu())
+        assert torch.equal(qs.cpu().view(torch.int32),
+                           ref_s.cpu().view(torch.int32))
+    assert float(qs[0, 1, 3]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nh,nkv,hd,T,clen", [(4, 2, 64, 16, (0, 20)),
+                                              (2, 2, 128, 100, (0, 37)),
+                                              (8, 2, 128, 100, (0, 37)),
+                                              (4, 2, 96, 100, (0, 37)),
+                                              (4, 2, 256, 100, (0, 37))])
+def test_flash_qk_int8_kernel(dev, dtype, nh, nkv, hd, T, clen):
+    """The s8·s8→s32 QKᵀ route of slot flash at test_flash_attention_
+    kernel's shapes: one counted call (two kernels), counted on the route
+    too; each output row within two ulps of its own largest value of the
+    plain version (the scores are exact on both sides)."""
+    from qqq_tpu_torch.kernels.attention import (
+        flash_attention_int8, flash_attention_int8_plain,
+    )
+
+    B, S = 2, 256
+    q = torch.randn((B, nh, T, hd), generator=_gen(dev), device=dev).to(dtype)
+    cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+    args = (q, *_cache(dev, B, nkv, S, hd), cl)
+    n0 = flash_attention_int8.qk_int8_launches
+    out = _launch_once(flash_attention_int8, *args, qk_int8=True)
+    assert flash_attention_int8.qk_int8_launches == n0 + 1
+    ref = flash_attention_int8_plain(*args, True, True)
+    assert _per_row_ulps(out, ref, dtype) <= 1
+    assert torch.equal(flash_attention_int8(*args, qk_int8=True), out)
+    _launch_once(flash_attention_int8, *args)
+    assert flash_attention_int8.qk_int8_launches == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs,hd", [(8, 64), (16, 96), (128, 128),
+                                   (128, 256)])
+def test_paged_flash_qk_int8_kernel(dev, dtype, bs, hd):
+    """The qk_int8 route over the pool (a chunk over three blocks or more
+    after cached keys, a row on an all-null table): within two ulps of the
+    plain version per row, and bit-equal to the slot route on the pool
+    gathered through the tables."""
+    from qqq_tpu_torch.kernels.attention import (
+        flash_attention_int8, paged_flash_attention_int8,
+        paged_flash_attention_int8_plain,
+    )
+    from qqq_tpu_torch.serve.paged_kv import gather
+
+    B, nh, nkv, nbmax = 3, 8, 2, 6
+    T = 2 * bs + 5
+    q = torch.randn((B, nh, T, hd), generator=_gen(dev), device=dev).to(dtype)
+    pool = _cache(dev, 1 + B * nbmax, nkv, bs, hd)
+    tables = _tables(dev, B, nbmax, null_row=2)
+    cl = torch.tensor([bs // 2, 3 * bs - 7, 0], dtype=torch.int32,
+                      device=dev)
+    n0 = paged_flash_attention_int8.qk_int8_launches
+    out = _launch_once(paged_flash_attention_int8, q, *pool, tables, cl,
+                       qk_int8=True)
+    assert paged_flash_attention_int8.qk_int8_launches == n0 + 1
+    ref = paged_flash_attention_int8_plain(q, *pool, tables, cl, True, True)
+    assert _per_row_ulps(out, ref, dtype) <= 1
+    slot = flash_attention_int8(q, *(gather(t, tables) for t in pool), cl,
+                                qk_int8=True)
+    assert torch.equal(out, slot)
+
+
+@pytest.mark.parametrize("V", [32000, 128256])
+def test_seeded_noise_card_equals_cpu(dev, V):
+    """JAX's seeded noise (threefry2x32, fold_in, the partitionable bits)
+    in torch ops: the card's bits and uniforms equal the CPU's bit for bit;
+    the Gumbel noise within 2 ulps of max(|g|, 1) (each log may round the
+    other way)."""
+    from qqq_tpu_torch.serve import sampling as S
+
+    seeds = torch.tensor([0, 1, 1234, 0x7FFFFFFF, 987654321],
+                         dtype=torch.int32)
+    ngen = torch.tensor([0, 5, 1, 77, 100000], dtype=torch.int32)
+    on = (seeds.to(dev), ngen.to(dev))
+    assert torch.equal(S.seeded_bits(*on, V).cpu(),
+                       S.seeded_bits(seeds, ngen, V))
+    assert torch.equal(S.seeded_uniform(*on, V).cpu().view(torch.int32),
+                       S.seeded_uniform(seeds, ngen, V).view(torch.int32))
+    g, ref = S.seeded_gumbel(*on, V).cpu(), S.seeded_gumbel(seeds, ngen, V)
+    scale = torch.clamp_min(ref.abs(), 1.0)
+    ulp = torch.nextafter(scale, torch.full_like(scale, 2.0 ** 60)) - scale
+    assert ((g - ref).abs() <= 2 * ulp).all()

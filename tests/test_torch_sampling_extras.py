@@ -8,10 +8,14 @@ converted bit for bit; prompts from a numpy seed.  Both engines run with an
 f32 KV cache.  Tolerances: greedy tokens, finish reasons and top-N token ids
 equal; chosen-token and top-N logprobs within 1e-5 of the largest |logprob|
 (f32 forwards summed in other orders); the sampling functions within 1e-6
-(bit-exact but for f32 division order).  Seeded tokens are the port's own
-(its noise is a hash of (seed, generation index, token id)), so they are
-held to JAX's property instead: equal across batch position, slot and paged
-mode and steps per tick.
+(bit-exact but for f32 division order).  Seeded rows draw JAX's noise
+``gumbel(fold_in(PRNGKey(seed), i))``: its random bits and uniforms equal
+JAX's bit for bit; each of the Gumbel transform's two logs is within one
+f32 ulp of XLA's on the same input (the CPU's log and XLA's round
+differently), so the noise is within 2 ulps of max(|g|, 1) (near g = 0
+the inner log's ulp at 1 is the whole error); seeded tokens equal JAX's
+engine's, and equal across batch position, slot and paged mode and steps
+per tick.
 """
 
 import jax
@@ -332,3 +336,86 @@ def test_logit_stack_matches_jax(fn):
                                    jnp.asarray(vals))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=0)
+
+
+#: seeds and generation indices of the noise checks: 0, the largest int32
+#: seed the engine passes (``seed & 0x7FFFFFFF``), indices past 2^12
+NOISE_ROWS = ((0, 0), (1, 5), (1234, 1), (0x7FFFFFFF, 77),
+              (987654321, 4095), (42, 100000))
+
+
+def _noise_rows():
+    seeds, ngen = zip(*NOISE_ROWS)
+    return (torch.tensor(seeds, dtype=torch.int32),
+            torch.tensor(ngen, dtype=torch.int32))
+
+
+def _jax_keys():
+    return [jax.random.fold_in(jax.random.PRNGKey(s), n)
+            for s, n in NOISE_ROWS]
+
+
+@pytest.mark.parametrize("V", [32000, 128256])
+def test_seeded_bits_and_uniforms_equal_jax(V):
+    """The port's threefry bits and uniforms in [tiny, 1) equal
+    ``jax.random.bits`` / ``uniform`` under ``fold_in(PRNGKey(s), n)``
+    bit for bit, at Llama-2's and Llama-3's vocabularies."""
+    seeds, ngen = _noise_rows()
+    bits = S.seeded_bits(seeds, ngen, V).numpy()
+    u = S.seeded_uniform(seeds, ngen, V).numpy()
+    tiny = np.finfo(np.float32).tiny
+    assert bits.min() >= 0 and bits.max() < 2 ** 32
+    for i, key in enumerate(_jax_keys()):
+        jb = np.asarray(jax.random.bits(key, (V,), jnp.uint32))
+        np.testing.assert_array_equal(bits[i].astype(np.uint32), jb)
+        ju = np.asarray(jax.random.uniform(key, (V,), jnp.float32,
+                                           minval=tiny, maxval=1.0))
+        np.testing.assert_array_equal(u[i].view(np.uint32),
+                                      ju.view(np.uint32))
+
+
+def test_seeded_gumbel_within_two_ulps_of_jax():
+    """The noise against the JAX engine's own vmapped draw
+    (``gumbel(fold_in(PRNGKey(seed), ngen), (V,))``): each log within one
+    f32 ulp of XLA's on the same input, the noise within 2 ulps of
+    max(|g|, 1)."""
+    V = 32000
+    seeds, ngen = _noise_rows()
+    draw = jax.jit(lambda s, n: jax.vmap(
+        lambda k: jax.random.gumbel(k, (V,), jnp.float32))(
+            jax.vmap(lambda s, n: jax.random.fold_in(
+                jax.random.PRNGKey(s), n))(s, n)))
+    ref = np.asarray(draw(jnp.asarray(seeds.numpy()),
+                          jnp.asarray(ngen.numpy())))
+    g = S.seeded_gumbel(seeds, ngen, V).numpy()
+    scale = np.spacing(np.maximum(np.abs(ref), 1.0).astype(np.float32))
+    assert (np.abs(g - ref) <= 2 * scale).all()
+    u = S.seeded_uniform(seeds, ngen, V)
+    for fn, x in ((lambda t: -torch.log(t), u),
+                  (lambda t: -torch.log(t), -torch.log(u))):
+        want = np.asarray(jax.jit(lambda a: -jnp.log(a))(x.numpy()))
+        got = fn(x).numpy()
+        assert (np.abs(got - want) <= np.spacing(np.abs(want))).all()
+
+
+@pytest.mark.parametrize("mode", ["slot", "paged"])
+def test_seeded_tokens_match_jax(models, mode):
+    """Seeded sampled requests (a top-k row among them) beside an unseeded
+    greedy one: the seeded rows' tokens equal JAX's engine's on the same
+    params, slot and paged (a pool tight enough to preempt)."""
+    jparams, tparams, prompts = models
+    sps = [dict(max_new_tokens=8, temperature=0.9, seed=1234),
+           dict(max_new_tokens=6, temperature=1.3, seed=7, top_k=20),
+           dict(max_new_tokens=5),
+           dict(max_new_tokens=7, temperature=0.6, seed=0x7FFFFFFF + 5)]
+    jeng = _jax(jparams, mode)
+    jreqs = [JRequest(prompt_tokens=p, sampling=JS.SamplingParams(**sp))
+             for p, sp in zip(prompts, sps)]
+    jeng.run(jreqs)
+    eng = _port(tparams, mode)
+    reqs = [Request(p, S.SamplingParams(**sp)) for p, sp in zip(prompts, sps)]
+    eng.run(reqs)
+    assert [r.output_tokens for r in reqs] == \
+        [r.output_tokens for r in jreqs]
+    assert all(len(r.output_tokens) == sp["max_new_tokens"]
+               for r, sp in zip(reqs, sps))
