@@ -357,6 +357,27 @@ FLASH_OFFSET_CASES = ((2, 300, 2048, (0, 1500)),)
 #: Qwen2-0.5B's attention geometry (14 heads, 2 kv heads, hd 64) over a
 #: 32768-token slot cache: JAX's S-tiled tile is 16384 keys
 QWEN2_ATTN = dict(nh=14, nkv=2, hd=64, S=32768, clen=(1, 9001, 16385, 32768))
+#: the shard shapes one rank of a model axis of 2 hands the GEMMs
+#: (Llama-2-7B; phase 9b serves at them): q/k/v (4096, 2048), o (2048,
+#: 4096), gate/up (4096, 5504), down (5504, 4096): 43 groups of 128
+TP2_SHAPES = [(H, H // 2), (H // 2, H), (H, I // 2), (I // 2, H)]
+#: rows as in GEMM_CHECKS (the GEMMs run unfused under a mesh): decode at
+#: batch 1 and 4, one row of buckets 128 and 512 (per channel: both
+#: regimes), timed at the report row only
+TP2_GEMM_CHECKS = {
+    "w4a8_gemm_channel": ((4, 128, 512), TP2_SHAPES, (4, I // 2, H), (4,)),
+    "w4a8_gemm_group": ((1, 4, 128), TP2_SHAPES, (4, I // 2, H), (4,)),
+    "w4a8_gemm_requant": ((512, 1024), TP2_SHAPES, (512, I // 2, H),
+                          (512,)),
+}
+#: Llama-3.1-8B at TP = 2: q (4096, 2048), k/v (4096, 512), o (2048, 4096),
+#: gate/up (4096, 7168), down (7168, 4096); logged only
+L31_TP2_GEMM_CHECKS = {
+    "w4a8_gemm_group": ((4,), [(H3, H3 // 2), (H3, NKV3 * HD // 2),
+                               (H3 // 2, H3), (H3, I3 // 2), (I3 // 2, H3)],
+                        None, ()),
+    "w4a8_gemm_requant": ((512,), [(H3, I3 // 2), (I3 // 2, H3)], None, ()),
+}
 #: (K, N) of the fused GEMMs: Llama-2-7B's q/k/v/o and down (runs 3f, 3g)
 #: and Llama-3.1-8B's k/v and down (its q/o are (4096, 4096) too)
 FUSED_SHAPES = [(H, H), (I, H), (H3, NKV3 * HD), (I3, H3)]
@@ -667,7 +688,7 @@ DECODE_EXTRA = ((8, 2, 256, 4096, (1, 4096, 2001, 129)),
                  (1, 3001, 8192, 5000)))
 
 
-def check_decode(dev, gen, timer):
+def check_decode(dev, gen, timer, heads=(NH, NKV), extra=DECODE_EXTRA):
     """The whole-cache decode (the split kernel with the JAX kernel's f32
     numerics) at B = 1 and 4 over Llama-2-7B's slot cache of 1024, 2048
     (the main path's max_len, prompt-like lengths: the report row) and
@@ -681,10 +702,10 @@ def check_decode(dev, gen, timer):
         decode_attention_int8, decode_attention_int8_plain,
     )
 
-    cases = [(B, NH, NKV, HD, S, None) for B, S in (
+    cases = [(B, *heads, HD, S, None) for B, S in (
         (1, 1024), (4, 1024), (1, 2048), (4, 2048), (1, 4096), (4, 4096))]
     cases += [(4, nh, nkv, hd, S, clen)
-              for nh, nkv, hd, S, clen in DECODE_EXTRA]
+              for nh, nkv, hd, S, clen in extra]
     report, err = None, 0.0
     for B, nh, nkv, hd, S, clen in cases:
         if clen is not None:
@@ -730,10 +751,10 @@ def check_decode(dev, gen, timer):
         log(f"  {what}: max |diff| {e:.3g} (worst (row, head) {worst:.3g} "
             f"of its bound); {ms:.4f} ms (bound {b:.4f} by {by}, plain "
             f"{plain:.4f}, sdpa {lib:.4f})")
-        if (B, nh, S) == (4, NH, 2048):
+        if (B, nh, S) == (4, heads[0], 2048):
             report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                          bound_by=by, shape="B=4 S=2048, cache_len "
-                          "164/364/664/964")
+                          bound_by=by, shape=f"B=4 nh={nh} nkv={nkv} S=2048, "
+                          "cache_len 164/364/664/964")
         del kc, vc, kd, vd
     report["max_abs_err"] = err
     return report
@@ -777,7 +798,7 @@ def check_q_codes(q, what):
 
 
 def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
-                nkv=NKV, report_at=(2, 512), qk_int8=False):
+                nkv=NKV, report_at=(2, 512), qk_int8=False, nh=NH):
     """Slot flash at each case of ``cases``: (B, T) with T = S (a fresh
     bucket-sized prefill cache, cache_len 0), or (B, T, S, cache lengths),
     each row of the output within two bf16 ulps of its own largest value
@@ -802,11 +823,11 @@ def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
         B, T = case[:2]
         S, clens = case[2:] if len(case) > 2 else (T, (0,) * B)
         clen = torch.tensor(clens, dtype=torch.int32, device=dev)
-        q = torch.randn((B, NH, T, HD), generator=gen, device=dev).to(
+        q = torch.randn((B, nh, T, HD), generator=gen, device=dev).to(
             torch.bfloat16)
         kc, ks, vc, vs = _rand_slot_cache(dev, gen, B, S, nkv)
         args = (q, kc, ks, vc, vs, clen)
-        what = f"B={B} T={T} S={S} nkv={nkv} cache_len {clens}"
+        what = f"B={B} T={T} S={S} nh={nh} nkv={nkv} cache_len {clens}"
         checked, outs, refs = {}, {}, {}
         for qk in routes:
             outs[qk] = flash_attention_int8(*args, qk_int8=qk)
@@ -827,8 +848,8 @@ def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
                 f"version's; the bf16 route's output at {cross:.3g} of the "
                 "int8 route's bound")
         del outs, refs
-        kd = _dequant(kc, ks).repeat_interleave(NH // nkv, dim=1)
-        vd = _dequant(vc, vs).repeat_interleave(NH // nkv, dim=1)
+        kd = _dequant(kc, ks).repeat_interleave(nh // nkv, dim=1)
+        vd = _dequant(vc, vs).repeat_interleave(nh // nkv, dim=1)
         if any(clens) or S != T:
             qpos = clen[:, None] + torch.arange(T, device=dev)[None, :]
             mask = (torch.arange(S, device=dev)[None, None, :]
@@ -840,9 +861,9 @@ def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
             lib = timer.ms(lambda: F.scaled_dot_product_attention(
                 q, kd, vd, is_causal=True))
         # visible (query, key) pairs and live keys
-        pairs = NH * sum(T * c + T * (T + 1) // 2 for c in clens)
+        pairs = nh * sum(T * c + T * (T + 1) // 2 for c in clens)
         keys = sum(c + T for c in clens)
-        nbytes = 2 * B * NH * T * HD * 2 + keys * nkv * (HD + 4) * 2 + B * 4
+        nbytes = 2 * B * nh * T * HD * 2 + keys * nkv * (HD + 4) * 2 + B * 4
         times = {}
         for qk in routes:
             ms = timer.ms(lambda: flash_attention_int8(*args, qk_int8=qk))
@@ -852,7 +873,7 @@ def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
             b, by = flash_bound(nbytes, pairs, qk)
             e, worst = checked[qk]
             log(f"  flash_attention_int8{' qk_int8' if qk else ''} B={B} "
-                f"T={T} S={S} nkv={nkv} cache_len {clens}: max |diff| "
+                f"T={T} S={S} nh={nh} nkv={nkv} cache_len {clens}: max |diff| "
                 f"{e:.3g} (worst row {worst:.3g} of its bound); {ms:.4f} ms "
                 f"(bound {b:.4f} by {by}, plain {plain:.4f}, sdpa {lib:.4f}"
                 + (f", the bf16 route {times[False]:.4f}" if qk else "")
@@ -860,7 +881,8 @@ def check_flash(dev, gen, timer, cases=((2, 128), (2, 512), (2, 2048)),
             if (B, T) == report_at and len(case) == 2:
                 reports[FLASH_ROUTES[qk][0]] = dict(
                     ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                    bound_by=by, shape=f"B={B} T=S={T} causal, clen 0")
+                    bound_by=by, shape=f"B={B} T=S={T} causal, clen 0"
+                    + ("" if nh == NH else f", nh={nh} nkv={nkv}"))
         del kc, vc, kd, vd
         torch.cuda.empty_cache()
     for qk, report in zip(routes, (reports.get(FLASH_ROUTES[r][0])
@@ -1253,7 +1275,7 @@ def drive_qk_int8_route(dev, gen):
     log(f"phase 2q: the int8-QKᵀ route through its entry points: {route}")
     return route
 
-def check_paged_decode(dev, gen, timer):
+def check_paged_decode(dev, gen, timer, nh=NH, cases=None):
     """Paged decode at B = 4 over scrambled tables of all 64 blocks: cache
     lengths near 2000 ending mid-block (the report row), one long row
     beside rows of one key, then g = 16 (32 heads over a pool of 2 kv
@@ -1270,23 +1292,25 @@ def check_paged_decode(dev, gen, timer):
     tables = _scrambled_tables(dev, B, seed=20)
     served = (1990, 2001, 1937, 2040)
     report, err = None, 0.0
-    for nkv, clen in ((NKV, served), (NKV, (1, 2040, 1, 1)), (2, served)):
+    for nkv, clen in cases or ((NKV, served), (NKV, (1, 2040, 1, 1)),
+                               (2, served)):
         pool = _rand_pool(dev, gen, nkv)
         cl = torch.tensor(clen, dtype=torch.int32, device=dev)
-        q = torch.randn((B, NH, HD), generator=gen, device=dev).to(
+        q = torch.randn((B, nh, HD), generator=gen, device=dev).to(
             torch.bfloat16)
         args = (q, *pool, tables, cl)
         out = paged_decode_attention_int8(*args)
         ref = paged_decode_attention_int8_plain(*args)
         torch.cuda.synchronize()
         e, worst = ulp_rows(out, ref)
-        what = f"paged_decode_attention_int8 B={B} nkv={nkv} cache_len {clen}"
+        what = (f"paged_decode_attention_int8 B={B} nh={nh} nkv={nkv} cache_len "
+                f"{clen}")
         if not worst <= 1:
             raise AssertionError(f"{what}: a (row, head) differs by "
                                  f"{worst:.3g} times its bound of "
                                  f"{ATTN_ULPS} bf16 ulps")
         err = max(err, e)
-        kd, vd = (x.repeat_interleave(NH // nkv, dim=1)
+        kd, vd = (x.repeat_interleave(nh // nkv, dim=1)
                   for x in _gathered_bf16(pool, tables))
         mask = (torch.arange(NBMAX * BS, device=dev)[None, :]
                 < cl[:, None])[:, None, None, :]
@@ -1295,16 +1319,17 @@ def check_paged_decode(dev, gen, timer):
         lib = timer.ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], kd, vd, attn_mask=mask))
         n_pos = sum(clen)
-        nbytes = (n_pos * nkv * (HD + 4) * 2 + 2 * B * NH * HD * 2 + B * 4
+        nbytes = (n_pos * nkv * (HD + 4) * 2 + 2 * B * nh * HD * 2 + B * 4
                   + sum(-(-c // BS) for c in clen) * 4)
-        b, by = bound_ms(nbytes, 4.0 * NH * HD * n_pos)
+        b, by = bound_ms(nbytes, 4.0 * nh * HD * n_pos)
         log(f"  {what}: max |diff| {e:.3g} (worst (row, head) {worst:.3g} "
             f"of its bound); {ms:.4f} ms (bound {b:.4f} by {by}, plain "
             f"{plain:.4f}, sdpa {lib:.4f})")
         if report is None:
             report = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                           bound_by=by, shape=f"B={B} cache_len "
-                          f"{list(clen)}, scrambled tables")
+                          f"{list(clen)}, scrambled tables"
+                          + ("" if nh == NH else f", nh={nh} nkv={nkv}"))
         del pool, kd, vd
     report["max_abs_err"] = err
     return report
@@ -1389,7 +1414,7 @@ def slot_kernels(max_len: int):
 
 def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
                       max_len=2048, fused=False, scores=(), chunked=False,
-                      verifies=()):
+                      verifies=(), glu=True):
     """Launches per kernel that a served run implies (``ticks``: its decode
     steps, a replayed graph's counted as launched; ``scores``: the (M, T)
     of cache-free scoring forwards, which run the linears only;
@@ -1406,8 +1431,9 @@ def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
     either mode, never the decode kernels.  With ``fused``
     (FUSE_ACT_QUANT), the five plain linears of each decode tick (M = 4)
     take the scheme's fused kernel; the GLU and every prefill dispatch
-    (M ≥ 128) do not."""
-    if fused and verifies:
+    (M ≥ 128) do not.  Without ``glu`` (unfused params, as under a mesh)
+    all seven linears take the plain GEMM and the GLU kernels none."""
+    if fused and (verifies or not glu):
         raise ValueError("the verify's linears under FUSE_ACT_QUANT are not "
                          "counted here")
     dispatches_kv, dispatches = dispatches, (list(dispatches) + list(scores)
@@ -1416,17 +1442,18 @@ def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
     small = len(dispatches) - n_big + ticks
     plain_ticks = 0 if fused else ticks  # ticks on the two-step route
     exp = dict.fromkeys(kernel_fns(), 0)
+    lin, n_glu = (5, n_layers) if glu else (7, 0)
     if scheme == "g128":
-        exp.update(w4a8_gemm_group=5 * n_layers
+        exp.update(w4a8_gemm_group=lin * n_layers
                    * (small - ticks + plain_ticks),
-                   w4a8_glu_group=n_layers * small,
-                   w4a8_gemm_requant=5 * n_layers * n_big,
-                   w4a8_glu_requant=n_layers * n_big)
+                   w4a8_glu_group=n_glu * small,
+                   w4a8_gemm_requant=lin * n_layers * n_big,
+                   w4a8_glu_requant=n_glu * n_big)
     else:
         passes = len(dispatches) + ticks
-        exp.update(w4a8_gemm_channel=5 * n_layers
+        exp.update(w4a8_gemm_channel=lin * n_layers
                    * (passes - ticks + plain_ticks),
-                   w4a8_glu_channel=n_layers * passes)
+                   w4a8_glu_channel=n_glu * passes)
     if fused:
         exp[FUSED_KERNEL[scheme]] = 5 * n_layers * ticks
     pooled = (len(dispatches_kv) if paged or chunked else 0) + len(verifies)
@@ -1444,7 +1471,7 @@ def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
 
 def serve(dev, params, config, scheme, paged=False, num_blocks=None,
           traffic=LLAMA2_TRAFFIC, fused=False, steps_per_tick=1,
-          eager=False):
+          eager=False, engine_kw=None, keep=None, new_tokens=64):
     """Serve 4 requests through ``Engine`` with default arguments (gate/up
     GLU-fused; ``paged`` over the block pool, of ``num_blocks`` blocks or
     the Engine's default; ``steps_per_tick`` decode steps fused a tick):
@@ -1455,8 +1482,11 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
     ``eager`` the engine's private switch runs every tick eagerly instead.
     Every kernel count is set to 0 just before the run and read just after;
     each must equal what the run's dispatches and decode steps imply.
-    Returns the counts, the first prompt, the output tokens and the
-    engine."""
+    ``engine_kw`` adds Engine arguments: ``fuse=False`` or a ``mesh``
+    (unfused, as JAX is under a mesh; under a gloo mesh every tick runs
+    eagerly and its time is host-staged, not a speed).  ``keep`` (a list)
+    receives the requests.  Returns the counts, the first prompt, the
+    output tokens and the engine."""
     from qqq_tpu_torch.kernels import w4a8_gemm
     from qqq_tpu_torch.serve.engine import Engine, Request
     from qqq_tpu_torch.serve.sampling import SamplingParams
@@ -1466,20 +1496,26 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, vocab, size=n)]
                for n in prompt_lens]
+    kw = dict(engine_kw or {})
+    glu = kw.get("mesh") is None and kw.get("fuse", True)
     if paged:
         eng = Engine(params, config, max_batch=MAX_BATCH, max_len=max_len,
                      paged=True, num_blocks=num_blocks, device=dev,
-                     steps_per_tick=steps_per_tick)
+                     steps_per_tick=steps_per_tick, **kw)
     else:
         eng = Engine(params, config, max_batch=MAX_BATCH, max_len=max_len,
                      prefill_buckets=buckets, device=dev,
-                     steps_per_tick=steps_per_tick)
+                     steps_per_tick=steps_per_tick, **kw)
     eng._eager_tick = eager
-    if not all("gate_up_glu" in layer for layer in eng.params["layers"]):
-        raise AssertionError("Engine() did not fuse gate/up")
+    eager = eager or not eng._capture
+    if glu != all("gate_up_glu" in layer for layer in eng.params["layers"]):
+        raise AssertionError(f"Engine({kw}) did{'' if glu else ' not'} "
+                             "fuse gate/up")
     reqs = [Request(prompt_tokens=p,
-                    sampling=SamplingParams(max_new_tokens=64))
+                    sampling=SamplingParams(max_new_tokens=new_tokens))
             for p in prompts]
+    if keep is not None:
+        keep.extend(reqs)
     fns = kernel_fns()
     for fn, _, _ in fns.values():
         fn.launches = 0
@@ -1494,7 +1530,7 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
     launches = {name: fn.launches for name, (fn, _, _) in fns.items()}
     st = eng.stats
     for r in reqs:
-        if len(r.output_tokens) != 64 or not all(
+        if len(r.output_tokens) != new_tokens or not all(
                 0 <= t < vocab for t in r.output_tokens):
             raise AssertionError(f"request of {len(r.prompt_tokens)} tokens "
                                  f"returned {len(r.output_tokens)} tokens")
@@ -1509,14 +1545,19 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
     dispatches = [(rows * t, t) for rows, t in st["prefill_shapes"]]
     expect = expected_launches(scheme, config.num_hidden_layers, dispatches,
                                st["decode_steps"], paged=paged,
-                               max_len=max_len, fused=fused)
-    must_run = (SCHEME_KERNELS[scheme]
+                               max_len=max_len, fused=fused, glu=glu)
+    must_run = (tuple(k for k in SCHEME_KERNELS[scheme]
+                      if glu or "_glu_" not in k)
                 + (PAGED_KERNELS if paged else slot_kernels(max_len))
                 + ((FUSED_KERNEL[scheme],) if fused else ()))
     tick = "eager" if eager else "captured"
+    mesh = kw.get("mesh")
     label = (f"{scheme}{' paged' if paged else ''}"
              f"{' FUSE_ACT_QUANT' if fused else ''}, {tick} tick, "
-             f"steps_per_tick {steps_per_tick}")
+             f"steps_per_tick {steps_per_tick}"
+             + ("" if mesh is None else
+                f", mesh data {mesh.shape['data']} x model "
+                f"{mesh.shape['model']} ({mesh.backend}), rank {mesh.rank}"))
     for name, n in launches.items():
         if n != expect[name]:
             raise AssertionError(f"{label}: {name}: {n} launches on the "
@@ -1525,8 +1566,8 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
             raise AssertionError(f"{label}: {name} never launched on the "
                                  f"served path (M, T) = {dispatches}")
     decode_tokens = st["generated_tokens"] - len(reqs)
-    log(f"  served {len(reqs)} requests (prompts {prompt_lens}, 64 new "
-        f"tokens, depth {config.num_hidden_layers}, {label}, fuse=True, "
+    log(f"  served {len(reqs)} requests (prompts {prompt_lens}, {new_tokens} "
+        f"new tokens, depth {config.num_hidden_layers}, {label}, fuse={glu}, "
         f"max_len {max_len}"
         + (f", block_size {eng.block_size}, chunk {eng.prefill_chunk}, "
            f"num_blocks {eng.num_blocks}, prefill_batch "
@@ -1549,8 +1590,10 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
             f"{st['graph_capture_s']:.3f} s in those ticks; the replays "
             f"alone: {1e3 * replay_s / replays:.3f} ms per tick, "
             f"{1e3 * replay_s / replay_steps:.3f} ms per step")
-    log(f"  decode ({tick} tick, steps_per_tick {steps_per_tick}): "
-        f"{1e3 * st['decode_s'] / ticks:.3f} ms per tick, "
+    staged = mesh is not None and mesh.backend == "gloo"
+    log(f"  decode ({tick} tick, steps_per_tick {steps_per_tick}"
+        + (", host-staged gloo collectives: not a speed" if staged else "")
+        + f"): {1e3 * st['decode_s'] / ticks:.3f} ms per tick, "
         f"{1e3 * st['decode_s'] / decode_tokens:.3f} ms per generated token, "
         f"{decode_tokens / st['decode_s']:.1f} tok/s over all slots")
     log(f"  launches on the served path: {json.dumps(launches)}")
@@ -2420,7 +2463,7 @@ def phase6(dev, params, config, prompts):
         return reqs[:1], reqs[1:]
 
     def whole(e, what):
-        alloc, lru = e.allocators[0].available, len(e._bh_lru)
+        alloc, lru = e.allocators[0].available, len(e._bh_lru[0])
         if alloc + lru != e.num_blocks - 1:
             raise AssertionError(f"6c {what}: {alloc} free + {lru} cached "
                                  f"blocks, expected {e.num_blocks - 1}")
@@ -2454,10 +2497,10 @@ def phase6(dev, params, config, prompts):
     evicted = [0]
     evict = eng._evict_cached_blocks
 
-    def counting(need):
-        n = len(eng._bh_lru)
-        evict(need)
-        evicted[0] += n - len(eng._bh_lru)
+    def counting(d, need):
+        n = len(eng._bh_lru[d])
+        evict(d, need)
+        evicted[0] += n - len(eng._bh_lru[d])
 
     eng._evict_cached_blocks = counting
     for wave in (1, 2):
@@ -3121,6 +3164,407 @@ def phase8(dev, params, config):
         f"{worst:.3g} apart at most (relative), greedy flags equal")
 
 
+# ---------------------------------------------------------------------------
+# phase 2, at the shard shapes of TP = 2, and phase 9: parallelism
+
+
+def check_tp2_shapes(dev, gen, timer):
+    """The kernels that phase 9b's TP = 2 ranks launch at their shard
+    shapes, each checked against its plain version to its full-width rule
+    and timed: #1, #2 and #3 at Llama-2-7B's shard GEMMs (TP2_SHAPES; down
+    K = 5504, not a multiple of 256), #9 over 16 kv heads, #12 and #16 at
+    16 heads over 16 kv heads, #14 at B = 2, T = S = 512 with 16 heads;
+    then, logged, #2 and #3 at Llama-3.1-8B's (down K = 7168) and #14 at 16
+    heads over its 4 kv heads.  Returns the report row of each."""
+    log("  at the TP = 2 shard shapes of Llama-2-7B:")
+    rows = check_gemm_family(dev, gen, timer, TP2_GEMM_CHECKS)
+    rows["slot_decode_write_int8"] = check_kv_write(dev, gen, timer,
+                                                    nkv=NKV // 2)
+    rows["decode_attention_int8"] = check_decode(
+        dev, gen, timer, heads=(NH // 2, NKV // 2), extra=())
+    rows.update(check_flash(dev, gen, timer, cases=((2, 512),),
+                            nkv=NKV // 2, nh=NH // 2))
+    rows["paged_decode_attention_int8"] = check_paged_decode(
+        dev, gen, timer, nh=NH // 2,
+        cases=((NKV // 2, (1990, 2001, 1937, 2040)),))
+    log("  at the TP = 2 shard shapes of Llama-3.1-8B:")
+    check_gemm_family(dev, gen, timer, L31_TP2_GEMM_CHECKS)
+    check_flash(dev, gen, timer, cases=((1, 512),), nkv=NKV3 // 2,
+                nh=NH // 2, report_at=None)
+    return rows
+
+
+#: seconds a phase-9 world of processes may take from its start
+P9_TIMEOUT = 480
+#: where the phase-9 ranks write their logs and results (git-ignored)
+P9_DIR = HERE / "build" / "chip_smoke_phase9"
+#: the worlds of ranks that share the card, gloo: (data, model) each
+P9_WORLDS = {"b": (1, 2), "c": (2, 1), "d": (2, 2)}
+#: the worlds that run at once
+P9_WAVES = (("b", "c"), ("d",))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def tp_cut_checks(mesh, params, config, prompt):
+    """On a 2-layer, full-width cut under ``mesh`` (TP = 2): (1) teacher-
+    force one slot prefill (one row of bucket 128) and 4 decode steps on
+    the card and, the same mesh over the CPU (plain versions, gloo on host
+    tensors), compare the gathered logits step by step within phase 4's
+    relative RMS; (2) the sequence-parallel prefill, with and without the
+    ring, and the micro-batch-overlapped decode against the TP forward on
+    the card (two rows, two chains).  Returns the numbers it logged."""
+    from qqq_tpu_torch.models import forward
+    from qqq_tpu_torch.parallel import (
+        param_pspecs, shard_params, tp_decode_overlapped_fn, tp_forward_fn,
+    )
+    from qqq_tpu_torch.parallel.shard import local_config
+    from qqq_tpu_torch.serve import kv_cache
+
+    cfg2 = dataclasses.replace(config, num_hidden_layers=2)
+    cut = {**params, "layers": params["layers"][:2]}
+    tp = mesh.axis("model")
+    lcfg = local_config(cfg2, tp.size)
+    host = mesh.with_device("cpu")
+    sides = {"card": (mesh.device, shard_params(cut, mesh)),
+             "cpu": (host.device, shard_params(
+                 _tree_map(lambda t: t.cpu(), cut), host))}
+    n, bucket, steps = len(prompt), 128, 4
+    toks = torch.zeros((1, bucket), dtype=torch.int64)
+    toks[0, :n] = torch.tensor(prompt)
+    outs, caches = {}, {}
+    for name, (d, p) in sides.items():
+        caches[name] = kv_cache.init(lcfg, 1, 256, quantized=True, device=d)
+        lg, _ = forward(p, cfg2, toks.to(d), caches=caches[name],
+                        cache_len=torch.zeros((1,), dtype=torch.int32,
+                                              device=d),
+                        logits_at=torch.tensor([n - 1], device=d), tp=tp)
+        outs[name] = [lg[0, -1].float().cpu()]
+    for step in range(steps):
+        tok = int(outs["card"][-1].argmax())
+        for name, (d, p) in sides.items():
+            lg, _ = forward(p, cfg2, torch.tensor([[tok]], device=d),
+                            caches=caches[name],
+                            cache_len=torch.tensor([n + step],
+                                                   dtype=torch.int32,
+                                                   device=d), tp=tp)
+            outs[name].append(lg[0, -1].float().cpu())
+    rels = []
+    for i, (a, b) in enumerate(zip(outs["card"], outs["cpu"])):
+        if not (torch.isfinite(a).all() and a.shape == (config.vocab_size,)):
+            raise AssertionError(f"TP cut step {i}: card logits not finite "
+                                 "or of the wrong shape")
+        rels.append(_rel_rms(a, b))
+        log(f"  TP = 2 cut, step {i} ({'prefill' if i == 0 else 'decode'}): "
+            f"card vs CPU {rels[-1]:.3%} RMS, argmax "
+            f"{'agrees' if a.argmax() == b.argmax() else 'differs'}")
+        if rels[-1] > CARD_VS_CPU_TOL:
+            raise AssertionError(f"TP cut step {i}: card vs CPU logits "
+                                 f"differ by {rels[-1]:.3%} RMS > "
+                                 f"{CARD_VS_CPU_TOL:.0%}")
+    del sides["cpu"], caches
+    # sequence parallelism and the overlapped decode, on the card
+    p = shard_params(cut, mesh)
+    spec = param_pspecs(cut)
+    rng = np.random.default_rng(2)
+    t2 = torch.from_numpy(rng.integers(0, config.vocab_size, (2, bucket)))
+    zero = torch.zeros((2,), dtype=torch.int32)
+    got = {}
+    for key, kw in (("tp", {}), ("sp", dict(sp=True)),
+                    ("ring", dict(overlap=True))):
+        c = kv_cache.init(lcfg, 2, 256, quantized=True, device=mesh.device)
+        f = tp_forward_fn(cfg2, mesh, spec, with_cache=True, **kw)
+        got[key] = f(p, t2, c, zero)[0].float().cpu()
+    f = tp_forward_fn(cfg2, mesh, spec, with_cache=True)
+    chains, plain = [], []
+    for m in range(2):
+        c = kv_cache.init(lcfg, 1, 256, quantized=True, device=mesh.device)
+        f(p, t2[m:m + 1], c, zero[:1])
+        chains.append(c)
+        c2 = kv_cache.init(lcfg, 1, 256, quantized=True, device=mesh.device)
+        f(p, t2[m:m + 1], c2, zero[:1])
+        lg, _ = f(p, t2[m:m + 1, :1], c2, torch.full((1,), bucket,
+                                                      dtype=torch.int32))
+        plain.append(lg[:, -1].float().cpu())
+    ov = tp_decode_overlapped_fn(cfg2, mesh, spec, None, micro=2)
+    outs_ov, _ = ov(p, tuple(t2[m:m + 1, :1] for m in range(2)),
+                    tuple(chains), tuple(torch.full((1,), bucket,
+                                                    dtype=torch.int32)
+                                         for _ in range(2)))
+    got["overlapped"] = torch.cat([o.float().cpu() for o in outs_ov])
+    got["plain decode"] = torch.cat(plain)
+    diffs = {"sp": _rel_rms(got["sp"], got["tp"]),
+             "ring": _rel_rms(got["ring"], got["tp"]),
+             "overlapped": _rel_rms(got["overlapped"], got["plain decode"])}
+    for k, v in diffs.items():
+        log(f"  TP = 2 cut on the card: {k} against the "
+            f"{'plain TP decode' if k == 'overlapped' else 'TP forward'}: {v:.3g} "
+            f"relative RMS (max |diff| "
+            f"{float((got[k] - got['tp' if k != 'overlapped' else 'plain decode']).abs().max()):.4g})")
+        if not v <= P9_SP_TOL:
+            raise AssertionError(f"{k}: {v:.3g} relative RMS from the TP "
+                                 f"forward > {P9_SP_TOL}")
+    return dict(card_vs_cpu=rels, **diffs)
+
+
+#: sequence parallelism and the overlapped decode against the TP forward
+#: on the card: the same partial sums of two ranks (a + b either way), so
+#: equal up to the order of bf16 sums inside a collective
+P9_SP_TOL = 1e-3
+
+
+def phase9_child(kind: str, rank: str, world: str, port: str) -> int:
+    """One rank of a phase-9 world (``python3 chip_smoke.py --phase9-child
+    KIND RANK WORLD PORT``): gloo over ranks that share the card; loads
+    phase 5's checkpoint of 3a's weights; writes its results as JSON."""
+    import torch.distributed as dist
+
+    import_port()
+    from qqq_tpu_torch.cli.eval import load_any
+    from qqq_tpu_torch.kernels import build
+    from qqq_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    rank, world = int(rank), int(world)
+    initialize_distributed(backend="gloo",
+                           init_method=f"tcp://127.0.0.1:{port}",
+                           rank=rank, world_size=world)
+    mesh = make_mesh(*P9_WORLDS[kind])
+    dev = mesh.device
+    build.build_all()  # built already by the parent: a no-op under the lock
+    log(f"phase 9{kind}, rank {rank} of {world}: {mesh}, collectives on "
+        f"card tensors {json.dumps(mesh.transport())}")
+    # the whole checkpoint in host memory; each Engine takes its shards
+    # onto the card (ranks that share it hold their shards alone)
+    params, config = load_any(str(CKPT_G128), torch.bfloat16, device="cpu")
+    res = {}
+    if kind in ("b", "c"):
+        keep = []
+        launches, prompt0, toks, eng = serve(
+            dev, params, config, "g128", engine_kw=dict(mesh=mesh),
+            keep=keep)
+        res.update(slot=toks, launches=launches,
+                   logprobs=[r.token_logprobs for r in keep],
+                   ms_per_tick=1e3 * eng.stats["decode_s"]
+                   / eng.stats["decode_ticks"],
+                   replays=eng.stats["graph_replays"])
+        del eng
+        launches, _, toks, eng = serve(dev, params, config, "g128",
+                                       paged=True, engine_kw=dict(mesh=mesh))
+        res.update(paged=toks, launches_paged=launches, pools_whole=[
+            a.available == eng.num_blocks - 1 for a in eng.allocators],
+            dp=eng.dp, allocators=len(eng.allocators))
+        del eng
+        if kind == "b":
+            res["cut"] = tp_cut_checks(mesh, params, config, prompt0)
+    else:  # d: a 2-layer cut over data 2 x model 2, paged, prefix cache
+        from qqq_tpu_torch.serve.engine import Engine, Request
+        from qqq_tpu_torch.serve.sampling import SamplingParams
+
+        cfg2 = dataclasses.replace(config, num_hidden_layers=2)
+        cut = {**params, "layers": params["layers"][:2]}
+        del params
+        eng = Engine(cut, cfg2, mesh=mesh, max_batch=MAX_BATCH,
+                     max_len=2048, paged=True, prefix_cache=True)
+        prompt = [int(t) for t in np.random.default_rng(3).integers(
+            0, config.vocab_size, 600)]
+        streams = []
+        for _ in range(2):  # the second round adopts each shard's blocks
+            reqs = [Request(prompt_tokens=prompt,
+                            sampling=SamplingParams(max_new_tokens=16))
+                    for _ in range(MAX_BATCH)]
+            eng.run(reqs)
+            streams += [r.output_tokens for r in reqs]
+        res.update(streams=streams, hits=eng.stats["prefix_hits"],
+                   dp=eng.dp, allocators=len(eng.allocators),
+                   pools_whole=[a.available + len(lru) == eng.num_blocks - 1
+                                for a, lru in zip(eng.allocators,
+                                                  eng._bh_lru)])
+        log(f"  4 identical 600-token prompts twice on data 2 x model 2: "
+            f"{len(set(map(tuple, streams)))} distinct stream(s), "
+            f"{res['hits']} prefix hits, pools whole {res['pools_whole']}")
+    P9_DIR.mkdir(parents=True, exist_ok=True)
+    (P9_DIR / f"{kind}_rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _p9_world(kind: str):
+    """Start a phase-9 world: its ranks, each logging to P9_DIR."""
+    data, model = P9_WORLDS[kind]
+    port = str(_free_port())
+    procs = []
+    for r in range(data * model):
+        out = open(P9_DIR / f"{kind}_rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--phase9-child",
+             kind, str(r), str(data * model), port],
+            stdout=out, stderr=subprocess.STDOUT, cwd=str(HERE)), out))
+    return procs
+
+
+def phase9(dev, params, config):
+    """Parallelism on the card.  (a) An NCCL mesh of one rank in this
+    process: an all-reduce captured in a CUDA graph and replayed, then
+    3a's requests through ``Engine(mesh=)`` on full Llama-2-7B g128,
+    tokens and log-probabilities bit-equal to ``Engine(fuse=False)``
+    without a mesh, decode graphs replayed.  Then three gloo worlds of
+    ranks that share the card, started together, each rank a process
+    loading phase 5's checkpoint: (b) ``make_mesh(1, 2)`` at full width and
+    depth, 3a's requests (slot) and 3c's traffic (paged), both ranks'
+    tokens equal, every kernel's launches as the dispatches imply, then
+    :func:`tp_cut_checks`; (c) ``make_mesh(2, 1)``: 3a's requests give
+    (a)'s unfused tokens, and each shard's pool is whole after 3c's
+    traffic; (d) ``make_mesh(2, 2)`` on a 2-layer cut, paged, prefix cache:
+    identical prompts give one stream on every shard.  A rank's non-zero
+    exit or a world past P9_TIMEOUT fails the phase.  Returns the launches
+    of each kernel at the shard shapes: 9b rank 0's slot run's, or its
+    paged run's for the paged kernels."""
+    import torch.distributed as dist
+
+    from qqq_tpu_torch.parallel import initialize_distributed, make_mesh
+    from qqq_tpu_torch.parallel.collectives import Axis, host_ops
+
+    gloo = Axis("-", 2, 0, (), None, host_ops("gloo", dev)).transport()
+    log(f"  collectives on card tensors: gloo {json.dumps(gloo)}")
+    initialize_distributed(backend="nccl",
+                           init_method=f"tcp://127.0.0.1:{_free_port()}",
+                           rank=0, world_size=1)
+    mesh = make_mesh(1, 1)
+    log(f"phase 9a: {mesh}, collectives on card tensors "
+        f"{json.dumps(mesh.transport())}")
+    t = torch.arange(8, dtype=torch.float32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dist.all_reduce(t)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        t.add_(1)
+        dist.all_reduce(t)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(t, torch.arange(8, dtype=torch.float32,
+                                       device=dev) + 3):
+        raise AssertionError("the captured NCCL all-reduce replayed wrong")
+    del graph
+    log("  an NCCL all-reduce in a world of one, captured in a CUDA graph "
+        "and replayed 3 times: right; the Engine's collectives are the "
+        "identity on axes of size 1, so its tick graphs hold the kernels "
+        "alone")
+    ref, got = [], []
+    _, _, toks_ref, eng = serve(dev, params, config, "g128",
+                                engine_kw=dict(fuse=False), keep=ref)
+    ref_ms = 1e3 * eng.stats["decode_s"] / eng.stats["decode_ticks"]
+    del eng
+    _, _, toks, eng = serve(dev, params, config, "g128",
+                            engine_kw=dict(mesh=mesh), keep=got)
+    ms = 1e3 * eng.stats["decode_s"] / eng.stats["decode_ticks"]
+    if not eng.stats["graph_replays"]:
+        raise AssertionError("9a: the NCCL mesh replayed no decode graph")
+    del eng
+    if toks != toks_ref or [r.token_logprobs for r in got] != [
+            r.token_logprobs for r in ref]:
+        raise AssertionError("9a: the mesh's tokens or log-probabilities "
+                             "differ from the unfused single-device run's")
+    log(f"  tokens and log-probabilities bit-equal to Engine(fuse=False) "
+        f"without a mesh; {ms:.3f} ms per tick (captured) against the "
+        f"unfused run's {ref_ms:.3f}")
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    gc.collect()  # engines of earlier phases sit in reference cycles
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+        "GiB of the card while the worlds run")
+    P9_DIR.mkdir(parents=True, exist_ok=True)
+    worlds, failed = {}, []
+    deadline = time.monotonic() + P9_TIMEOUT
+    for wave in P9_WAVES:  # the full-depth worlds first, then the cut's
+        for kind in wave:
+            worlds[kind] = _p9_world(kind)
+        for kind in wave:
+            for r, (p, out) in enumerate(worlds[kind]):
+                try:
+                    rc = p.wait(timeout=max(1.0,
+                                            deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    rc = None
+                if rc != 0:
+                    failed.append(f"9{kind} rank {r}: exit {rc}")
+        for kind in wave:
+            for p, out in worlds[kind]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                out.close()
+        if failed:
+            break
+    for kind in worlds:
+        text = (P9_DIR / f"{kind}_rank0.log").read_text()
+        log(f"phase 9{kind} (rank 0's log):")
+        for line in text.splitlines():
+            if not line.startswith("  tokens: "):
+                log("  " + line)
+    if failed:
+        for kind, procs in worlds.items():
+            for r in range(1, len(procs)):
+                log(f"phase 9{kind} rank {r}'s log, its end:\n"
+                    + (P9_DIR / f"{kind}_rank{r}.log").read_text()[-3000:])
+        raise AssertionError("phase 9: " + "; ".join(failed))
+    res = {k: [json.loads((P9_DIR / f"{k}_rank{r}.json").read_text())
+               for r in range(len(procs))] for k, procs in worlds.items()}
+    b, c, d = res["b"], res["c"], res["d"]
+    for kind in ("b", "c"):
+        for key in ("slot", "paged"):
+            if any(r[key] != res[kind][0][key] for r in res[kind]):
+                raise AssertionError(f"9{kind} {key}: the ranks' tokens "
+                                     "differ")
+        if any(r["replays"] for r in res[kind]):
+            raise AssertionError(f"9{kind}: a gloo tick replayed a graph")
+    if c[0]["slot"] != toks_ref:
+        i, j = next((i, j) for i, (x, y) in enumerate(zip(c[0]["slot"],
+                                                          toks_ref))
+                    for j, (u, v) in enumerate(zip(x, y)) if u != v)
+        raise AssertionError(f"9c: data 2's tokens differ from 9a's unfused "
+                             f"single-device run's, first at request {i} "
+                             f"token {j}: {c[0]['slot'][i][j]} against "
+                             f"{toks_ref[i][j]}")
+    if not (c[0]["dp"] == 2 and c[0]["allocators"] == 2
+            and all(c[0]["pools_whole"])):
+        raise AssertionError(f"9c: the pools after the paged run: {c[0]}")
+    streams = {tuple(s) for r in d for s in r["streams"]}
+    if len(streams) != 1 or not all(all(r["pools_whole"]) for r in d) \
+            or d[0]["hits"] < MAX_BATCH:
+        raise AssertionError(f"9d: {len(streams)} streams, pools whole "
+                             f"{[r['pools_whole'] for r in d]}, "
+                             f"{d[0]['hits']} prefix hits")
+    same = sum(x == y for s, t in zip(b[0]["slot"], toks_ref)
+               for x, y in zip(s, t))
+    log(f"phase 9 worlds ({sum(map(len, worlds.values()))} processes on "
+        f"the one card, in waves {P9_WAVES}) took "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"9b's ranks agree, TP = 2 tokens equal to the single-device run's "
+        f"at {same}/{sum(map(len, toks_ref))} positions (not asserted: a "
+        f"row-parallel linear quantizes its K-slice per token), host-staged "
+        f"ms per tick {b[0]['ms_per_tick']:.3f} (9b) and "
+        f"{c[0]['ms_per_tick']:.3f} (9c), not speeds; 9b's cut card vs CPU "
+        f"worst {max(b[0]['cut']['card_vs_cpu']):.3%} RMS; 9c's tokens "
+        f"equal 9a's unfused run's, its pools whole; 9d one stream over "
+        f"{len(d)} ranks, {d[0]['hits']} prefix hits")
+    return {k: n or b[0]["launches_paged"][k]
+            for k, n in b[0]["launches"].items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3171,6 +3615,7 @@ def main() -> int:
     check_flash(dev, gen, timer, cases=L31_FLASH_CASES, nkv=NKV3,
                 report_at=None, qk_int8=True)
     check_gemm_family(dev, gen, timer, L31_GEMM_CHECKS)
+    tp2_rows = check_tp2_shapes(dev, gen, timer)
     del timer
     log("  the int8-QKᵀ route's control (q with an outlier channel):")
     check_qk_int8_control(dev, gen)
@@ -3261,6 +3706,11 @@ def main() -> int:
     t8 = time.perf_counter()
     phase8(dev, params, config)
     log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    log("phase 9: tensor, sequence and data parallelism (qqq_tpu_torch."
+        "parallel, Engine(mesh=)) on the card")
+    tp2_launches = phase9(dev, params, config)
+    log(f"phase 9 took {time.perf_counter() - t9:.1f} s")
     del params
     torch.cuda.empty_cache()
     log("phase 3b: serve Llama-2-7B (per-channel W4A8, gate/up GLU-fused, "
@@ -3344,6 +3794,9 @@ def main() -> int:
             **{key: r[key] for key in ("prefill", "crossover", "device_ms")
                if key in r},
         })
+        if kname in tp2_rows:  # at the TP = 2 shard shape, phase 9b's path
+            report[-1]["tp2"] = {**tp2_rows[kname],
+                                 "launches": tp2_launches[kname]}
     for kname, (source, replaces) in QK_INT8_KERNELS.items():
         r = rows[kname]
         report.append({
@@ -3362,4 +3815,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase9-child":
+        sys.exit(phase9_child(*sys.argv[2:]))
     sys.exit(main())

@@ -68,9 +68,19 @@ def build_all(names=KERNELS) -> Dict[str, float]:
     """Compile every missing library in parallel.  Returns the seconds each
     build took (empty when everything was built already).  The ``nvcc``
     output, ``-Xptxas -v``'s register and spill report included, goes to
-    ``<name>.log`` beside each library."""
+    ``<name>.log`` beside each library.  Processes that build at once (the
+    ranks of a mesh) take turns on a lock file in the build directory: the
+    first builds, the others then find every library built."""
+    import fcntl
+
     out = _build_dir()
     out.mkdir(parents=True, exist_ok=True)
+    with open(out / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return _build_missing(out, names)
+
+
+def _build_missing(out: pathlib.Path, names) -> Dict[str, float]:
     todo = [n for n in names if not (out / f"lib{n}.so").exists()]
     if not todo:
         return {}

@@ -1,5 +1,5 @@
-"""Functional Llama / Qwen2 forward pass (port of qqq_tpu/models/llama.py,
-single device: no tensor-parallel or ring branches).
+"""Functional Llama / Qwen2 forward pass (port of qqq_tpu/models/llama.py),
+on one device or under Megatron tensor parallelism.
 
 Params keep the JAX package's layout (weights are (in, out)):
 
@@ -25,6 +25,18 @@ slot cache runs through the slot-write, decode and flash kernels, and over
 an INT8 block pool (``block_tables`` given, serve/paged_kv.py) through the
 paged write, paged decode and paged flash kernels.  Caches are updated in
 place.
+
+**Tensor parallelism.**  With ``tp`` (the model axis of a mesh,
+parallel/collectives.py ``Axis``) the weights arrive sharded as
+parallel/shard.py lays them out: q/k/v and gate/up column-parallel, this
+rank's heads and intermediate columns; o_proj and down row-parallel, their
+partial products summed by :func:`_row_parallel` (an all-reduce, or with
+``reduce="scatter"`` a reduce-scatter over the sequence, Megatron's
+sequence parallelism, :func:`forward_sp`).  A row-parallel linear
+quantizes its LOCAL K-slice per token, so its scales are finer than one
+device's and TP logits differ from single-device ones by activation-quant
+noise, as in JAX.  ``reduce="ring"`` fuses each collective with its GEMM
+(:func:`_ring_ag_matmul`, :func:`_ring_matmul_rs`).
 """
 
 from __future__ import annotations
@@ -43,6 +55,9 @@ from qqq_tpu_torch.kernels.w4a8_gemm import (
     fuse_glu_layout, w4a8_glu_linear, w4a8_linear,
 )
 from qqq_tpu_torch.models.config import ModelConfig
+from qqq_tpu_torch.parallel.collectives import (
+    Axis, all_gather, ppermute, psum, psum_scatter,
+)
 from qqq_tpu_torch.serve import kv_cache as kvc
 from qqq_tpu_torch.serve import paged_kv as pkv
 from qqq_tpu_torch.utils.device import resolve_device
@@ -57,9 +72,31 @@ _NEG_INF = -1e30
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     dtype = x.dtype
     x = x.to(torch.float32)
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * weight.to(torch.float32)).to(dtype)
+    x = x * torch.rsqrt(_mean_square(x) + eps)
+    return (x * weight).to(dtype)  # the f32 product promotes the weight
+
+
+#: the chunks of the first stage of the card's mean square
+SQ_CHUNKS = 16
+
+
+def _mean_square(x: torch.Tensor) -> torch.Tensor:
+    """mean(x²) over the last dim, keepdim.  On the card a row's bits must
+    not depend on how many rows share the call (a data shard of the engine
+    decodes its own rows, and its tokens must be the single-device
+    engine's): PyTorch's one-pass row reduction takes its thread layout
+    from the number of rows while fewer than 16 share a call.  So the mean
+    is taken in two stages, over ``SQ_CHUNKS`` chunks of H / 16 (16 or more
+    outputs a call, whatever the rows) and then over the 16 chunk means:
+    neither layout moves with the rows (``scripts/check_batch_invariance.py``
+    checks it on the card).  A width that 16 does not divide keeps the
+    one-pass mean, and the Engine refuses a data axis on the card for it;
+    the CPU keeps the one-pass mean."""
+    H = x.shape[-1]
+    if not x.is_cuda or H % SQ_CHUNKS:
+        return torch.mean(x * x, dim=-1, keepdim=True)
+    part = (x * x).unflatten(-1, (SQ_CHUNKS, H // SQ_CHUNKS)).mean(-1)
+    return part.mean(-1, keepdim=True)
 
 
 def _requant_policy(x: torch.Tensor) -> Optional[bool]:
@@ -153,33 +190,128 @@ def _attention_scores(q, k, v, mask):
     return torch.einsum("bnts,bsnh->btnh", probs.to(v.dtype), v)
 
 
+def _reduce_tp(out: torch.Tensor, tp: Optional[Axis],
+               reduce: str) -> torch.Tensor:
+    """Finish a row-parallel linear: sum the per-rank partial products.
+
+    ``"psum"``    — all-reduce (Megatron TP; the output replicated);
+    ``"scatter"`` — reduce-scatter over the sequence dim (Megatron sequence
+                    parallelism: each rank keeps its T-shard of the sum);
+    ``"none"``    — leave the partial product (the caller reduces it, as
+                    the overlapped decode does, asynchronously)."""
+    if tp is None or reduce == "none":
+        return out
+    if reduce == "psum":
+        return psum(out, tp)
+    if reduce == "scatter":
+        return psum_scatter(out, tp, dim=1, tiled=True)
+    raise ValueError(f"unknown reduce mode {reduce!r}")
+
+
+def _ring_ag_matmul(lins, h_sp: torch.Tensor, tp: Axis) -> List[torch.Tensor]:
+    """all_gather(T) fused with the column-parallel GEMM(s) that follow it,
+    as a ring (the collective matmul of Wang et al., ASPLOS'23): at each
+    step the T-chunk in hand goes through every GEMM of ``lins`` while the
+    ring's send and receive of the next chunk, issued before the GEMMs, are
+    in flight; the receive is waited on after them.  h_sp: (B, T/tp, H),
+    this rank's T-shard.  Returns one (B, T, N_local) per entry of
+    ``lins``, each row as the unfused path computes it."""
+    tp_n, idx = tp.size, tp.index
+    B, Ts, _ = h_sp.shape
+    buf = h_sp
+    outs: Optional[List[torch.Tensor]] = None
+    for s in range(tp_n):
+        # after s forward hops the chunk in hand is the one rank idx - s owns
+        chunk = (idx - s) % tp_n
+        nxt = ppermute(buf, tp, async_op=True) if s + 1 < tp_n else None
+        ys = [linear_apply(lin, buf) for lin in lins]
+        if outs is None:
+            outs = [y.new_zeros((B, Ts * tp_n, y.shape[-1])) for y in ys]
+        for o, y in zip(outs, ys):
+            o[:, chunk * Ts:(chunk + 1) * Ts] = y
+        if nxt is not None:
+            buf = nxt.wait()
+    return outs
+
+
+def _ring_matmul_rs(lin, h: torch.Tensor, tp: Axis) -> torch.Tensor:
+    """A row-parallel GEMM fused with the reduce-scatter(T) after it: the
+    partial-sum accumulator rides the ring one hop a step (issued before
+    the step's GEMM, waited on after it) while the next T-chunk's GEMM
+    runs.  Rank ``d`` computes chunk ``(d + tp-1-s) mod tp`` at step ``s``,
+    so each chunk's sum lands whole on its owner at the last step; the
+    partials add in ring order (JAX's: received + own).  h: (B, T,
+    K_local).  Returns (B, T/tp, N), this rank's T-shard of the sum."""
+    tp_n, idx = tp.size, tp.index
+    B, T, _ = h.shape
+    Ts = T // tp_n
+    acc = None
+    for s in range(tp_n):
+        c = (idx + (tp_n - 1 - s)) % tp_n
+        moving = ppermute(acc, tp, async_op=True) if acc is not None else None
+        part = linear_apply(lin, h[:, c * Ts:(c + 1) * Ts])
+        acc = part if moving is None else moving.wait() + part
+    return acc
+
+
+def _row_parallel(lin, h: torch.Tensor, tp: Optional[Axis], reduce: str):
+    """A row-parallel linear and the combination of its partial products
+    per ``reduce``: ``"ring"`` fuses the two, the rest run the GEMM and
+    then :func:`_reduce_tp`."""
+    if reduce == "ring":
+        return _ring_matmul_rs(lin, h, tp)
+    return _reduce_tp(linear_apply(lin, h), tp, reduce)
+
+
 def attention(
     layer: Dict[str, Any],
-    x: torch.Tensor,  # (B, T, H)
+    x: torch.Tensor,  # (B, T, H); (B, T/tp, H) with reduce="ring"
     positions: torch.Tensor,  # (B, T)
     inv_freq: torch.Tensor,
     config: ModelConfig,
     cache: Optional[Dict[str, Any]] = None,
     cache_len: Optional[torch.Tensor] = None,
     block_tables: Optional[torch.Tensor] = None,
+    tp: Optional[Axis] = None,
+    reduce: str = "psum",
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Self-attention; with a cache the new K/V are written in place first
     (``cache_len`` = tokens already in the cache, per row).  With
-    ``block_tables`` (B, max_blocks) the cache is a paged block pool."""
-    B, T = x.shape[:2]
-    nh, nkv = config.num_attention_heads, config.num_key_value_heads
+    ``block_tables`` (B, max_blocks) the cache is a paged block pool.
+
+    Under ``tp`` the q/k/v/o weights arrive head-sharded (this rank's
+    nh / tp heads and nkv / tp kv heads, as its cache holds them) and the
+    o_proj output is combined per ``reduce`` (:func:`_reduce_tp`);
+    ``reduce="ring"`` takes ``x`` T-sharded and fuses both collectives
+    with their GEMMs."""
+    B = x.shape[0]
+    n = 1 if tp is None else tp.size
+    nh, nkv = config.num_attention_heads // n, config.num_key_value_heads // n
     hd = config.head_dim
-    if "qkv_proj" in layer:  # one GEMM over the concatenated columns
+    if reduce == "ring":
+        q, k, v = _ring_ag_matmul(
+            [layer["q_proj"], layer["k_proj"], layer["v_proj"]], x, tp)
+        T = q.shape[1]
+        q = q.reshape(B, T, nh, hd)
+        k = k.reshape(B, T, nkv, hd)
+        v = v.reshape(B, T, nkv, hd)
+    elif "qkv_proj" in layer:  # one GEMM over the concatenated columns
+        assert tp is None, "fused qkv is a single-device optimization"
+        T = x.shape[1]
         qkv = linear_apply(layer["qkv_proj"], x)
         qd, kvd = nh * hd, nkv * hd
         q = qkv[..., :qd].reshape(B, T, nh, hd)
         k = qkv[..., qd:qd + kvd].reshape(B, T, nkv, hd)
         v = qkv[..., qd + kvd:].reshape(B, T, nkv, hd)
     else:
+        T = x.shape[1]
         q = linear_apply(layer["q_proj"], x).reshape(B, T, nh, hd)
         k = linear_apply(layer["k_proj"], x).reshape(B, T, nkv, hd)
         v = linear_apply(layer["v_proj"], x).reshape(B, T, nkv, hd)
     q, k = apply_rope(q, k, positions, inv_freq)
+
+    def o_proj(out):
+        return _row_parallel(layer["o_proj"], out, tp, reduce)
 
     if cache is None:
         kf, vf = k, v
@@ -198,7 +330,7 @@ def attention(
                     q.transpose(1, 2).contiguous(), *pool, cache_len,
                     causal=True,
                 ).transpose(1, 2).reshape(B, T, nh * hd)
-            return linear_apply(layer["o_proj"], out), cache
+            return o_proj(out), cache
         # fp pool: the dense gather, masked as the slot cache is
         S = block_tables.shape[1] * cache["k"].shape[2]
         kf, vf = pkv.read(cache, block_tables, S, x.dtype)
@@ -220,7 +352,7 @@ def attention(
                     cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
                     cache_len, causal=True,
                 ).transpose(1, 2).reshape(B, T, nh * hd)
-            return linear_apply(layer["o_proj"], out), cache
+            return o_proj(out), cache
         kf, vf = kvc.read(cache, x.dtype)
         S = kf.shape[1]
         # slot index doubles as key position
@@ -231,18 +363,24 @@ def attention(
     kf = repeat_kv(kf, config.num_kv_groups)
     vf = repeat_kv(vf, config.num_kv_groups)
     out = _attention_scores(q, kf, vf, mask).reshape(B, T, nh * hd)
-    return linear_apply(layer["o_proj"], out), cache
+    return o_proj(out), cache
 
 
-def mlp(layer: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    if "gate_up_glu" in layer:  # silu(gate)·up in the GEMM's f32 epilogue
+def mlp(layer: Dict[str, Any], x: torch.Tensor, tp: Optional[Axis] = None,
+        reduce: str = "psum") -> torch.Tensor:
+    if reduce == "ring":  # x T-sharded; both collectives fused
+        gate, up = _ring_ag_matmul([layer["gate_proj"], layer["up_proj"]], x,
+                                   tp)
+        h = F.silu(gate) * up
+    elif "gate_up_glu" in layer:  # silu(gate)·up in the GEMM's f32 epilogue
+        assert tp is None, "fused gate/up is a single-device optimization"
         h = w4a8_glu_linear(x, layer["gate_up_glu"], out_dtype=x.dtype,
                             requant=_requant_policy(x))
     else:
         gate = linear_apply(layer["gate_proj"], x)
         up = linear_apply(layer["up_proj"], x)
         h = F.silu(gate) * up
-    return linear_apply(layer["down_proj"], h)
+    return _row_parallel(layer["down_proj"], h, tp, reduce)
 
 
 def decoder_layer(
@@ -254,13 +392,14 @@ def decoder_layer(
     cache: Optional[Dict[str, Any]] = None,
     cache_len: Optional[torch.Tensor] = None,
     block_tables: Optional[torch.Tensor] = None,
+    tp: Optional[Axis] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     h = rms_norm(x, layer["input_layernorm"], config.rms_norm_eps)
     attn_out, cache = attention(layer, h, positions, inv_freq, config, cache,
-                                cache_len, block_tables)
+                                cache_len, block_tables, tp)
     x = x + attn_out
     h = rms_norm(x, layer["post_attention_layernorm"], config.rms_norm_eps)
-    return x + mlp(layer, h), cache
+    return x + mlp(layer, h, tp), cache
 
 
 def fuse_inference_params(
@@ -328,13 +467,20 @@ def forward(
     return_hidden: bool = False,
     logits_at: Optional[torch.Tensor] = None,
     block_tables: Optional[torch.Tensor] = None,
+    tp: Optional[Axis] = None,
+    gather_logits: bool = True,
 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]]]:
     """Returns (logits (B, T, V) f32, caches).  ``caches=None`` scores the
     full sequence; with caches this is prefill (T > 1) or decode (T = 1),
     and the caches are updated in place.  With ``block_tables`` (B,
     max_blocks) int32 the caches are paged block pools
     (serve/paged_kv.py) instead of fixed slots.  ``logits_at`` (B,)
-    computes the lm_head at that one position per row → (B, 1, V)."""
+    computes the lm_head at that one position per row → (B, 1, V).
+
+    Under ``tp`` (the model axis; params and caches this rank's shards)
+    the vocab-sharded lm_head's logits are all-gathered, unless
+    ``gather_logits=False``: then this rank's (B, T, V / tp) slice, for
+    :func:`~qqq_tpu_torch.serve.sampling.sample_batched_sharded`."""
     B, T = tokens.shape
     dev = tokens.device
     if cache_len is not None:
@@ -351,18 +497,106 @@ def forward(
         x, _ = decoder_layer(
             layer, x, positions, inv_freq, config,
             caches[i] if caches is not None else None, cache_len,
-            block_tables,
+            block_tables, tp,
         )
     x = rms_norm(x, params["norm"], config.rms_norm_eps)
     if return_hidden:
         return x, caches
     if logits_at is not None:
-        x = x[torch.arange(B, device=dev), logits_at.to(torch.int64)][:, None]
+        x = at_positions(x, logits_at)
+    return lm_head(params, x, tp, gather_logits), caches
+
+
+def at_positions(x: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """(B, T, H) → (B, 1, H): each row's hidden state at its position in
+    ``at`` (B,)."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, at.to(torch.int64)][:, None]
+
+
+def lm_head(params: Dict[str, Any], x: torch.Tensor,
+            tp: Optional[Axis] = None,
+            gather_logits: bool = True) -> torch.Tensor:
+    """f32 logits of final-norm hidden states ``x`` (:func:`forward`'s
+    tail).  Under ``tp`` the vocab-sharded head's logits are all-gathered
+    unless ``gather_logits=False``; tied embeddings (replicated) give the
+    whole vocabulary."""
     if params.get("lm_head") is not None:
         logits = linear_apply(params["lm_head"], x)
-    else:  # tied embeddings
+        if tp is not None and gather_logits:  # the vocab-sharded head
+            logits = all_gather(logits, tp, dim=-1, tiled=True)
+    else:  # tied embeddings: embed is replicated, the logits whole
         logits = torch.matmul(x, params["embed"].T.to(x.dtype))
-    return logits.to(torch.float32), caches
+    return logits.to(torch.float32)
+
+
+def forward_sp(
+    params: Dict[str, Any],
+    config: ModelConfig,
+    tokens: torch.Tensor,  # (B, T), T divisible by the model axis
+    *,
+    positions: Optional[torch.Tensor] = None,
+    caches: Optional[List[Dict[str, Any]]] = None,
+    cache_len: Optional[torch.Tensor] = None,
+    tp: Axis,
+    gather_logits: bool = True,
+    overlap: bool = False,
+) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]]]:
+    """Sequence-parallel TP forward (Megatron-SP, arXiv:2205.05198 §4): the
+    residual stream lives T-sharded, (B, T/tp, H) on each rank; the two
+    all-reduces of a layer become a reduce-scatter (the row-parallel
+    epilogue) and an all-gather (after the T-sharded RMSNorm), the same
+    bytes, with norms and residual adds on 1/tp of the tokens.  The same
+    partial sums are combined as in :func:`forward` under ``tp``; only
+    where they land changes.  Prefill and scoring only: decode keeps the
+    all-reduce.
+
+    ``overlap=True`` fuses every collective with its adjacent GEMM as a
+    ring collective matmul (:func:`_ring_ag_matmul`,
+    :func:`_ring_matmul_rs`)."""
+    B, T = tokens.shape
+    n = tp.size
+    if T % n != 0:
+        raise ValueError(f"sequence-parallel needs T % tp == 0, got T={T} "
+                         f"tp={n}")
+    Ts = T // n
+    dev = tokens.device
+    if cache_len is not None:
+        cache_len = torch.as_tensor(cache_len, dtype=torch.int32, device=dev)
+        cache_len = cache_len.expand(B).contiguous()
+    if positions is None:
+        ar = torch.arange(T, dtype=torch.int32, device=dev)[None, :]
+        positions = (cache_len[:, None] + ar if cache_len is not None
+                     else ar.expand(B, T))
+
+    inv_freq = rope_inv_freq(config, dev)
+    # the embedding of this rank's T-shard only
+    x_sp = params["embed"][tokens[:, tp.index * Ts:(tp.index + 1) * Ts]]
+    reduce = "ring" if overlap else "scatter"
+    eps = config.rms_norm_eps
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(x_sp, layer["input_layernorm"], eps)
+        if not overlap:  # ring mode gathers inside the qkv collective matmul
+            h = all_gather(h, tp, dim=1, tiled=True)  # (B, T, H)
+        attn_out, _ = attention(
+            layer, h, positions, inv_freq, config,
+            caches[i] if caches is not None else None, cache_len, None, tp,
+            reduce=reduce)
+        x_sp = x_sp + attn_out
+        h = rms_norm(x_sp, layer["post_attention_layernorm"], eps)
+        if not overlap:
+            h = all_gather(h, tp, dim=1, tiled=True)
+        x_sp = x_sp + mlp(layer, h, tp, reduce=reduce)
+
+    x_sp = rms_norm(x_sp, params["norm"], eps)
+    if overlap and params.get("lm_head") is not None:
+        # the vocab-sharded head rides the same ring
+        logits = _ring_ag_matmul([params["lm_head"]], x_sp, tp)[0]
+        if gather_logits:
+            logits = all_gather(logits, tp, dim=-1, tiled=True)
+        return logits.to(torch.float32), caches
+    x = all_gather(x_sp, tp, dim=1, tiled=True)
+    return lm_head(params, x, tp, gather_logits), caches
 
 
 def decode_step(params, config, tokens, caches, cache_len):

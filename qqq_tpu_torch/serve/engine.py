@@ -1,5 +1,6 @@
 """Inference engine: continuous batching with a prefill/decode split
-(port of qqq_tpu/serve/engine.py, single device).
+(port of qqq_tpu/serve/engine.py), on one device or over a data × model
+mesh.
 
 * ``max_batch`` decode slots; every tick decodes ``steps_per_tick`` tokens
   (fewer near a row's budget or the cache's end) for all slots at once,
@@ -65,8 +66,32 @@ server scores prompts that way, so no other thread touches the card while
 a graph is captured), and :meth:`Engine.latency_summary` reports TTFT and
 TPOT percentiles.
 
-Meshes keep the JAX engine's argument name and raise
-``NotImplementedError``.
+**Under a mesh** (``mesh=``, parallel/shard.py ``make_mesh``) every rank
+builds the Engine with the same arguments and runs the same scheduler on
+the same requests, so their host decisions stay identical; each holds its
+shard.  The ``model`` axis shards the weights and the KV heads
+Megatron-style (the model's collectives, models/llama.py); the ``data``
+axis splits the slots into ``dp`` contiguous shards of ``max_batch / dp``
+(and, paged, gives each shard a pool slice of its own: its own null
+block, allocator and prefix maps, block ids shard-local).  A rank's
+layers run its own slots; in every tick and every final prefill chunk the
+final hidden states of every data shard are gathered over the data axis
+before the lm_head, so that every rank computes the head over the whole
+batch and samples every row, and every rank's scheduler sees the same
+tokens.  The hidden states are the smallest tensor there (B × H against
+the logits' B × V), and the head's weight read costs the same for all
+rows as for a shard's.  A layer's arithmetic is per row and does not
+depend on the rows beside it (on the card the RMSNorm's mean square is
+taken in two stages of fixed layout for that, models/llama.py:_mean_square,
+which needs a hidden size divisible by 16: the Engine refuses a data axis
+on the card otherwise), so a data shard's greedy tokens are the
+single-device engine's (chip_smoke.py phase 9c).  A decode tick samples the vocab-sharded logits in place
+(:func:`~qqq_tpu_torch.serve.sampling.sample_batched_sharded`) when no
+row needs more than greedy or plain temperature sampling (JAX's rule);
+otherwise the logits are gathered over the model axis.  Prefill in slot mode runs every admitted row on every
+data shard (replicated, as JAX does), each shard keeping its own slots'
+KV; chunked prefill with ``data > 1`` is shard-grouped: each dispatch
+gives each shard its own rows (JAX :1695).
 """
 
 from __future__ import annotations
@@ -86,10 +111,12 @@ from qqq_tpu_torch.kernels import w4a8_gemm
 from qqq_tpu_torch.models import llama as M
 from qqq_tpu_torch.models.config import ModelConfig
 from qqq_tpu_torch.serve import kv_cache, paged_kv
+from qqq_tpu_torch.parallel.collectives import all_gather
+from qqq_tpu_torch.parallel.shard import Mesh, local_config, shard_params
 from qqq_tpu_torch.serve.sampling import (
     SamplingParams, apply_allowed_mask, apply_logit_bias, apply_penalties,
-    bias_arrays, chosen_logprob, penalty_arrays, sample_batched,
-    sampling_branch, top_logprobs,
+    bias_arrays, chosen_logprob, chosen_logprob_sharded, penalty_arrays,
+    sample_batched, sample_batched_sharded, sampling_branch, top_logprobs,
 )
 from qqq_tpu_torch.serve.tick_graph import TickGraph
 from qqq_tpu_torch.utils.device import resolve_device
@@ -206,6 +233,18 @@ class Engine:
         → the GLU-fused kernel; a no-op for dense params), as JAX does
         without a mesh.
 
+        ``mesh``: a data × model :class:`~qqq_tpu_torch.parallel.shard.Mesh`
+        (see the module docstring).  Every rank passes the same arguments,
+        ``params`` unsharded (on any device: each rank takes its slices
+        with :func:`~qqq_tpu_torch.parallel.shard.shard_params` onto
+        ``mesh.device``); ``fuse`` does not apply, as in JAX, and
+        ``max_batch`` must divide by the data axis.  Two backends:
+        under ``nccl`` the decode tick and verify graphs are captured
+        with their collectives inside, as without a mesh; under ``gloo``
+        (ranks that share one card, or the CPU) some collectives are
+        staged through host memory, which a graph cannot capture, so
+        every tick runs eagerly and ``stats["graph_replays"]`` stays 0.
+
         ``paged=True`` serves from a block pool (see the module docstring).
         ``max_len`` must be a multiple of ``block_size``; ``prefill_chunk``
         defaults to the widest chunk ≤ 512 that divides ``max_len`` and is
@@ -221,14 +260,52 @@ class Engine:
         verifies up to ``spec_k`` drafted tokens a tick."""
         if steps_per_tick < 1:
             raise ValueError(f"steps_per_tick {steps_per_tick} < 1")
+        self.mesh = mesh
+        #: data-axis degree: slots partition into dp contiguous shards of
+        #: spb = max_batch / dp; this rank's forwards run rows [lo, hi)
+        self.dp = 1
+        self.tp = self._data_axis = None
         if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet")
-        self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, the "
-                             f"engine runs on {self.device}")
-        if fuse:
-            params = M.fuse_inference_params(params, config)
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a qqq_tpu_torch.parallel "
+                                f"Mesh, not {type(mesh).__name__}")
+            if device is not None:
+                d = resolve_device(device)
+                if d.type != mesh.device.type or d.index not in (
+                        None, mesh.device.index):
+                    raise ValueError(f"device {device} is not the mesh's "
+                                     f"{mesh.device}")
+            self.device = mesh.device
+            self.tp = mesh.axis("model")
+            self._data_axis = mesh.axis("data")
+            self.dp = mesh.shape["data"]
+            if max_batch % self.dp:
+                raise ValueError(f"max_batch {max_batch} must be divisible "
+                                 f"by the mesh data axis {self.dp}")
+            if (self.dp > 1 and self.device.type == "cuda"
+                    and config.hidden_size % M.SQ_CHUNKS):
+                # a shard's rows would not norm as the whole batch's do
+                raise ValueError(
+                    f"a data axis on the card needs hidden_size "
+                    f"{config.hidden_size} divisible by {M.SQ_CHUNKS} "
+                    f"(models/llama.py:_mean_square)")
+            params = shard_params(params, mesh)
+        else:
+            self.device = resolve_device(device)
+            if params["embed"].device.type != self.device.type:
+                raise ValueError(f"params live on {params['embed'].device}, "
+                                 f"the engine runs on {self.device}")
+            if fuse:
+                params = M.fuse_inference_params(params, config)
+        self.spb = max_batch // self.dp
+        d0 = mesh.coords[0] if mesh is not None else 0
+        self._lo, self._hi = d0 * self.spb, (d0 + 1) * self.spb
+        #: the geometry of this rank's caches (its kv heads)
+        self.caches_config = local_config(config, 1 if self.tp is None
+                                          else self.tp.size)
+        #: captured ticks: not under gloo, whose host-staged collectives a
+        #: graph cannot hold
+        self._capture = mesh is None or mesh.backend != "gloo"
         self.params = params
         self.config = config
         self.max_batch = max_batch
@@ -259,9 +336,13 @@ class Engine:
             #: per-slot virtual-block capacity (max_len tokens)
             self._nbmax = max_len // block_size
             if num_blocks is None:
-                num_blocks = 1 + max_batch * self._nbmax
+                num_blocks = 1 + self.spb * self._nbmax
+            #: pool size per data shard (null block included); each shard
+            #: owns a slice with its own null block 0 and allocator, and the
+            #: tables hold shard-local ids (JAX :248-259)
             self.num_blocks = num_blocks
-            self.allocators = [paged_kv.BlockAllocator(num_blocks)]
+            self.allocators = [paged_kv.BlockAllocator(num_blocks)
+                               for _ in range(self.dp)]
             #: (max_batch, nbmax) pool block per (slot, virtual block); 0 =
             #: the null block
             self.tables = np.zeros((max_batch, self._nbmax), np.int32)
@@ -272,30 +353,35 @@ class Engine:
                                            device=self.device)
             self._tables_dirty = True
             self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
-            # the block-level prefix cache (JAX :284-299, one shard): full
-            # blocks registered under the tuple of every token up to their
-            # end, adopted read-only by later requests; a reference count of
-            # slot owners per registered block, 0 = evictable, oldest first
-            self._bh_key2blk: Dict[tuple, int] = {}
-            self._bh_blk2key: Dict[int, tuple] = {}
-            self._bh_ref: Dict[int, int] = {}
-            self._bh_lru: "collections.OrderedDict[int, None]" = \
-                collections.OrderedDict()
+            # the block-level prefix cache (JAX :284-299), one map a data
+            # shard: full blocks registered under the tuple of every token
+            # up to their end, adopted read-only by later requests of the
+            # same shard; a reference count of slot owners per registered
+            # block, 0 = evictable, oldest first
+            self._bh_key2blk: List[Dict[tuple, int]] = [
+                {} for _ in range(self.dp)]
+            self._bh_blk2key: List[Dict[int, tuple]] = [
+                {} for _ in range(self.dp)]
+            self._bh_ref: List[Dict[int, int]] = [{} for _ in range(self.dp)]
+            self._bh_lru: List["collections.OrderedDict[int, None]"] = [
+                collections.OrderedDict() for _ in range(self.dp)]
             #: per slot: leading ``slot_blocks`` already registered or
             #: adopted (skipped by _register_blocks)
             self.slot_reg = [0] * max_batch
-            self.caches = paged_kv.init(config, num_blocks, block_size,
+            # this rank's pool slice: its shard's blocks, its kv heads
+            self.caches = paged_kv.init(self.caches_config, num_blocks, block_size,
                                         quantized=kv_quantized, dtype=dtype,
                                         device=self.device)
         else:
-            self.caches = kv_cache.init(config, max_batch, max_len,
+            # this rank's slots [lo, hi), its kv heads
+            self.caches = kv_cache.init(self.caches_config, self.spb, max_len,
                                         quantized=kv_quantized, dtype=dtype,
                                         device=self.device)
-            #: the slot cache read as a pool of max_batch blocks of max_len
-            #: tokens: row b's table is [b] (the verify forward's tables;
-            #: a chunk dispatch takes its rows' slots)
+            #: the slot cache read as a pool of spb blocks of max_len
+            #: tokens: local row b's table is [b] (the verify forward's
+            #: tables; a chunk dispatch takes its rows' local slots)
             self._slot_tables = torch.arange(
-                max_batch, dtype=torch.int32, device=self.device)[:, None]
+                self.spb, dtype=torch.int32, device=self.device)[:, None]
         if prefill_chunk and max_len % prefill_chunk:
             # every C-wide chunk then ends inside the cache: no write clamps
             raise ValueError(f"max_len {max_len} must be a multiple of "
@@ -590,7 +676,9 @@ class Engine:
     def _admit_batch(self, reqs: List[Request], slots: List[int],
                      bucket: int) -> None:
         """Prefill ``reqs`` together (B = len(reqs)) into a bucket-sized
-        scratch cache and copy each row's KV into its slot."""
+        scratch cache and copy each row's KV into its slot.  Under a mesh
+        every data shard runs every row (the logits whole over the model
+        axis, the same tokens everywhere) and keeps its own slots' rows."""
         t0 = time.perf_counter()
         pb = len(reqs)
         toks = np.zeros((pb, bucket), np.int64)
@@ -599,7 +687,7 @@ class Engine:
             n = len(r.prompt_tokens)
             toks[i, :n] = r.prompt_tokens
             lens[i] = n
-        caches1 = kv_cache.init(self.config, pb, bucket,
+        caches1 = kv_cache.init(self.caches_config, pb, bucket,
                                 quantized=self.kv_quantized, dtype=self.dtype,
                                 device=self.device)
         lens_d = torch.from_numpy(lens).to(self.device)
@@ -608,13 +696,17 @@ class Engine:
             caches=caches1,
             cache_len=torch.zeros((pb,), dtype=torch.int32,
                                   device=self.device),
-            logits_at=lens_d - 1,
+            logits_at=lens_d - 1, tp=self.tp,
         )
         firsts, lps, tops = self._sample(logits[:, 0, :], reqs)
-        slot_idx = torch.tensor(slots, device=self.device)
-        for big, small in zip(self.caches, caches1):
-            for name, buf in big.items():
-                buf[slot_idx, :, :bucket] = small[name]
+        mine = [i for i, s in enumerate(slots) if self._lo <= s < self._hi]
+        if mine:
+            rows_idx = torch.tensor(mine, device=self.device)
+            slot_idx = torch.tensor([slots[i] - self._lo for i in mine],
+                                    device=self.device)
+            for big, small in zip(self.caches, caches1):
+                for name, buf in big.items():
+                    buf[slot_idx, :, :bucket] = small[name][rows_idx]
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_shapes"].append((pb, bucket))
         self.stats["prefill_s"] += time.perf_counter() - t0
@@ -641,9 +733,17 @@ class Engine:
         whose prompt this chunk completes samples its first token (JAX:
         _prefill_chunk_step :792, _prefill_chunk_paged :835 and the
         dispatch half of _progress_chunk_prefills :1599 and _paged
-        :1693)."""
+        :1693).
+
+        With ``data > 1`` the rows are shard-grouped (R = dp · g, shard d
+        owning rows [d·g, (d+1)·g)): each rank runs its own g rows (slot
+        mode: those that are not None), and a final chunk's logits are
+        gathered over the data axis before the lm_head, so that every rank
+        samples every row alike."""
         t0 = time.perf_counter()
         C, R = self.prefill_chunk, len(rows)
+        g = R // self.dp
+        d0 = self._lo // self.spb
         toks = np.zeros((R, C), np.int64)
         ks = np.zeros((R,), np.int32)
         tns = np.ones((R,), np.int64)
@@ -657,20 +757,34 @@ class Engine:
             toks[i, :len(part)] = part
             ks[i] = self.slot_len[slot]
             tns[i] = len(part)
-            tabs[i] = self.tables[slot] if self.paged else slot
+            tabs[i] = self.tables[slot] if self.paged else slot - self._lo
             reqs[i] = self.slot_req[slot]
             finals[i] = len(self.slot_prefill[slot]) <= C
+        # this rank's rows of the dispatch
+        run = [i for i in range(d0 * g, (d0 + 1) * g)
+               if self.paged or rows[i] is not None]
         dev = self.device
-        logits, _ = M.forward(
-            self.params, self.config, torch.from_numpy(toks).to(dev),
-            caches=self.caches, cache_len=torch.from_numpy(ks).to(dev),
-            logits_at=torch.from_numpy(tns - 1).to(dev),
-            block_tables=torch.from_numpy(tabs).to(dev),
-        )
+        hid = None
+        if run:
+            sel = np.asarray(run)
+            hid, _ = M.forward(
+                self.params, self.config, torch.from_numpy(toks[sel]).to(dev),
+                caches=self.caches, cache_len=torch.from_numpy(ks[sel]).to(dev),
+                block_tables=torch.from_numpy(tabs[sel]).to(dev), tp=self.tp,
+                return_hidden=True,
+            )
+            hid = M.at_positions(hid, torch.from_numpy(tns[sel] - 1).to(dev))
         if any(finals):  # only a final chunk's token is ever read
+            if len(run) < R:  # shard-grouped: every shard's g rows, in order
+                mine = torch.zeros((g, 1, self.config.hidden_size),
+                                   dtype=self.params["embed"].dtype,
+                                   device=dev)
+                if run:
+                    mine[torch.tensor(run, device=dev) - d0 * g] = hid
+                hid = self._gather_rows(mine)
+            last = M.lm_head(self.params, hid, self.tp)[:, 0, :]
             firsts, lps, tops = self._sample(
-                logits[:, 0, :],
-                [r if f else None for r, f in zip(reqs, finals)])
+                last, [r if f else None for r, f in zip(reqs, finals)])
         elif dev.type == "cuda":
             # no token to fetch: wait here so that the chunk's device time
             # lands in prefill_s, not in the next decode tick's decode_s
@@ -692,6 +806,22 @@ class Engine:
                 self._start_decode(slot, reqs[i], int(firsts[i]),
                                    float(lps[i]), None if tops is None
                                    else (tops[0][i], tops[1][i]))
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of every data shard, in shard order, from this rank's
+        ``x`` (identity without a data axis)."""
+        if self._data_axis is None:
+            return x
+        return all_gather(x, self._data_axis, dim=0)
+
+    def _logits(self, hidden: torch.Tensor, sharded: bool = False
+                ) -> torch.Tensor:
+        """The head over the whole batch from this rank's final hidden
+        states (spb, T, H): gathered over the data axis first (see the
+        module docstring), the vocab-sharded logits gathered over the model
+        axis unless ``sharded``."""
+        return M.lm_head(self.params, self._gather_rows(hidden), self.tp,
+                         gather_logits=not sharded)
 
     def _plane(self, kind: str, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(host buffer, device tensor) of a padded per-row plane: "bias"
@@ -742,34 +872,52 @@ class Engine:
             parts += [*ids.T.to(torch.float32), *vals.T]
         return torch.stack(parts)
 
-    def _decode_steps(self, n: int, branch: str,
-                      ex: TickExtras) -> torch.Tensor:
+    def _decode_steps(self, n: int, branch: str, ex: TickExtras,
+                      sharded: bool = False) -> torch.Tensor:
         """``n`` decode steps across all slots from the static tick inputs
         (JAX: _decode_multi's scan body over _decode_step): the extras'
         stack on each step's logits, each step's sampled token the next
         step's input and counted into ``counts``, inactive rows masked to
         token 0, ``cache_len + 1`` carried.  Returns (2 + 2N, max_batch, n)
         f32: tokens, their log-probabilities, then with N = ``ex.n_top``
-        the top ids and top values.  This is what a graph captures."""
+        the top ids and top values.  This is what a graph captures.
+
+        Under a mesh the layers run this rank's rows and the head every
+        row (:meth:`_logits`); ``sharded`` (JAX: _decode_step_sharded /
+        _decode_multi_sharded, no extras) samples the vocab-sharded logits
+        in place, otherwise they are gathered over the model axis."""
         cache_len, active, planes, pen, bias, allow = self._tick_planes(ex)
-        tok = self._tick_in[0].to(torch.int64)
-        tables = self._tables_dev if self.paged else None
+        lo, hi = self._lo, self._hi
+        tok = self._tick_in[0, lo:hi].to(torch.int64)
+        clen = cache_len[lo:hi]
+        tables = self._tables_dev[lo:hi] if self.paged else None
+        V = self.config.vocab_size
         steps = []
         for s in range(n):
-            logits, _ = M.forward(
+            hidden, _ = M.forward(
                 self.params, self.config, tok[:, None], caches=self.caches,
-                cache_len=cache_len, block_tables=tables)
-            last = logits[:, -1, :]
-            x = self._alter_logits(last, pen, bias, allow)
-            nxt = torch.where(active, sample_batched(
-                x, self.generator, *planes, *self._seeded(ex, s),
-                branch=branch), 0)
-            if ex.penalties:  # the sampled token is now generated
-                self.counts.scatter_add_(1, nxt.to(torch.int64)[:, None],
-                                         active.to(torch.int32)[:, None])
-            steps.append(self._report(last, nxt, ex.n_top))
-            tok = nxt.to(torch.int64)
-            cache_len = cache_len + 1
+                cache_len=clen, block_tables=tables, tp=self.tp,
+                return_hidden=True)
+            last = self._logits(hidden, sharded)[:, -1, :]
+            if sharded:
+                nxt = torch.where(active, sample_batched_sharded(
+                    last, self.generator, planes[0], self.tp, V,
+                    branch=branch), 0)
+                steps.append(torch.stack([
+                    nxt.to(torch.float32),
+                    chosen_logprob_sharded(last, nxt, self.tp, V)]))
+            else:
+                x = self._alter_logits(last, pen, bias, allow)
+                nxt = torch.where(active, sample_batched(
+                    x, self.generator, *planes, *self._seeded(ex, s),
+                    branch=branch), 0)
+                if ex.penalties:  # the sampled token is now generated
+                    self.counts.scatter_add_(
+                        1, nxt.to(torch.int64)[:, None],
+                        active.to(torch.int32)[:, None])
+                steps.append(self._report(last, nxt, ex.n_top))
+            tok = nxt[lo:hi].to(torch.int64)
+            clen = clen + 1
         return torch.stack(steps, -1)
 
     def _verify_step(self, branch: str, ex: TickExtras) -> torch.Tensor:
@@ -784,14 +932,18 @@ class Engine:
         :meth:`_decode_steps` does.  In slot mode the forward reads the
         cache as a pool of max_len-token blocks (``_slot_tables``); the
         gate in :meth:`run` keeps every row's 1 + k writes below max_len.
-        This is what a verify graph captures."""
+        Under a mesh the layers run this rank's rows and the head every
+        row (:meth:`_logits`).  This is what a verify graph captures."""
         cache_len, active, planes, pen, bias, allow = self._tick_planes(ex)
         buf, k = self._tick_in, self.spec_k
+        lo, hi = self._lo, self._hi
         toks = torch.cat([buf[:1], buf[_TICK_ROWS:_TICK_ROWS + k]]).T
-        tables = self._tables_dev if self.paged else self._slot_tables
-        logits, _ = M.forward(
-            self.params, self.config, toks.to(torch.int64),
-            caches=self.caches, cache_len=cache_len, block_tables=tables)
+        tables = self._tables_dev[lo:hi] if self.paged else self._slot_tables
+        hidden, _ = M.forward(
+            self.params, self.config, toks[lo:hi].to(torch.int64),
+            caches=self.caches, cache_len=cache_len[lo:hi],
+            block_tables=tables, tp=self.tp, return_hidden=True)
+        logits = self._logits(hidden)
         x0 = self._alter_logits(logits[:, 0], pen, bias, allow)
         cols = [torch.where(active, sample_batched(
             x0, self.generator, *planes, *self._seeded(ex, 0),
@@ -811,11 +963,13 @@ class Engine:
 
     def _run_graph(self, key: tuple, run: Callable[[], torch.Tensor]
                    ) -> torch.Tensor:
-        """``run()`` eagerly on the CPU (and with ``_eager_tick``); on the
-        card by replaying the graph kept under ``key``, which the first
-        such tick captures after running eagerly on the capture stream:
-        that run does every kernel's first-call host work."""
-        if self.device.type != "cuda" or self._eager_tick:
+        """``run()`` eagerly on the CPU (and with ``_eager_tick``, or under
+        a gloo mesh); on the card by replaying the graph kept under
+        ``key``, which the first such tick captures after running eagerly
+        on the capture stream: that run does every kernel's first-call host
+        work."""
+        if (self.device.type != "cuda" or self._eager_tick
+                or not self._capture):
             return run()
         graph = self._graphs.get(key)
         if graph is not None:
@@ -834,11 +988,15 @@ class Engine:
         self.stats["graph_capture_s"] += time.perf_counter() - t0
         return out
 
-    def _run_tick(self, n: int, branch: str, ex: TickExtras) -> torch.Tensor:
+    def _run_tick(self, n: int, branch: str, ex: TickExtras,
+                  sharded: bool = False) -> torch.Tensor:
         """``n`` decode steps through the graph of this (steps, branch,
-        GEMM route flag, extras)."""
-        return self._run_graph((n, branch, w4a8_gemm.FUSE_ACT_QUANT, ex),
-                               lambda: self._decode_steps(n, branch, ex))
+        GEMM route flag, extras; "sharded" for the mesh's in-place
+        sampler)."""
+        key = (n, branch, w4a8_gemm.FUSE_ACT_QUANT, ex)
+        return self._run_graph(key + ("sharded",) if sharded else key,
+                               lambda: self._decode_steps(n, branch, ex,
+                                                          sharded))
 
     def _run_verify(self, branch: str, ex: TickExtras) -> torch.Tensor:
         """The verify through the graph of ("spec", k, branch, GEMM route
@@ -942,7 +1100,8 @@ class Engine:
         rows = [r if active[i] else None for i, r in enumerate(self.slot_req)]
         branch, ex = self._pack_tick(active, rows)
         self._sync_tables()
-        out = self._run_tick(n, branch, ex).cpu().numpy()  # one copy back
+        out = self._run_tick(n, branch, ex, self._sharded_tick()
+                             ).cpu().numpy()  # one copy back
         toks, lps, tops = self._unpack(out, ex.n_top)
         self.stats["decode_ticks"] += 1
         self.stats["decode_steps"] += n
@@ -952,6 +1111,18 @@ class Engine:
                 self._deliver(slot, req, toks[slot], lps[slot],
                               None if tops is None
                               else (tops[0][:, slot], tops[1][:, slot]))
+
+    def _sharded_tick(self) -> bool:
+        """Whether the tick samples the vocab-sharded logits in place (JAX
+        :2007-2015): under a mesh, when no occupied slot asks for top-k,
+        top-p, min-p, a seed, top logprobs or altered logits."""
+        return self.mesh is not None and all(
+            r is None or (r.sampling.top_k == 0 and r.sampling.top_p >= 1.0
+                          and r.sampling.min_p == 0.0
+                          and r.sampling.seed is None
+                          and r.sampling.top_logprobs == 0
+                          and not r.sampling.alters_logits)
+            for r in self.slot_req)
 
     def _propose_draft(self, req: Request) -> List[int]:
         """Prompt-lookup drafting (JAX :1459, vLLM's "[ngram]"): the
@@ -1040,7 +1211,7 @@ class Engine:
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :n] = tokens
         toks_d = torch.from_numpy(toks).to(self.device)
-        logits, _ = M.forward(self.params, self.config, toks_d)
+        logits, _ = M.forward(self.params, self.config, toks_d, tp=self.tp)
         lsm = torch.log_softmax(logits[0, :n - 1].to(torch.float32), dim=-1)
         lp = torch.gather(lsm, -1, toks_d[0, 1:n, None])[:, 0]
         return [None] + [float(x) for x in lp.cpu()]
@@ -1243,19 +1414,34 @@ class Engine:
         of two (padding rows ride on a null table), and growing a slot's
         blocks may preempt another slot of the same round, which then drops
         out of it (JAX :1599 and :1693).  Slot mode has no null block to
-        pad with, and needs none: a dispatch takes exactly its slots."""
+        pad with, and needs none: a dispatch takes exactly its slots.
+
+        With ``data > 1`` a dispatch takes up to ``prefill_batch`` slots of
+        EACH data shard (JAX :1695-1760): shard d owns rows [d·g, (d+1)·g),
+        g the widest shard's count (paged: rounded up to a power of two),
+        short shards padded with ``None``.  Greedy and seeded rows give the
+        single-device tokens; an unseeded temperature row's first token
+        draws its noise at its row of the shard-grouped dispatch rather
+        than of a dp = 1 one, so it is equal in distribution but not bit
+        for bit (JAX's caveat, :1703-1707)."""
         C = self.prefill_chunk
         progressed: set = set()
         while True:
-            picks = [s for s in sorted(self.slot_prefill)
-                     if s not in progressed][:self.prefill_batch]
-            if not picks:
+            per_shard: List[List[int]] = [[] for _ in range(self.dp)]
+            for slot in sorted(self.slot_prefill):
+                d = self._shard_of(slot)
+                if (slot not in progressed
+                        and len(per_shard[d]) < self.prefill_batch):
+                    per_shard[d].append(slot)
+            g = max(len(x) for x in per_shard)
+            if g == 0:
                 break
-            g = len(picks)
             if self.paged:
                 g = min(1 << max(0, g - 1).bit_length(), self.prefill_batch)
-            rows: List[Optional[int]] = picks + [None] * (g - len(picks))
-            progressed.update(picks)
+            rows: List[Optional[int]] = []
+            for x in per_shard:
+                rows.extend(x + [None] * (g - len(x)))
+            progressed.update(s for s in rows if s is not None)
             for i, slot in enumerate(rows):
                 if slot is None or slot not in self.slot_prefill:
                     rows[i] = None  # empty, or preempted by an earlier row
@@ -1272,7 +1458,9 @@ class Engine:
                     rows[i] = None
             # a later row's growth may have preempted an earlier row
             rows = [s if s in self.slot_prefill else None for s in rows]
-            if not self.paged:
+            if not self.paged and self.dp == 1:
+                # slot mode takes exactly its slots; shard-grouped rows
+                # (dp > 1) keep their places, shard d at [d·g, (d+1)·g)
                 rows = [s for s in rows if s is not None]
             if any(s is not None for s in rows):
                 self._prefill_chunk(rows)
@@ -1295,30 +1483,37 @@ class Engine:
 
     # -- paged block management (host side) --------------------------------
 
+    def _shard_of(self, slot: int) -> int:
+        """The data shard that owns ``slot`` (JAX :1302): slots partition
+        contiguously over the data axis; each shard has its own pool
+        slice, allocator and prefix maps."""
+        return slot // self.spb
+
     def _release_blocks(self, slot: int) -> None:
         """Drop the slot's blocks (JAX :1308): a registered block loses one
         owner and, at none, joins the eviction LRU; the rest return to the
         allocator."""
+        d = self._shard_of(slot)
         for blk in self.slot_blocks[slot]:
-            if blk in self._bh_blk2key:
-                self._bh_ref[blk] -= 1
-                if self._bh_ref[blk] == 0:
-                    self._bh_lru[blk] = None
+            if blk in self._bh_blk2key[d]:
+                self._bh_ref[d][blk] -= 1
+                if self._bh_ref[d][blk] == 0:
+                    self._bh_lru[d][blk] = None
             else:
-                self.allocators[0].free([blk])
+                self.allocators[d].free([blk])
         self.slot_blocks[slot] = []
         self.tables[slot, :] = 0
         self._tables_dirty = True
         self.slot_reg[slot] = 0
 
-    def _evict_cached_blocks(self, need: int) -> None:
-        """Free unreferenced prefix-cache blocks, oldest first, until
-        ``need`` blocks are available (JAX :1326)."""
-        alloc = self.allocators[0]
-        while alloc.available < need and self._bh_lru:
-            blk, _ = self._bh_lru.popitem(last=False)
-            del self._bh_key2blk[self._bh_blk2key.pop(blk)]
-            del self._bh_ref[blk]
+    def _evict_cached_blocks(self, d: int, need: int) -> None:
+        """Free shard ``d``'s unreferenced prefix-cache blocks, oldest
+        first, until ``need`` blocks are available there (JAX :1326)."""
+        alloc, lru = self.allocators[d], self._bh_lru[d]
+        while alloc.available < need and lru:
+            blk, _ = lru.popitem(last=False)
+            del self._bh_key2blk[d][self._bh_blk2key[d].pop(blk)]
+            del self._bh_ref[d][blk]
             alloc.free([blk])
 
     def _register_blocks(self, slot: int) -> None:
@@ -1333,6 +1528,7 @@ class Engine:
         req = self.slot_req[slot]
         if req is None:
             return
+        d = self._shard_of(slot)
         bs = self.block_size
         n_full = int(self.slot_len[slot]) // bs
         if n_full <= self.slot_reg[slot]:
@@ -1340,12 +1536,12 @@ class Engine:
         stream = (req._resume or req.prompt_tokens) + req.output_tokens
         for i in range(self.slot_reg[slot], n_full):
             blk = self.slot_blocks[slot][i]
-            if blk not in self._bh_blk2key:
+            if blk not in self._bh_blk2key[d]:
                 key = tuple(stream[:(i + 1) * bs])
-                if key not in self._bh_key2blk:
-                    self._bh_key2blk[key] = blk
-                    self._bh_blk2key[blk] = key
-                    self._bh_ref[blk] = 1
+                if key not in self._bh_key2blk[d]:
+                    self._bh_key2blk[d][key] = blk
+                    self._bh_blk2key[d][blk] = key
+                    self._bh_ref[d][blk] = 1
         self.slot_reg[slot] = n_full
 
     def _adopt_prefix(self, slot: int, stream: List[int]) -> int:
@@ -1355,17 +1551,18 @@ class Engine:
         token still prefills.  Reuse needs no chunk alignment: the padded
         tail of a chunk past the allocated blocks lands in the null
         block."""
+        d = self._shard_of(slot)
         bs = self.block_size
         limit = min(len(stream) - 1, self._nbmax * bs)
         matched = 0
         while ((matched + 1) * bs <= limit
-               and tuple(stream[:(matched + 1) * bs]) in self._bh_key2blk):
+               and tuple(stream[:(matched + 1) * bs]) in self._bh_key2blk[d]):
             matched += 1
         for i in range(matched):
-            blk = self._bh_key2blk[tuple(stream[:(i + 1) * bs])]
-            if self._bh_ref[blk] == 0:
-                self._bh_lru.pop(blk, None)
-            self._bh_ref[blk] += 1
+            blk = self._bh_key2blk[d][tuple(stream[:(i + 1) * bs])]
+            if self._bh_ref[d][blk] == 0:
+                self._bh_lru[d].pop(blk, None)
+            self._bh_ref[d][blk] += 1
             self.slot_blocks[slot].append(blk)
             self.tables[slot, i] = blk
             self._tables_dirty = True
@@ -1373,14 +1570,15 @@ class Engine:
         return matched * bs
 
     def _preempt(self, protect: int) -> bool:
-        """Free the latest-admitted request other than ``protect`` and
-        requeue it at the front with its resume stream (prompt +
-        generated): the oldest requests keep their blocks, and greedy
-        streams are unchanged, since re-prefill rebuilds the same KV.  Its
-        completed blocks are registered first, so that its re-admission
-        adopts them back."""
+        """Free the latest-admitted request of ``protect``'s data shard
+        other than ``protect`` and requeue it at the front with its resume
+        stream (prompt + generated): the oldest requests keep their
+        blocks, and greedy streams are unchanged, since re-prefill rebuilds
+        the same KV.  Its completed blocks are registered first, so that
+        its re-admission adopts them back."""
         cands = [i for i, r in enumerate(self.slot_req)
-                 if r is not None and i != protect]
+                 if r is not None and i != protect
+                 and self._shard_of(i) == self._shard_of(protect)]
         if not cands:
             return False
         victim = max(cands, key=lambda i: self.slot_seq[i])
@@ -1406,12 +1604,13 @@ class Engine:
         need = min(-(-upto // self.block_size), self._nbmax) - have
         if need <= 0:
             return True
-        alloc = self.allocators[0]
-        self._evict_cached_blocks(need)
+        d = self._shard_of(slot)
+        alloc = self.allocators[d]
+        self._evict_cached_blocks(d, need)
         while alloc.available < need:
             if not self._preempt(protect=slot):
                 return False
-            self._evict_cached_blocks(need)
+            self._evict_cached_blocks(d, need)
         got = alloc.alloc(need)
         self.slot_blocks[slot].extend(got)
         self.tables[slot, have:have + need] = got

@@ -261,6 +261,100 @@ def sample_batched(
     return torch.where(temperature <= 0.0, greedy, sampled)
 
 
+def sample_batched_sharded(
+    local_logits: torch.Tensor,  # (B, V_local) f32: this rank's vocab slice
+    generator: torch.Generator,
+    temperature: torch.Tensor,   # (B,) f32; <= 0 → greedy
+    tp,                          # the model axis (parallel.collectives.Axis)
+    vocab_size: int,
+    data_axis=None,              # the data axis, when the batch is sharded
+    *,
+    branch: str,                 # sampling_branch() of the GLOBAL rows
+) -> torch.Tensor:
+    """Greedy / temperature sampling on vocab-sharded logits without
+    gathering them: a Gumbel-max on each rank's slice, then a distributed
+    argmax in two collectives (``pmax`` of the winning value, ``pmin`` of
+    the winners' global indices), so ties go to the lowest global index as
+    ``torch.argmax`` gives them.  Two (B,) vectors cross the axis instead of
+    the (B, V) logits.
+
+    The noise is :func:`gumbel` of the GLOBAL shape (B · dp, V), drawn on
+    every rank from generators in equal states and sliced at (this data
+    shard's first row, this rank's first vocab index), so a row's noise
+    depends only on its global (row, vocab) position and the tokens equal
+    :func:`sample_batched`'s (top-k, top-p and min-p off) on the gathered
+    logits bit for bit; the generator advances as there (no draw in the
+    greedy branch).  With replicated logits (``V_local == vocab_size``,
+    tied embeddings) each rank samples its rows locally."""
+    from qqq_tpu_torch.parallel.collectives import pmax, pmin
+
+    B, Vl = local_logits.shape
+    dp = 1 if data_axis is None else data_axis.size
+    row0 = 0 if data_axis is None else data_axis.index * B
+    if branch not in (GREEDY, SAMPLED):
+        raise ValueError(f"sharded sampling takes the greedy and sampled "
+                         f"branches, not {branch!r}")
+    g = None
+    if branch == SAMPLED:
+        g = gumbel((B * dp, vocab_size), generator, local_logits.device)
+    if Vl == vocab_size:  # replicated logits
+        greedy = torch.argmax(local_logits, dim=-1).to(torch.int32)
+        if g is None:
+            return greedy
+        t = torch.clamp_min(temperature, 1e-6)[:, None]
+        sampled = torch.argmax(local_logits / t + g[row0:row0 + B],
+                               dim=-1).to(torch.int32)
+        return torch.where(temperature <= 0.0, greedy, sampled)
+    v_start = tp.index * Vl
+    z = local_logits
+    if g is not None:
+        t = torch.clamp_min(temperature, 1e-6)[:, None]
+        z = torch.where(temperature[:, None] > 0.0,
+                        local_logits / t + g[row0:row0 + B,
+                                             v_start:v_start + Vl],
+                        local_logits)
+    local_arg = torch.argmax(z, dim=-1)  # the first of equal maxima
+    local_best = torch.gather(z, -1, local_arg[:, None])[:, 0]
+    best = pmax(local_best.clone(), tp)
+    cand = torch.where(local_best == best,
+                       local_arg.to(torch.int32) + v_start,
+                       torch.full_like(local_arg, vocab_size,
+                                       dtype=torch.int32))
+    return pmin(cand.contiguous(), tp)
+
+
+def chosen_logprob_sharded(
+    local_logits: torch.Tensor,  # (B, V_local) f32: this rank's vocab slice
+    tok: torch.Tensor,           # (B,) GLOBAL token ids
+    tp,
+    vocab_size: int,
+) -> torch.Tensor:
+    """:func:`chosen_logprob` over vocab-sharded logits without gathering
+    them: a distributed logsumexp (``pmax`` of the row maxima, ``psum`` of
+    the shifted exp-sums) and a ``pmax`` that fetches the chosen token's
+    logit from the rank that holds it; three (B,) collectives.  The
+    result is taken as (logit − max) − log(sum), as ``log_softmax`` takes
+    it (JAX adds the max back first, which costs an ulp of the max when
+    the logits are large)."""
+    from qqq_tpu_torch.parallel.collectives import pmax, psum
+
+    B, Vl = local_logits.shape
+    if Vl == vocab_size:  # replicated logits (tied embeddings)
+        return chosen_logprob(local_logits, tok)
+    z = local_logits.to(torch.float32)
+    m = pmax(z.amax(dim=-1).contiguous(), tp)
+    log_sum = torch.log(psum(torch.exp(z - m[:, None]).sum(dim=-1)
+                             .contiguous(), tp))
+    v_start = tp.index * Vl
+    tok = tok.to(torch.int64)
+    idx = torch.clamp(tok - v_start, 0, Vl - 1)
+    mine = (tok >= v_start) & (tok < v_start + Vl)
+    local_val = torch.gather(z, -1, idx[:, None])[:, 0]
+    logit_tok = pmax(torch.where(mine, local_val, -torch.inf).contiguous(),
+                     tp)
+    return (logit_tok - m) - log_sum
+
+
 def top_logprobs(logits: torch.Tensor, n: int):
     """(values, ids) of the ``n`` highest raw-model logprobs of each row:
     (B, n) f32 and int64, highest first."""

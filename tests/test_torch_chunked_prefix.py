@@ -77,7 +77,7 @@ class Pair:
 
     def pool_whole(self) -> bool:
         eng = self.eng
-        return (eng.allocators[0].available + len(eng._bh_lru)
+        return (eng.allocators[0].available + len(eng._bh_lru[0])
                 == eng.num_blocks - 1
                 == self.jeng.allocators[0].available
                 + len(self.jeng._bh_lru[0]))
@@ -210,7 +210,7 @@ def test_paged_prefix_cache_eviction(params):
     for i in range(4):
         pair.run([_toks(rng, 14) + [i]], max_new_tokens=4)
         assert pair.pool_whole()
-    assert 0 < len(pair.eng._bh_lru) <= 8
+    assert 0 < len(pair.eng._bh_lru[0]) <= 8
 
     pair = Pair(params, max_batch=2, num_blocks=7,
                 **{**_PAGED, "kv_quantized": False})

@@ -1246,7 +1246,7 @@ def test_adopted_prefix_block_equals_a_fresh_prefill(tick_model):
     fresh.run([Request(b, SamplingParams(max_new_tokens=2))])
     for i in range(3):
         key = tuple(system[:8 * (i + 1)])
-        blk, blk_f = eng._bh_key2blk[key], fresh._bh_key2blk[key]
+        blk, blk_f = eng._bh_key2blk[0][key], fresh._bh_key2blk[0][key]
         for c, cf in zip(eng.caches, fresh.caches):
             for k in c:
                 assert torch.equal(c[k][blk], cf[k][blk_f]), (i, k)
@@ -1449,3 +1449,24 @@ def test_seeded_noise_card_equals_cpu(dev, V):
     scale = torch.clamp_min(ref.abs(), 1.0)
     ulp = torch.nextafter(scale, torch.full_like(scale, 2.0 ** 60)) - scale
     assert ((g - ref).abs() <= 2 * ulp).all()
+
+
+@pytest.mark.parametrize("H", [64, 896, 4096, 5120])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_rows_do_not_depend_on_their_neighbours(dev, H, dtype):
+    """The card's RMSNorm (models/llama.py:_mean_square, two stages of
+    fixed layout) gives a row the same bits among the first n of 40 rows,
+    n = 1 .. 40, as alone, as a data shard of the engine needs; within
+    2^-20 relative of the one-pass f32 mean (another summation order)."""
+    from qqq_tpu_torch.models import llama as M
+
+    x = (torch.randn((40, 1, H), generator=_gen(dev), device=dev) * 3
+         ).to(dtype)
+    w = (torch.rand((H,), generator=_gen(dev), device=dev) + 0.5).to(dtype)
+    alone = torch.cat([M.rms_norm(x[i:i + 1], w, 1e-5) for i in range(40)])
+    for n in range(1, 41):
+        assert torch.equal(M.rms_norm(x[:n], w, 1e-5), alone[:n]), n
+    x32 = x.float()
+    ms = M._mean_square(x32)
+    one_pass = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    assert torch.allclose(ms, one_pass, rtol=2.0 ** -20, atol=0)

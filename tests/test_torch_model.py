@@ -236,10 +236,11 @@ def test_prefill_batch_follows_scratch_budget_like_jax(
 
 
 def test_engine_later_slice_features_raise(models):
-    """Every scheduler feature of the JAX engine is ported but the mesh:
-    chunked prefill in slot mode, the prefix cache (slot and paged) and
-    speculative decoding serve; ``mesh`` alone raises."""
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """Every scheduler feature of the JAX engine is ported: chunked
+    prefill in slot mode, the prefix cache (slot and paged) and
+    speculative decoding serve (the mesh: tests/test_torch_parallel.py);
+    a ``mesh`` that is not the port's ``Mesh`` raises ``TypeError``."""
+    with pytest.raises(TypeError, match="Mesh"):
         Engine(models[1], TCFG, mesh=object(), device="cpu")
     for kw in (dict(prefill_chunk=16),
                dict(prefill_chunk=16, prefix_cache=True),

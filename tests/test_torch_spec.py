@@ -172,7 +172,7 @@ def test_paged_spec_under_preemption(params):
         prefix_cache=True, **SPEC)
     assert eng.stats["preemptions"] > 0
     assert eng.stats["spec_drafted"] > 0
-    assert (eng.allocators[0].available + len(eng._bh_lru)
+    assert (eng.allocators[0].available + len(eng._bh_lru[0])
             == eng.num_blocks - 1)
 
 
