@@ -120,7 +120,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (b) the same windows through the dense bf16 weights of the same seed
    (the quantization gap); (c) a 2-layer cut's window logits, card against
    CPU (relative RMS, as phase 4);
-   (d) ``loglikelihood_batch`` against ``loglikelihood`` pair by pair.
+   (d) ``loglikelihood_batch`` against ``loglikelihood`` pair by pair;
+9. parallelism (see :func:`phase9`);
+10. the device timer (run last, where no launch count is read: its captures
+   call the kernel wrappers): ``qqq_tpu_torch.utils.measure_op`` beside
+   ``Timer.device_ms`` and ``Timer.ms`` at #2 (4, 11008, 4096), #3 (512,
+   11008, 4096), #14 (B = 2, T = S = 2048) and an identity op (the
+   timer's own cost); ``measure_op`` within 0.5-2x of ``device_ms`` where
+   that is over 0.1 ms, and raising on an op that reads a value back.
 
 The last lines are a ``{"kernels": [...]}`` report, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -3565,6 +3572,96 @@ def phase9(dev, params, config):
             for k, n in b[0]["launches"].items()}
 
 
+# phase 10: the device timer (utils/benchmark.py: measure_op) on the card
+
+#: measure_op against Timer.device_ms where the latter is over P10_MIN_MS:
+#: the ratio must lie in P10_RATIO (sanity bounds, not a speed target)
+P10_MIN_MS, P10_RATIO = 0.1, (0.5, 2.0)
+
+
+def phase10(dev, smi):
+    """``measure_op`` (JAX's timer, ported: iterations captured in CUDA
+    graphs, each feeding its output's max into the next one's input, the
+    slope between two counts; warm L2) beside ``Timer.device_ms`` (20
+    calls in one graph, warm L2) and ``Timer.ms`` (L2 flushed before each
+    launch) at #2, the exact g128 GEMM at decode (4, 11008, 4096), #3, the
+    requant GEMM at (512, 11008, 4096), #14, slot flash at B = 2, T = S =
+    2048, and an identity op on #2's output: what measure_op adds to every
+    op (perturb, max, carry), with no kernel of the op's own (the two
+    Timer readings of it time no work).  Each reading finite, measure_op's
+    positive, the kernels' Timer readings too; where ``device_ms`` is over
+    P10_MIN_MS, measure_op within P10_RATIO of it.  Then an op that reads
+    a value back to the host must make measure_op raise, and the card must
+    still compute afterwards.  The captures call the wrappers, so
+    launch counts are not read after this phase."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+    from qqq_tpu_torch.kernels.attention import flash_attention_int8
+    from qqq_tpu_torch.utils import measure_op
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    timer = Timer(dev)
+
+    def gemm_args(M, K, N):
+        a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s_tok = torch.rand((M, 1), generator=gen, device=dev) * 0.05 + 1e-3
+        w = torch.randint(-2**31, 2**31 - 1, (K // 8, N), generator=gen,
+                          device=dev, dtype=torch.int32)
+        s = (torch.rand((K // 128, N), generator=gen, device=dev) * 0.01
+             + 1e-4).to(torch.bfloat16)
+        return a, s_tok, w, s
+
+    B, T = 2, 2048
+    q = torch.randn((B, NH, T, HD), generator=gen, device=dev).to(
+        torch.bfloat16)
+    flash_args = (q, *_rand_slot_cache(dev, gen, B, T),
+                  torch.zeros(B, dtype=torch.int32, device=dev))
+    g2 = gemm_args(4, I, H)
+    out2 = k.w4a8_gemm_group(*g2)
+    cases = (
+        ("#2 w4a8_gemm_group M=4 K=11008 N=4096", k.w4a8_gemm_group, g2),
+        ("#3 w4a8_gemm_requant M=512 K=11008 N=4096", k.w4a8_gemm_requant,
+         gemm_args(512, I, H)),
+        ("#14 flash_attention_int8 B=2 T=S=2048", flash_attention_int8,
+         flash_args),
+        ("identity on #2's output (4, 4096) bf16", lambda x: x, (out2,)),
+    )
+    log(f"  {smi}; ms per call: measure_op (warm L2), Timer.device_ms "
+        "(warm L2), Timer.ms (L2 flushed)")
+    bad = []
+    for what, op, args in cases:
+        t0 = time.perf_counter()
+        mo = measure_op(op, args) * 1e3
+        secs = time.perf_counter() - t0
+        dm = Timer.device_ms(lambda: op(*args))
+        ms = timer.ms(lambda: op(*args))
+        ratio = mo / dm if dm > 0 else math.inf
+        log(f"  {what}: measure_op {mo:.4f}, device_ms {dm:.4f}, ms "
+            f"{ms:.4f} (measure_op / device_ms {ratio:.3f}; measure_op took "
+            f"{secs:.1f} s)")
+        kernel = not what.startswith("identity")
+        if not (all(math.isfinite(x) for x in (mo, dm, ms)) and mo > 0
+                and (not kernel or (dm > 0 and ms > 0))):
+            bad.append(f"{what}: a reading is not finite and positive")
+        if dm > P10_MIN_MS and not P10_RATIO[0] <= ratio <= P10_RATIO[1]:
+            bad.append(f"{what}: measure_op / device_ms = {ratio:.3f}, "
+                       f"outside {P10_RATIO}")
+    try:
+        measure_op(lambda x: x * float(x.max()), (out2,))
+    except RuntimeError as e:
+        if "cannot be captured" not in str(e):
+            raise
+        log(f"  an op that reads a value back: measure_op raised "
+            f"({str(e).splitlines()[0][:160]})")
+    else:
+        bad.append("measure_op timed an op that reads a value back")
+    if not (torch.ones(8, device=dev).sum().item() == 8
+            and torch.isfinite(torch.randn(8, device=dev)).all()):
+        bad.append("the card computes wrongly after the refused op")
+    if bad:
+        raise AssertionError("phase 10: " + "; ".join(bad))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3777,6 +3874,11 @@ def main() -> int:
         f"({smi})")
     phase7b(dev)
     log(f"phase 7 took {time.perf_counter() - t7:.1f} s")
+    t10 = time.perf_counter()
+    log("phase 10: the device timer (qqq_tpu_torch.utils.measure_op) on the "
+        "card")
+    phase10(dev, smi)
+    log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
 
     # each kernel's launches from the first run whose path it is on
     launches = {k: next((r[k] for r in runs.values() if r[k]), 0)

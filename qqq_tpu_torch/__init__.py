@@ -8,3 +8,5 @@ imports ``torch`` and never ``jax``.  Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``; on the CPU every kernel wrapper
 runs its plain PyTorch version instead.
 """
+
+__version__ = "0.1.0"

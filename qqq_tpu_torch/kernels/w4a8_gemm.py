@@ -47,6 +47,8 @@ and PyTorch's ``sigmoid`` do.
 
 from __future__ import annotations
 
+import sys
+import types
 from typing import Any, Dict, Optional
 
 import torch
@@ -606,3 +608,16 @@ def w4a8_glu_linear(
                         glu.get("s_group"), group_size=group_size,
                         out_dtype=out_dtype, requant=requant)
     return out.reshape(*lead, -1)
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as its :func:`w4a8_gemm`: qqq_tpu/kernels
+    exports the GEMM under the module's name, and the port's code and tests
+    import the module by that name (``from qqq_tpu_torch.kernels import
+    w4a8_gemm``)."""
+
+    def __call__(self, *args, **kwargs) -> torch.Tensor:
+        return w4a8_gemm(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -1,0 +1,1 @@
+from qqq_tpu_torch.serve import kv_cache

@@ -116,7 +116,8 @@ from qqq_tpu_torch.parallel.shard import Mesh, local_config, shard_params
 from qqq_tpu_torch.serve.sampling import (
     SamplingParams, apply_allowed_mask, apply_logit_bias, apply_penalties,
     bias_arrays, chosen_logprob, chosen_logprob_sharded, penalty_arrays,
-    sample_batched, sample_batched_sharded, sampling_branch, top_logprobs,
+    sample_batched, sample_batched_sharded, sampling_arrays, sampling_branch,
+    top_logprobs,
 )
 from qqq_tpu_torch.serve.tick_graph import TickGraph
 from qqq_tpu_torch.utils.device import resolve_device
@@ -494,21 +495,10 @@ class Engine:
     # -- per-row sampling planes (host) -------------------------------------
 
     @staticmethod
-    def _sampling_planes(rows: List[Optional[Request]]):
-        """(temperature, top_k, top_p, min_p) host arrays, one entry a row;
-        a ``None`` row is greedy."""
-        n = len(rows)
-        temp = np.zeros((n,), np.float32)
-        topk = np.zeros((n,), np.int32)
-        topp = np.ones((n,), np.float32)
-        minp = np.zeros((n,), np.float32)
-        for i, r in enumerate(rows):
-            if r is None:
-                continue
-            sp = r.sampling
-            temp[i], topk[i], topp[i], minp[i] = (
-                sp.temperature, sp.top_k, sp.top_p, sp.min_p)
-        return temp, topk, topp, minp
+    def _row_params(rows: List[Optional[Request]]):
+        """Each row's SamplingParams; ``None`` for an empty row (greedy,
+        no extras)."""
+        return [r.sampling if r is not None else None for r in rows]
 
     @staticmethod
     def _seed_arrays(rows: List[Optional[Request]]):
@@ -573,8 +563,7 @@ class Engine:
                 counts[i] = np.bincount(r.output_tokens, minlength=V)[:V]
             if r.sampling.repetition_penalty != 1.0 and r.prompt_tokens:
                 pmask[i, r.prompt_tokens] = True
-        pens = penalty_arrays([r.sampling if r is not None else None
-                               for r in rows])
+        pens = penalty_arrays(self._row_params(rows))
         return (counts, pmask) + pens
 
     @staticmethod
@@ -613,12 +602,12 @@ class Engine:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        planes = self._sampling_planes(rows)
+        sps = self._row_params(rows)
+        planes = sampling_arrays(sps)
         pen = self._prefill_pen(rows)
         if pen is not None:
             pen = tuple(put(a) for a in pen)
-        bias = bias_arrays([r.sampling if r is not None else None
-                            for r in rows])
+        bias = bias_arrays(sps)
         bias = None if bias[0] is None else tuple(put(a) for a in bias)
         allow = self._allowed_arrays(rows)
         seeds = self._seed_arrays(rows)
@@ -1019,9 +1008,9 @@ class Engine:
         h[0] = self.slot_last_tok
         h[1] = self.slot_len
         h[2] = active
-        temp, topk, topp, minp = self._sampling_planes(rows)
-        pres, freq, rep = penalty_arrays(
-            [r.sampling if r is not None else None for r in rows])
+        sps = self._row_params(rows)
+        temp, topk, topp, minp = sampling_arrays(sps)
+        pres, freq, rep = penalty_arrays(sps)
         for i, a in zip((3, 4, 5, 6, 7, 8, 9),
                         (temp, topk, topp, minp, pres, freq, rep)):
             h[i] = a.view(np.int32)
@@ -1029,8 +1018,7 @@ class Engine:
         if seeds is not None:
             h[10:13] = seeds
         copies = [(self._tick_host, self._tick_in)]
-        bias_ids, bias_vals = bias_arrays(
-            [r.sampling if r is not None else None for r in rows])
+        bias_ids, bias_vals = bias_arrays(sps)
         if bias_ids is not None:
             host, dev = self._plane("bias", bias_ids.shape[1])
             host.numpy()[0] = bias_ids

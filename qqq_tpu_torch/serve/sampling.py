@@ -368,6 +368,26 @@ def chosen_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
     return torch.gather(lp, -1, tok.to(torch.int64)[:, None])[:, 0]
 
 
+def sampling_arrays(params_list, n: Optional[int] = None):
+    """(temperature, top_k, top_p, min_p) host arrays (f32, int32, f32,
+    f32), one entry a SamplingParams; ``None`` entries (inactive slots) are
+    greedy, and ``n`` pads or truncates to a fixed batch size."""
+    if n is None:
+        n = len(params_list)
+    temp = np.zeros((n,), np.float32)
+    topk = np.zeros((n,), np.int32)
+    topp = np.ones((n,), np.float32)
+    minp = np.zeros((n,), np.float32)
+    for i, sp in enumerate(params_list[:n]):
+        if sp is None:
+            continue
+        temp[i] = sp.temperature
+        topk[i] = sp.top_k
+        topp[i] = sp.top_p
+        minp[i] = sp.min_p
+    return temp, topk, topp, minp
+
+
 def penalty_arrays(params_list, n: Optional[int] = None):
     """(presence, frequency, repetition) host f32 arrays, one entry a
     SamplingParams (None → off)."""
@@ -405,3 +425,22 @@ def bias_arrays(params_list, n: Optional[int] = None):
             ids[i, j] = tok
             vals[i, j] = b
     return ids, vals
+
+
+def sample(
+    logits: torch.Tensor,  # (B, V) f32
+    generator: torch.Generator,
+    params: SamplingParams,
+) -> torch.Tensor:
+    """Single-config convenience wrapper; returns (B,) int32 next tokens."""
+    B, dev = logits.shape[0], logits.device
+    return sample_batched(
+        logits,
+        generator,
+        torch.full((B,), params.temperature, dtype=torch.float32, device=dev),
+        torch.full((B,), params.top_k, dtype=torch.int32, device=dev),
+        torch.full((B,), params.top_p, dtype=torch.float32, device=dev),
+        torch.full((B,), params.min_p, dtype=torch.float32, device=dev),
+        branch=sampling_branch(params.temperature, params.top_k,
+                               params.top_p, params.min_p),
+    )

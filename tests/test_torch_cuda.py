@@ -1470,3 +1470,93 @@ def test_rms_norm_rows_do_not_depend_on_their_neighbours(dev, H, dtype):
     ms = M._mean_square(x32)
     one_pass = torch.mean(x32 * x32, dim=-1, keepdim=True)
     assert torch.allclose(ms, one_pass, rtol=2.0 ** -20, atol=0)
+
+
+# -- the device timer (utils/benchmark.py: measure_op) ------------------------
+
+
+def _gemm_group_args(dev, M=64, K=4096, N=4096):
+    g = _gen(dev)
+    a = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    s_tok = torch.rand((M, 1), generator=g, device=dev) * 0.05 + 1e-3
+    w = torch.randint(-2**31, 2**31 - 1, (K // 8, N), generator=g,
+                      device=dev, dtype=torch.int32)
+    s = (torch.rand((K // 128, N), generator=g, device=dev) * 0.01
+         + 1e-4).to(torch.bfloat16)
+    return a, s_tok, w, s
+
+
+def test_measure_op_times_a_captured_op(dev, monkeypatch):
+    """A kernel wrapper timed by ``measure_op``: finite, positive seconds,
+    and its launches grow by what the captures called (two eager calls
+    and ``n`` captured ones a run), not by the replays."""
+    from qqq_tpu_torch.kernels import w4a8_gemm as k
+    from qqq_tpu_torch.utils import benchmark
+
+    counts = []
+    scan = benchmark._run_scan
+
+    def spy(op, perturb, args, n):
+        counts.append(n)
+        return scan(op, perturb, args, n)
+
+    monkeypatch.setattr(benchmark, "_run_scan", spy)
+    args = _gemm_group_args(dev)
+    n0 = k.w4a8_gemm_group.launches
+    secs = benchmark.measure_op(k.w4a8_gemm_group, args, target_secs=0.05)
+    assert np.isfinite(secs) and 0 < secs < 1e-2
+    assert counts[:2] == [8, 64] and len(counts) == 4
+    assert k.w4a8_gemm_group.launches - n0 == sum(n + 2 for n in counts)
+
+
+@pytest.mark.parametrize("block_host_s", [0.0, 1e-3, 0.25])
+@pytest.mark.parametrize("n", [37, 1000])
+def test_measure_op_blocks_run_n_iterations(dev, monkeypatch, block_host_s,
+                                            n):
+    """Blocks of k iterations and the graph of the rest run exactly n: the
+    carry adds 1 an iteration, from 0 at every run."""
+    from qqq_tpu_torch.utils import benchmark
+
+    monkeypatch.setattr(benchmark, "BLOCK_HOST_S", block_host_s)
+    x = torch.randn((256, 256), device=dev)
+    run = benchmark._run_scan(torch.relu, benchmark._perturb_first_float,
+                              (x,), n)
+    assert float(run((x,))) == n
+    assert float(run((x,))) == n
+
+
+@pytest.mark.parametrize("kind", ["item", "nonzero", "branch",
+                                  "only_when_captured"])
+def test_measure_op_raises_on_an_op_it_cannot_capture(dev, kind):
+    """Syncing ops raise before any capture; one that syncs only inside a
+    capture breaks the capture, and measure_op must leave the stream and
+    the default generator usable after it."""
+    from qqq_tpu_torch.utils import measure_op
+
+    ops = {
+        "item": lambda x: x * float(x.max()),
+        "nonzero": lambda x: x[torch.nonzero(x > 0, as_tuple=True)],
+        "branch": lambda x: x * 2 if bool((x > 0).any()) else x,
+        "only_when_captured": lambda x: (
+            x * float(x.max()) if torch.cuda.is_current_stream_capturing()
+            else x * 2),
+    }
+    stream = torch.cuda.current_stream(dev)
+    x = torch.randn((64, 64), device=dev)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        measure_op(ops[kind], (x,), target_secs=0.01)
+    assert torch.cuda.current_stream(dev) == stream
+    assert torch.isfinite(torch.randn(8, device=dev)).all()
+    assert measure_op(torch.relu, (x,), target_secs=0.01) > 0
+
+
+def test_measure_op_repeats(dev):
+    """Two calls on the same op land within 2x of each other."""
+    from qqq_tpu_torch.utils import measure_op
+
+    a = torch.randn((2048, 2048), device=dev, dtype=torch.bfloat16)
+    b = torch.randn((2048, 2048), device=dev, dtype=torch.bfloat16)
+    first = measure_op(torch.matmul, (a, b))
+    second = measure_op(torch.matmul, (a, b))
+    assert 0.5 <= second / first <= 2.0, (first, second)
