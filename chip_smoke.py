@@ -1419,6 +1419,15 @@ def slot_kernels(max_len: int):
             "flash_attention_int8")
 
 
+def prefill_dispatches(eng, since=0):
+    """(M, T) of each prefill dispatch in the engine's dispatch log from
+    record ``since`` (its ``seq``) on, as its scheduler chose them: T the
+    bucket of a whole-prompt dispatch or the chunk, M its rows · T."""
+    return [(r["padded"], eng.prefill_chunk or r["padded"] // r["heads"])
+            for r in eng.dispatch_log
+            if r["kind"] == "prefill" and r["seq"] >= since]
+
+
 def expected_launches(scheme, n_layers, dispatches, ticks, paged=False,
                       max_len=2048, fused=False, scores=(), chunked=False,
                       verifies=(), glu=True):
@@ -1548,8 +1557,7 @@ def serve(dev, params, config, scheme, paged=False, num_blocks=None,
                       or replays + st["graph_captures"] != ticks):
         raise AssertionError(f"{ticks} decode ticks but {replays} graph "
                              f"replays and {st['graph_captures']} captures")
-    # (M, T) of each prefill dispatch, as the engine's scheduler chose them
-    dispatches = [(rows * t, t) for rows, t in st["prefill_shapes"]]
+    dispatches = prefill_dispatches(eng)
     expect = expected_launches(scheme, config.num_hidden_layers, dispatches,
                                st["decode_steps"], paged=paged,
                                max_len=max_len, fused=fused, glu=glu)
@@ -2158,7 +2166,7 @@ def serve_http(dev, params, config, prompts):
               if k[3] != TickExtras()}
     if not any(extras.values()):
         raise AssertionError(f"no graph with extras replayed: {extras}")
-    dispatches = [(rows * t, t) for rows, t in st["prefill_shapes"]]
+    dispatches = prefill_dispatches(eng)
     bucket = next(x for x in eng.prefill_buckets if x >= len(p1))
     expect = expected_launches("g128", config.num_hidden_layers, dispatches,
                                st["decode_steps"], scores=[(bucket, bucket)])
@@ -2259,8 +2267,8 @@ def drive(eng, reqs, scheme, label, later=(), eager=False, must_run=()):
     eng.on_token = hook
     eng._eager_tick = eager
     st = eng.stats
-    before = {k: (len(v) if isinstance(v, list) else v)
-              for k, v in st.items()}
+    before = dict(st)
+    since = eng.dispatch_log[-1]["seq"] + 1 if eng.dispatch_log else 0
     fns = kernel_fns()
     for fn, _, _ in fns.values():
         fn.launches = 0
@@ -2269,8 +2277,7 @@ def drive(eng, reqs, scheme, label, later=(), eager=False, must_run=()):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, (fn, _, _) in fns.items()}
-    d = {k: (st[k][before[k]:] if isinstance(st[k], list)
-             else st[k] - before[k]) for k in st}
+    d = {k: st[k] - before[k] for k in st}
     if pending or not all(r.done for r in everyone):
         raise AssertionError(f"{label}: a request did not finish")
     ticks, replays = d["decode_ticks"], d["graph_replays"]
@@ -2280,7 +2287,7 @@ def drive(eng, reqs, scheme, label, later=(), eager=False, must_run=()):
                       or replays + d["graph_captures"] != ticks):
         raise AssertionError(f"{label}: {ticks} decode ticks but {replays} "
                              f"replays and {d['graph_captures']} captures")
-    dispatches = [(rows * t, t) for rows, t in d["prefill_shapes"]]
+    dispatches = prefill_dispatches(eng, since)
     T = 1 + eng.spec_k
     expect = expected_launches(
         scheme, eng.config.num_hidden_layers, dispatches,
@@ -2295,8 +2302,8 @@ def drive(eng, reqs, scheme, label, later=(), eager=False, must_run=()):
             raise AssertionError(f"{label}: {name} never launched")
     decode_tokens = d["generated_tokens"] - len(everyone)
     log(f"  {label}: {len(everyone)} requests in {wall:.3f} s: "
-        f"{d['prefill_dispatches']} prefill dispatches (rows, chunk or "
-        f"bucket) = {d['prefill_shapes']} in {d['prefill_s']:.3f} s, "
+        f"{d['prefill_dispatches']} prefill dispatches (M, chunk or "
+        f"bucket) = {dispatches} in {d['prefill_s']:.3f} s, "
         f"{d['prefill_chunks']} chunks; {ticks} decode ticks "
         f"({d['spec_ticks']} verifies, {d['decode_steps']} plain steps) in "
         f"{d['decode_s']:.3f} s, {replays} replays: "

@@ -121,6 +121,7 @@ from qqq_tpu_torch.serve.sampling import (
 )
 from qqq_tpu_torch.serve.tick_graph import TickGraph
 from qqq_tpu_torch.utils.device import resolve_device
+from qqq_tpu_torch.utils.profiling import DeviceSpans
 
 
 @dataclasses.dataclass
@@ -150,8 +151,11 @@ class Request:
     #: tokens of ``output_tokens`` already delivered (counted in
     #: ``generated_tokens`` and passed to ``on_token``)
     _emitted: int = 0
-    # latency bookkeeping (monotonic seconds, filled by the engine)
+    # latency bookkeeping (monotonic seconds, filled by the engine):
+    # enqueued, first given a slot (a preempted request keeps it), first
+    # token delivered, finished
     t_enqueue: Optional[float] = None
+    t_admit: Optional[float] = None
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
 
@@ -175,6 +179,9 @@ class Request:
 
 #: max requests prefilled in one dispatch
 _PREFILL_BATCH = 8
+
+#: records kept in :attr:`Engine.dispatch_log`, the newest
+DISPATCH_LOG_SIZE = 65536
 
 #: rows of the packed per-tick input (JAX: Engine._TICK_ROWS): tokens,
 #: cache_len, active, temperature, top_k, top_p, min_p, presence,
@@ -488,9 +495,62 @@ class Engine:
             "decode_steps": 0, "spec_ticks": 0,
             "graph_replays": 0, "graph_captures": 0,
             "graph_capture_s": 0.0,
-            # (rows, bucket or chunk) of each prefill dispatch, in order
-            "prefill_shapes": [],
         }
+        self._dispatch_log: "collections.deque[Dict[str, Any]]" = \
+            collections.deque(maxlen=DISPATCH_LOG_SIZE)
+        self._dispatches = 0
+        self._device_spans = DeviceSpans(self.device)
+
+    @property
+    def dispatch_log(self) -> "collections.deque[Dict[str, Any]]":
+        """One record (a dict) per prefill dispatch, decode tick and verify,
+        oldest first, the newest :data:`DISPATCH_LOG_SIZE` kept:
+
+        * ``seq`` (0, 1, .. over the engine's life) and ``kind``:
+          "prefill", "decode" or "verify";
+        * the shape: a prefill's ``rows`` as (start position, tokens) per
+          row run, ``heads`` (rows whose prompt it completes, each sampling
+          a first token) and ``padded`` (token positions computed, padding
+          included); a tick's or verify's ``rows`` as each active row's
+          context before it, and ``steps`` (a verify: 1);
+        * host phases on ``time.monotonic()`` (the clock of the request
+          stamps): a prefill's ``t_start``, ``t_forward`` (its forward
+          enqueued, and in slot mode the copy of its KV into the slots),
+          ``t_synced`` (the sampled tokens back, or the wait for a chunk
+          with none), ``t_end``; a tick's or verify's ``t_start``,
+          ``t_packed`` (inputs packed and copied, the start event
+          recorded), ``t_launched`` (the graph launch returned; eager: the
+          forward enqueued), ``t_synced`` (the report back),
+          ``t_delivered`` and ``t_end``;
+        * on the card, ``device_start`` (its first device work: a tick's
+          graph launch) and ``device_end`` (the sync, past its last device
+          work) in host-clock seconds, and ``gap_before_s``, the device's
+          idle since the previous dispatch's end
+          (:class:`~qqq_tpu_torch.utils.profiling.DeviceSpans`; None on the
+          CPU, and for the first dispatch's gap).
+
+        Reading it waits for the device: read it on the thread of
+        :meth:`run`, or between runs."""
+        self._device_spans.flush()
+        return self._dispatch_log
+
+    def _log_dispatch(self, start, t_mark: float, **fields
+                      ) -> Dict[str, Any]:
+        """Append a dispatch's record, once its device work is enqueued and
+        before its sync (while the device works), with its first device
+        event ``start``, marked at host time ``t_mark``."""
+        self._device_spans.fill()  # the last dispatch's event, read now
+        rec = dict(fields, seq=self._dispatches, device_start=None,
+                   device_end=None, gap_before_s=None)
+        self._dispatches += 1
+        self._dispatch_log.append(rec)
+        self._device_spans.close(rec, start, t_mark)
+        return rec
+
+    def _synced(self, rec: Dict[str, Any]) -> None:
+        """Stamp a dispatch's sync, right after it returns."""
+        rec["t_synced"] = time.monotonic()
+        self._device_spans.synced(rec["t_synced"])
 
     # -- per-row sampling planes (host) -------------------------------------
 
@@ -669,6 +729,8 @@ class Engine:
         every data shard runs every row (the logits whole over the model
         axis, the same tokens everywhere) and keeps its own slots' rows."""
         t0 = time.perf_counter()
+        t_start = time.monotonic()
+        start = self._device_spans.mark()
         pb = len(reqs)
         toks = np.zeros((pb, bucket), np.int64)
         lens = np.zeros((pb,), np.int64)
@@ -687,7 +749,8 @@ class Engine:
                                   device=self.device),
             logits_at=lens_d - 1, tp=self.tp,
         )
-        firsts, lps, tops = self._sample(logits[:, 0, :], reqs)
+        # the KV copy goes before the sampler's copy back, so that the
+        # dispatch's device work ends at its sync
         mine = [i for i, s in enumerate(slots) if self._lo <= s < self._hi]
         if mine:
             rows_idx = torch.tensor(mine, device=self.device)
@@ -696,16 +759,24 @@ class Engine:
             for big, small in zip(self.caches, caches1):
                 for name, buf in big.items():
                     buf[slot_idx, :, :bucket] = small[name][rows_idx]
+        rec = self._log_dispatch(
+            start, t_start, kind="prefill", rows=[(0, int(n)) for n in lens],
+            heads=pb, padded=pb * bucket, t_start=t_start,
+            t_forward=time.monotonic())
+        firsts, lps, tops = self._sample(logits[:, 0, :], reqs)
+        self._synced(rec)
         self.stats["prefill_dispatches"] += 1
-        self.stats["prefill_shapes"].append((pb, bucket))
         self.stats["prefill_s"] += time.perf_counter() - t0
         for i, (req, slot) in enumerate(zip(reqs, slots)):
+            if req.t_admit is None:
+                req.t_admit = t_start
             self.slot_req[slot] = req
             self.slot_len[slot] = int(lens[i])
             self.stats["prefill_tokens"] += int(lens[i])
             self._start_decode(slot, req, int(firsts[i]), float(lps[i]),
                                None if tops is None
                                else (tops[0][i], tops[1][i]))
+        rec["t_end"] = time.monotonic()
 
     @torch.inference_mode()
     def _prefill_chunk(self, rows: List[Optional[int]]) -> None:
@@ -730,6 +801,8 @@ class Engine:
         gathered over the data axis before the lm_head, so that every rank
         samples every row alike."""
         t0 = time.perf_counter()
+        t_start = time.monotonic()
+        start = self._device_spans.mark()
         C, R = self.prefill_chunk, len(rows)
         g = R // self.dp
         d0 = self._lo // self.spb
@@ -763,6 +836,12 @@ class Engine:
                 return_hidden=True,
             )
             hid = M.at_positions(hid, torch.from_numpy(tns[sel] - 1).to(dev))
+        rec = self._log_dispatch(
+            start, t_start, kind="prefill",
+            rows=[(int(ks[i]), int(tns[i])) for i, s in enumerate(rows)
+                  if s is not None],
+            heads=sum(finals), padded=R * C, t_start=t_start,
+            t_forward=time.monotonic())
         if any(finals):  # only a final chunk's token is ever read
             if len(run) < R:  # shard-grouped: every shard's g rows, in order
                 mine = torch.zeros((g, 1, self.config.hidden_size),
@@ -778,8 +857,8 @@ class Engine:
             # no token to fetch: wait here so that the chunk's device time
             # lands in prefill_s, not in the next decode tick's decode_s
             torch.cuda.synchronize(dev)
+        self._synced(rec)
         self.stats["prefill_dispatches"] += 1
-        self.stats["prefill_shapes"].append((R, C))
         self.stats["prefill_s"] += time.perf_counter() - t0
         for i, slot in enumerate(rows):
             if slot is None:
@@ -795,6 +874,7 @@ class Engine:
                 self._start_decode(slot, reqs[i], int(firsts[i]),
                                    float(lps[i]), None if tops is None
                                    else (tops[0][i], tops[1][i]))
+        rec["t_end"] = time.monotonic()
 
     def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The rows of every data shard, in shard order, from this rank's
@@ -1085,11 +1165,20 @@ class Engine:
         freed slot's kept prefix; a mid-prefill slot's positions are
         rewritten by its next chunk."""
         t0 = time.perf_counter()
+        t_start = time.monotonic()
         rows = [r if active[i] else None for i, r in enumerate(self.slot_req)]
         branch, ex = self._pack_tick(active, rows)
         self._sync_tables()
-        out = self._run_tick(n, branch, ex, self._sharded_tick()
-                             ).cpu().numpy()  # one copy back
+        sharded = self._sharded_tick()
+        start = self._device_spans.mark()
+        t_packed = time.monotonic()
+        out = self._run_tick(n, branch, ex, sharded)
+        rec = self._log_dispatch(
+            start, t_packed, kind="decode",
+            rows=self.slot_len[active].tolist(), steps=n, t_start=t_start,
+            t_packed=t_packed, t_launched=time.monotonic())
+        out = out.cpu().numpy()  # one copy back
+        self._synced(rec)
         toks, lps, tops = self._unpack(out, ex.n_top)
         self.stats["decode_ticks"] += 1
         self.stats["decode_steps"] += n
@@ -1099,6 +1188,7 @@ class Engine:
                 self._deliver(slot, req, toks[slot], lps[slot],
                               None if tops is None
                               else (tops[0][:, slot], tops[1][:, slot]))
+        rec["t_delivered"] = rec["t_end"] = time.monotonic()
 
     def _sharded_tick(self) -> bool:
         """Whether the tick samples the vocab-sharded logits in place (JAX
@@ -1142,10 +1232,19 @@ class Engine:
         if not any(drafts):
             return False
         t0 = time.perf_counter()
+        t_start = time.monotonic()
         rows = [r if active[i] else None for i, r in enumerate(self.slot_req)]
         branch, ex = self._pack_tick(active, rows, drafts)
         self._sync_tables()
-        out = self._run_verify(branch, ex).cpu().numpy()  # one copy back
+        start = self._device_spans.mark()
+        t_packed = time.monotonic()
+        out = self._run_verify(branch, ex)
+        rec = self._log_dispatch(
+            start, t_packed, kind="verify",
+            rows=self.slot_len[active].tolist(), steps=1, t_start=t_start,
+            t_packed=t_packed, t_launched=time.monotonic())
+        out = out.cpu().numpy()  # one copy back
+        self._synced(rec)
         toks, lps, tops = self._unpack(out, ex.n_top)
         self.stats["decode_ticks"] += 1
         self.stats["spec_ticks"] += 1
@@ -1163,6 +1262,7 @@ class Engine:
                           None if tops is None
                           else (tops[0][:, slot, :j + 1],
                                 tops[1][:, slot, :j + 1]))
+        rec["t_delivered"] = rec["t_end"] = time.monotonic()
         return True
 
     def _chunk_len(self, active: np.ndarray) -> int:
@@ -1386,6 +1486,8 @@ class Engine:
             else:
                 slot, reuse = self._pick_slot(stream)
             self.slot_req[slot] = req
+            if req.t_admit is None:
+                req.t_admit = time.monotonic()
             self._admit_seq += 1
             self.slot_seq[slot] = self._admit_seq
             self.slot_len[slot] = reuse

@@ -96,7 +96,8 @@ def test_chunked_slot_prefill_matches_jax(params, kv_quantized):
     assert (st["prefill_chunks"], st["prefills"], st["prefill_tokens"]) \
         == (6, 3, 13 + 21 + 3)
     # a dispatch takes exactly its slots: no padding rows in slot mode
-    assert all(c == 8 for _, c in st["prefill_shapes"])
+    assert all(r["padded"] == 8 * len(r["rows"])
+               for r in pair.eng.dispatch_log if r["kind"] == "prefill")
 
 
 def test_chunked_slot_prefill_interleaves_decode(params):

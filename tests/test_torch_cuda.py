@@ -1560,3 +1560,180 @@ def test_measure_op_repeats(dev):
     first = measure_op(torch.matmul, (a, b))
     second = measure_op(torch.matmul, (a, b))
     assert 0.5 <= second / first <= 2.0, (first, second)
+
+
+def test_dispatch_spans_contain_their_kernels(tick_model):
+    """Slot and paged engines, a few prefills and captured ticks under
+    ``torch.profiler``, the trace mapped onto ``time.monotonic()`` (kineto
+    stamps on the realtime clock, paired with a monotonic read): each
+    kernel goes to the dispatch whose host span holds its launch call
+    (matched by correlation id), and lies inside that dispatch's device
+    span within 0.1 ms at each end; no span starts on the device more than
+    0.05 ms before the host stamp taken before its first launch; spans and
+    gaps tile the run (no overlap, no hole)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from qqq_tpu_torch.serve.engine import Engine, Request
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    CUDA = torch.autograd.DeviceType.CUDA
+    params, cfg = tick_model
+    rng = np.random.default_rng(0)
+    for mode in sorted(_TICK_MODES):
+        eng = Engine(params, cfg, **_TICK_MODES[mode])
+
+        def reqs():
+            return [Request([int(t) for t in rng.integers(0, 256, n)],
+                            SamplingParams(max_new_tokens=6))
+                    for n in (6, 19, 38, 56)]
+
+        eng.run(reqs())  # first calls and the graph's capture
+        torch.cuda.synchronize()
+        since = eng.dispatch_log[-1]["seq"] + 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            off = [time.time_ns() - time.monotonic_ns()]
+            eng.run(reqs())
+            torch.cuda.synchronize()
+            off.append(time.time_ns() - time.monotonic_ns())
+        assert abs(off[1] - off[0]) < 20_000, off
+        recs = [r for r in eng.dispatch_log if r["seq"] >= since]
+        assert {r["kind"] for r in recs} == {"prefill", "decode"}
+
+        def mono(ns):
+            return (ns - (off[0] + off[1]) / 2) * 1e-9
+
+        events = prof.profiler.kineto_results.events()
+        launched = {e.correlation_id(): mono(e.start_ns()) for e in events
+                    if e.device_type() != CUDA and e.name().startswith("cu")}
+        kernels = [e for e in events if e.device_type() == CUDA
+                   and not e.name().startswith(("Memcpy", "Memset"))]
+        assert kernels and launched
+        per: dict = {}
+        unmatched = []
+        for k in kernels:
+            t = launched.get(k.correlation_id())
+            r = next((r for r in recs if t is not None
+                      and r["t_start"] <= t <= r["t_end"]), None)
+            if r is None:
+                unmatched.append((k.name()[:60], t))
+                continue
+            per.setdefault(r["seq"], []).append(
+                (mono(k.start_ns()), mono(k.end_ns())))
+        assert not unmatched, (mode, len(unmatched), len(kernels),
+                               unmatched[:5], recs[0]["t_start"],
+                               recs[-1]["t_end"])
+        for r in recs:
+            ks = per.get(r["seq"])
+            assert ks, (mode, r)
+            first = r["t_start"] if r["kind"] == "prefill" else r["t_packed"]
+            assert r["device_start"] >= first - 5e-5, (mode, r)
+            assert min(a for a, _ in ks) >= r["device_start"] - 1e-4, \
+                (mode, r, min(ks))
+            assert max(b for _, b in ks) <= r["device_end"] + 1e-4, \
+                (mode, r, max(ks, key=lambda x: x[1]))
+        busy = sum(r["device_end"] - r["device_start"] for r in recs)
+        gaps = [r["gap_before_s"] for r in recs[1:]]
+        assert min(gaps) >= 0
+        whole = recs[-1]["device_end"] - recs[0]["device_start"]
+        assert abs(busy + sum(gaps) - whole) <= 0.01 * whole, \
+            (mode, busy, sum(gaps), whole)
+
+
+def test_dispatch_recording_cost(dev):
+    """Host µs that recording adds to a dispatch, around a device op of
+    ~0.3 ms and the sync a dispatch makes anyway, in the engine's order
+    (its own ``_log_dispatch``, ``_synced`` and ``DeviceSpans``).  On the
+    dispatch's path: its start event and stamps, the stamps after the sync
+    (and, once a second, an anchor event); while the device works: the
+    read of the previous dispatch's event and the writing and hand-over of
+    this one's record (a tick's rows' contexts among it).  Ticks,
+    prefills and unrecorded dispatches take turns, in 5 blocks of 200 each
+    after 100 that fill the pool; the host's speed varies from block to
+    block (other work shares it), so the block medians are printed and the
+    least of them is held to 10 µs, on the path and as a dispatch's wall
+    over an unrecorded one's."""
+    import collections
+    import time
+    import types
+
+    from qqq_tpu_torch.serve.engine import Engine
+    from qqq_tpu_torch.utils.profiling import DeviceSpans
+
+    mono, clock = time.monotonic, time.perf_counter
+    slot_len = np.arange(64, dtype=np.int32)
+    active = np.ones(64, bool)
+    x = torch.zeros(64, device=dev)
+
+    def work(kind):
+        torch.cuda._sleep(500_000)  # the forward or the graph launch
+        if kind == "prefill":
+            x.add_(0)  # the KV copy
+
+    def recorded(eng, kind):
+        """One dispatch: (s on its path, s while the device works)."""
+        c0 = clock()
+        t_start = mono()
+        start = eng._device_spans.mark()
+        t_packed = mono()
+        c1 = clock()
+        work(kind)
+        c2 = clock()
+        if kind == "decode":
+            rec = Engine._log_dispatch(
+                eng, start, t_packed, kind="decode",
+                rows=slot_len[active].tolist(), steps=1, t_start=t_start,
+                t_packed=t_packed, t_launched=mono())
+        else:
+            rec = Engine._log_dispatch(
+                eng, start, t_start, kind="prefill", rows=[(0, 100)],
+                heads=1, padded=128, t_start=t_start, t_forward=mono())
+        c3 = clock()
+        x.sum().cpu()  # the sync
+        c4 = clock()
+        Engine._synced(eng, rec)
+        rec["t_end"] = mono()
+        c5 = clock()
+        return (c1 - c0) + (c5 - c4), c3 - c2
+
+    engs = {k: types.SimpleNamespace(
+        _dispatches=0, _device_spans=DeviceSpans(dev),
+        _dispatch_log=collections.deque(maxlen=65536))
+        for k in ("decode", "prefill")}
+    got = {k: {"path": [], "under": [], "wall": []}
+           for k in ("decode", "prefill")}
+    for block in range(6):
+        acc = {k: {"path": [], "under": [], "wall": [], "plain": []}
+               for k in got}
+        for _ in range(200 if block else 100):
+            for kind in ("decode", "prefill"):
+                t = clock()
+                p, h = recorded(engs[kind], kind)
+                acc[kind]["wall"].append(clock() - t)
+                acc[kind]["path"].append(p)
+                acc[kind]["under"].append(h)
+                t = clock()
+                work(kind)
+                x.sum().cpu()
+                acc[kind]["plain"].append(clock() - t)
+        if not block:
+            continue  # the pool fills
+        for kind, a in acc.items():
+            med = {k: 1e6 * float(np.median(v)) for k, v in a.items()}
+            got[kind]["path"].append(med["path"])
+            got[kind]["under"].append(med["under"])
+            got[kind]["wall"].append(med["wall"] - med["plain"])
+    for kind, eng in engs.items():
+        assert len(eng._device_spans._pool) <= 3
+        assert all(r["device_start"] is not None
+                   for r in list(eng._dispatch_log)[:-1])
+        print(f"recording a {kind} on {torch.cuda.get_device_name(dev)}, "
+              f"medians of 5 blocks of 200, µs: on its path "
+              f"{[round(v, 2) for v in got[kind]['path']]}; while the "
+              f"device works {[round(v, 2) for v in got[kind]['under']]}; "
+              f"its wall over an unrecorded one's "
+              f"{[round(v, 2) for v in got[kind]['wall']]}")
+    assert all(min(g["path"]) <= 10.0 and min(g["wall"]) <= 10.0
+               for g in got.values()), got

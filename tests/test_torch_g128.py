@@ -293,6 +293,7 @@ def test_default_engine_g128_greedy_matches_jax(models, monkeypatch):
     reqs = [Request(p, SamplingParams(max_new_tokens=4)) for p in prompts]
     eng.run(reqs)
     assert [r.output_tokens for r in reqs] == ref
-    assert eng.stats["prefill_shapes"] == [(2, 256), (1, 16)]
+    assert [(r["heads"], r["padded"] // r["heads"]) for r in eng.dispatch_log
+            if r["kind"] == "prefill"] == [(2, 256), (1, 16)]
     assert calls["requant"] == TCFG.num_hidden_layers  # the bucket-256 pair
     assert calls["group"] > 0

@@ -314,7 +314,9 @@ def test_paged_engine_dense_greedy_matches_jax(dense, dense_want):
     eng, reqs = _run(tparams, _DENSE, prompts, 8)
     assert [r.output_tokens for r in reqs] == dense_want
     assert eng.stats["preemptions"] == 0
-    assert eng.stats["prefill_shapes"] == [(4, 64)]
+    # one dispatch of 4 rows (3 requests and a padding row) of 64 tokens
+    assert [(r["padded"], len(r["rows"])) for r in eng.dispatch_log
+            if r["kind"] == "prefill"] == [(4 * 64, 3)]
     assert eng.allocators[0].available == eng.num_blocks - 1
 
 
@@ -365,7 +367,8 @@ def test_paged_engine_g128_fused_greedy_matches_jax():
     eng, reqs = _run(tparams, _G128, prompts, 4)
     assert all("gate_up_glu" in layer for layer in eng.params["layers"])
     assert [r.output_tokens for r in reqs] == want
-    assert eng.stats["prefill_shapes"] == [(2, 64)]
+    assert [r["padded"] for r in eng.dispatch_log
+            if r["kind"] == "prefill"] == [2 * 64]
 
 
 def test_paged_preemption_exact(dense, dense_want):
