@@ -10,8 +10,13 @@ mesh.
   captured at its first use and kept per (steps, sampling branch, GEMM
   route flag): JAX's one jitted program a tick.  The tick's small inputs
   travel as one packed host→device copy into the graph's static tensors,
-  and its tokens and log-probabilities come back in one copy.  Prefill
-  stays eager;
+  and its tokens and log-probabilities come back in one copy.  A
+  whole-bucket prefill (slot mode) is one replay too, of the graph
+  captured per (rows, bucket) from the embedding to the copy of its KV
+  into the slots, every such graph in one shared memory pool; its first
+  tokens are sampled eagerly after it.  Prefill stays eager on the CPU,
+  under a mesh, with the private ``_eager_tick`` switch, and for chunked
+  prefill and :meth:`Engine.score_prompt`;
 * continuous batching is the host loop of :meth:`Engine.run`: a freed slot
   admits the next pending request at the next scheduling round;
 * the KV cache is INT8 by default and is updated in place.
@@ -464,9 +469,18 @@ class Engine:
         #: captured tick
         self._graphs: Dict[tuple, TickGraph] = {}
         self._graph_stream = None  # the side stream of warm-ups and captures
-        #: run the decode tick eagerly on the card too: for comparisons
-        #: with the captured tick only (the CPU never captures)
+        #: run the decode tick and the whole-bucket prefill eagerly on the
+        #: card too: for comparisons with the captured ones only (the CPU
+        #: never captures)
         self._eager_tick = False
+        #: (rows, bucket, FUSE_ACT_QUANT) → the captured whole-bucket
+        #: prefill, every one in the memory pool ``_prefill_pool``, and its
+        #: static input: (pinned host buffer, device tensor) of the packed
+        #: tokens, lengths and destination slots
+        self._prefill_graphs: Dict[tuple, TickGraph] = {}
+        self._prefill_in: Dict[tuple, Tuple[torch.Tensor,
+                                            torch.Tensor]] = {}
+        self._prefill_pool = None
         #: the queue of the thread in :meth:`run`; other threads submit
         #: through ``_inbox`` (add_request) and ``_jobs`` (submit_call),
         #: both drained at the top of every scheduling round
@@ -495,6 +509,11 @@ class Engine:
             "decode_steps": 0, "spec_ticks": 0,
             "graph_replays": 0, "graph_captures": 0,
             "graph_capture_s": 0.0,
+            # whole-bucket prefills replayed from a captured graph, graphs
+            # captured and the seconds of their captures (an eager run
+            # before one included), apart from the decode tick's
+            "prefill_graph_replays": 0, "prefill_graph_captures": 0,
+            "prefill_graph_capture_s": 0.0,
         }
         self._dispatch_log: "collections.deque[Dict[str, Any]]" = \
             collections.deque(maxlen=DISPATCH_LOG_SIZE)
@@ -513,6 +532,10 @@ class Engine:
           a first token) and ``padded`` (token positions computed, padding
           included); a tick's or verify's ``rows`` as each active row's
           context before it, and ``steps`` (a verify: 1);
+        * a prefill's ``graph``: "replay" where a whole-bucket prefill
+          replayed its captured graph, "capture" where it captured it, and
+          None where it ran eagerly (the CPU, a mesh, ``_eager_tick``,
+          chunked prefill);
         * host phases on ``time.monotonic()`` (the clock of the request
           stamps): a prefill's ``t_start``, ``t_forward`` (its forward
           enqueued, and in slot mode the copy of its KV into the slots),
@@ -725,43 +748,46 @@ class Engine:
     def _admit_batch(self, reqs: List[Request], slots: List[int],
                      bucket: int) -> None:
         """Prefill ``reqs`` together (B = len(reqs)) into a bucket-sized
-        scratch cache and copy each row's KV into its slot.  Under a mesh
-        every data shard runs every row (the logits whole over the model
-        axis, the same tokens everywhere) and keeps its own slots' rows."""
+        scratch cache and copy each row's KV into its slot
+        (:meth:`_prefill_whole`), then sample each row's first token.  On
+        the card without a mesh that is one replay of the graph of (B,
+        bucket) (:meth:`_prefill_graph`), the sampler eager after it.
+        Under a mesh every data shard runs every row (the logits whole
+        over the model axis, the same tokens everywhere) and keeps its own
+        slots' rows."""
         t0 = time.perf_counter()
         t_start = time.monotonic()
         start = self._device_spans.mark()
         pb = len(reqs)
-        toks = np.zeros((pb, bucket), np.int64)
-        lens = np.zeros((pb,), np.int64)
-        for i, r in enumerate(reqs):
-            n = len(r.prompt_tokens)
-            toks[i, :n] = r.prompt_tokens
-            lens[i] = n
-        caches1 = kv_cache.init(self.caches_config, pb, bucket,
-                                quantized=self.kv_quantized, dtype=self.dtype,
-                                device=self.device)
-        lens_d = torch.from_numpy(lens).to(self.device)
-        logits, _ = M.forward(
-            self.params, self.config, torch.from_numpy(toks).to(self.device),
-            caches=caches1,
-            cache_len=torch.zeros((pb,), dtype=torch.int32,
-                                  device=self.device),
-            logits_at=lens_d - 1, tp=self.tp,
-        )
-        # the KV copy goes before the sampler's copy back, so that the
-        # dispatch's device work ends at its sync
+        n = pb * bucket
+        key = (pb, bucket, w4a8_gemm.FUSE_ACT_QUANT)
+        graphed = (self.device.type == "cuda" and self.mesh is None
+                   and not self._eager_tick)
         mine = [i for i, s in enumerate(slots) if self._lo <= s < self._hi]
-        if mine:
-            rows_idx = torch.tensor(mine, device=self.device)
-            slot_idx = torch.tensor([slots[i] - self._lo for i in mine],
-                                    device=self.device)
-            for big, small in zip(self.caches, caches1):
-                for name, buf in big.items():
-                    buf[slot_idx, :, :bucket] = small[name][rows_idx]
+        # the packed input: tokens (pb, bucket), lengths, destination slots
+        if graphed:
+            host, inp = self._prefill_input(key, n + 2 * pb)
+            h = host.numpy()
+            h[:] = 0
+        else:
+            h = np.zeros(n + 2 * pb, np.int64)
+        toks = h[:n].reshape(pb, bucket)
+        lens = h[n:n + pb]
+        for i, r in enumerate(reqs):
+            toks[i, :len(r.prompt_tokens)] = r.prompt_tokens
+            lens[i] = len(r.prompt_tokens)
+        h[n + pb:n + pb + len(mine)] = [slots[i] - self._lo for i in mine]
+        if graphed:
+            inp.copy_(host, non_blocking=True)
+            logits, how = self._prefill_graph(
+                key, lambda: self._prefill_whole(inp, pb, bucket))
+        else:
+            inp = torch.from_numpy(h).to(self.device)
+            logits, how = self._prefill_whole(
+                inp, pb, bucket, None if len(mine) == pb else mine), None
         rec = self._log_dispatch(
-            start, t_start, kind="prefill", rows=[(0, int(n)) for n in lens],
-            heads=pb, padded=pb * bucket, t_start=t_start,
+            start, t_start, kind="prefill", rows=[(0, int(k)) for k in lens],
+            heads=pb, padded=n, graph=how, t_start=t_start,
             t_forward=time.monotonic())
         firsts, lps, tops = self._sample(logits[:, 0, :], reqs)
         self._synced(rec)
@@ -777,6 +803,70 @@ class Engine:
                                None if tops is None
                                else (tops[0][i], tops[1][i]))
         rec["t_end"] = time.monotonic()
+
+    def _prefill_whole(self, inp: torch.Tensor, pb: int, bucket: int,
+                       rows: Optional[List[int]] = None) -> torch.Tensor:
+        """The forward of a whole-bucket prefill of ``pb`` rows from the
+        packed int64 input ``inp`` (pb · bucket tokens, pb lengths, pb
+        destination slots, local to this rank) into a bucket-sized scratch
+        cache, and the copy of the scratch's rows ``rows`` (this rank's,
+        under a mesh; None: every row, in order) into their slots, before
+        the logits leave, so that the dispatch's device work ends at the
+        sampler's sync.  Returns the (pb, 1, V) f32 logits at each row's
+        last prompt token.  This is what a prefill graph captures."""
+        n = pb * bucket
+        toks = inp[:n].view(pb, bucket)
+        scratch = kv_cache.init(self.caches_config, pb, bucket,
+                                quantized=self.kv_quantized,
+                                dtype=self.dtype, device=self.device)
+        logits, _ = M.forward(
+            self.params, self.config, toks, caches=scratch,
+            cache_len=torch.zeros((pb,), dtype=torch.int32,
+                                  device=self.device),
+            logits_at=inp[n:n + pb] - 1, tp=self.tp,
+        )
+        k = pb if rows is None else len(rows)
+        if k:
+            dst = inp[n + pb:n + pb + k]
+            src = None if rows is None else torch.tensor(rows,
+                                                         device=self.device)
+            for big, small in zip(self.caches, scratch):
+                for name, buf in big.items():
+                    buf[dst, :, :bucket] = (small[name] if src is None
+                                            else small[name][src])
+        return logits
+
+    def _prefill_input(self, key: tuple, size: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(pinned host buffer, device tensor) of ``size`` int64, the static
+        input of the prefill graph of ``key``, made at its first use."""
+        if key not in self._prefill_in:
+            dev = torch.zeros(size, dtype=torch.int64, device=self.device)
+            host = torch.zeros(size, dtype=torch.int64, pin_memory=True)
+            self._prefill_in[key] = (host, dev)
+        return self._prefill_in[key]
+
+    def _prefill_graph(self, key: tuple, run: Callable[[], torch.Tensor]
+                       ) -> Tuple[torch.Tensor, str]:
+        """``run()`` through the prefill graph of ``key`` (rows, bucket,
+        GEMM route flag): a replay, or at the key's first dispatch ``run()``
+        eagerly on the capture stream (it does the kernels' first-call host
+        work, and its output is the dispatch's), then its capture into the
+        prefill graphs' shared pool, as :meth:`_run_graph` does for a tick.
+        Returns (output, "replay" | "capture")."""
+        graph = self._prefill_graphs.get(key)
+        if graph is not None:
+            self.stats["prefill_graph_replays"] += 1
+            return graph.replay(), "replay"
+        t0 = time.perf_counter()
+        out = self._on_capture_stream(run)
+        if self._prefill_pool is None:
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+        self._prefill_graphs[key] = TickGraph(
+            run, None, self._capture_stream(), self._prefill_pool)
+        self.stats["prefill_graph_captures"] += 1
+        self.stats["prefill_graph_capture_s"] += time.perf_counter() - t0
+        return out, "capture"
 
     @torch.inference_mode()
     def _prefill_chunk(self, rows: List[Optional[int]]) -> None:
@@ -840,7 +930,7 @@ class Engine:
             start, t_start, kind="prefill",
             rows=[(int(ks[i]), int(tns[i])) for i, s in enumerate(rows)
                   if s is not None],
-            heads=sum(finals), padded=R * C, t_start=t_start,
+            heads=sum(finals), padded=R * C, graph=None, t_start=t_start,
             t_forward=time.monotonic())
         if any(finals):  # only a final chunk's token is ever read
             if len(run) < R:  # shard-grouped: every shard's g rows, in order
@@ -1045,16 +1135,29 @@ class Engine:
             self.stats["graph_replays"] += 1
             return graph.replay()
         t0 = time.perf_counter()
+        out = self._on_capture_stream(run)
+        self._graphs[key] = TickGraph(run, self.generator,
+                                      self._capture_stream())
+        self.stats["graph_captures"] += 1
+        self.stats["graph_capture_s"] += time.perf_counter() - t0
+        return out
+
+    def _capture_stream(self) -> torch.cuda.Stream:
+        """The side stream of the eager runs before captures, and of the
+        captures."""
         if self._graph_stream is None:
             self._graph_stream = torch.cuda.Stream(self.device)
-        stream, main = self._graph_stream, torch.cuda.current_stream()
+        return self._graph_stream
+
+    def _on_capture_stream(self, run: Callable[[], torch.Tensor]
+                           ) -> torch.Tensor:
+        """``run()`` eagerly on the capture stream, ordered after and
+        before the current stream's work."""
+        stream, main = self._capture_stream(), torch.cuda.current_stream()
         stream.wait_stream(main)
         with torch.cuda.stream(stream):
             out = run()
         main.wait_stream(stream)
-        self._graphs[key] = TickGraph(run, self.generator, stream)
-        self.stats["graph_captures"] += 1
-        self.stats["graph_capture_s"] += time.perf_counter() - t0
         return out
 
     def _run_tick(self, n: int, branch: str, ex: TickExtras,

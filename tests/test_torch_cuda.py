@@ -1128,6 +1128,104 @@ def test_score_prompt_while_the_worker_captures(tick_model):
     assert scores and all(s == want for s in scores)
 
 
+@pytest.fixture(scope="module")
+def prefill_models(tick_model):
+    """The tick model's weights quantized both ways: {"g128": ...,
+    "channel": ...} of (params, config)."""
+    from qqq_tpu_torch.models import init_params, quantize_params_rtn
+
+    _, cfg = tick_model
+    dense = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device=torch.device("cuda"))
+    return {"g128": tick_model,
+            "channel": (quantize_params_rtn(dense, cfg, -1), cfg)}
+
+
+#: (rows, bucket) in the order the captured-prefill test dispatches them:
+#: every warm-up key (rows 1, 2, 4 and prefill_batch 7 in each bucket),
+#: then keys again, interleaved, so that the graphs that share one pool
+#: replay in an order other than their capture's
+_PREFILL_KEYS = ([(b, pb) for b in (16, 64, 128) for pb in (1, 2, 4, 7)]
+                 + [(64, 4), (128, 7), (64, 4), (16, 1), (128, 2), (16, 1),
+                    (128, 7)])
+
+
+def _prefill_dispatches(params, cfg, eager):
+    """Each of ``_PREFILL_KEYS`` as one ``_admit_batch`` into the next
+    free slots (slots wrap around, so later dispatches overwrite earlier
+    rows), on an engine of 8 slots and ``prefill_batch`` 7; returns the
+    engine and, per dispatch, its rows' first tokens, their
+    log-probabilities and a copy of every cache buffer after it."""
+    from qqq_tpu_torch.serve.engine import Engine, Request
+    from qqq_tpu_torch.serve.sampling import SamplingParams
+
+    eng = Engine(params, cfg, max_batch=8, max_len=128, prefill_batch=7,
+                 prefill_buckets=(16, 64, 128))
+    eng._eager_tick = eager
+    rng = np.random.default_rng(3)
+    out, nxt = [], 0
+    for bucket, pb in _PREFILL_KEYS:
+        lo = {16: 1, 64: 17, 128: 65}[bucket]
+        reqs = [Request([int(t) for t in rng.integers(
+            0, 256, int(rng.integers(lo, bucket + 1)))],
+            SamplingParams(max_new_tokens=4)) for _ in range(pb)]
+        slots = [(nxt + i) % 8 for i in range(pb)]
+        nxt = (nxt + pb) % 8
+        eng._admit_batch(reqs, slots, bucket)
+        torch.cuda.synchronize()
+        out.append(([r.output_tokens[0] for r in reqs],
+                    [r.token_logprobs[0] for r in reqs],
+                    [t.clone() for c in eng.caches for t in c.values()]))
+        for s in slots:  # free the slots, the KV stays
+            eng.slot_req[s] = None
+    return eng, out
+
+
+@pytest.mark.parametrize("scheme", ["g128", "channel"])
+def test_captured_prefill_matches_eager(prefill_models, scheme):
+    """A whole-bucket prefill replayed from its captured graph equals the
+    eager one bit for bit: each row's first token and its
+    log-probability, and every slot's KV codes and scales after every
+    dispatch, at every warm-up key (rows 1, 2, 4 and prefill_batch 7 in
+    buckets 16, 64 and 128: the exact, requant, stream and tile GEMM
+    routes), g128 and per channel, with the keys' graphs replayed
+    interleaved out of their capture order in their one shared pool.
+    Each key captures once and every later dispatch of it replays;
+    replays and captures add up to the dispatches; the launch counts
+    equal the eager run's; the records say which ran."""
+    from qqq_tpu_torch.kernels import counted_wrappers
+
+    params, cfg = prefill_models[scheme]
+    counters = counted_wrappers()
+    before = {n: f.launches for n, f in counters.items()}
+    eng_e, want = _prefill_dispatches(params, cfg, eager=True)
+    n_e = {n: f.launches - before[n] for n, f in counters.items()}
+    before = {n: f.launches for n, f in counters.items()}
+    eng, got = _prefill_dispatches(params, cfg, eager=False)
+    n = {n: f.launches - before[n] for n, f in counters.items()}
+    for i, ((tw, lw, cw), (tg, lg, cg)) in enumerate(zip(want, got)):
+        assert tg == tw, (i, _PREFILL_KEYS[i])
+        assert lg == lw, (i, _PREFILL_KEYS[i])
+        for a, b in zip(cg, cw):
+            assert torch.equal(a, b), (i, _PREFILL_KEYS[i])
+    st, keys = eng.stats, set(_PREFILL_KEYS)
+    assert st["prefill_graph_captures"] == len(eng._prefill_graphs) \
+        == len(keys)
+    assert st["prefill_graph_replays"] + st["prefill_graph_captures"] \
+        == st["prefill_dispatches"] == len(_PREFILL_KEYS)
+    assert eng_e.stats["prefill_graph_replays"] \
+        == eng_e.stats["prefill_graph_captures"] == 0
+    assert not eng._graphs  # no tick ran
+    assert n == n_e
+    seen = set()
+    for key, rec in zip(_PREFILL_KEYS,
+                        [r for r in eng.dispatch_log
+                         if r["kind"] == "prefill"]):
+        assert rec["graph"] == ("replay" if key in seen else "capture")
+        seen.add(key)
+    assert all(r["graph"] is None for r in eng_e.dispatch_log)
+
+
 # ---------------------------------------------------------------------------
 # the rest of the scheduler: speculative verify, chunked slot prefill, the
 # paged prefix cache

@@ -147,6 +147,55 @@ def test_the_ring_keeps_the_newest(params, monkeypatch):
     assert "prefill_shapes" not in eng.stats
 
 
+def test_prefill_records_carry_their_graph_field(params):
+    """Every prefill record says how it ran: on the CPU a whole-bucket
+    prefill and a chunk are both eager (``graph`` None), and the host
+    stamps of a whole-bucket prefill keep their order."""
+    eng, _ = _serve(params, [list(range(1, n + 1)) for n in (5, 17, 9)],
+                    n_new=4)
+    whole = [r for r in eng.dispatch_log if r["kind"] == "prefill"]
+    assert len(whole) == eng.stats["prefill_dispatches"] == 2
+    for r in whole:
+        assert "graph" in r and r["graph"] is None
+        assert r["t_start"] <= r["t_forward"] <= r["t_synced"] <= r["t_end"]
+    eng, _ = _serve(params, [list(range(1, 14)), list(range(1, 22))],
+                    max_batch=2, prefill_chunk=8)
+    chunks = [r for r in eng.dispatch_log if r["kind"] == "prefill"]
+    assert chunks and all("graph" in r and r["graph"] is None
+                          for r in chunks)
+
+
+def _greedy(params, prompt, n):
+    """``n`` greedy tokens by full forwards, no cache."""
+    from qqq_tpu_torch.models.llama import forward
+
+    toks = list(prompt)
+    for _ in range(n):
+        logits, _ = forward(params, CFG, torch.tensor([toks]))
+        toks.append(int(torch.argmax(logits[0, -1])))
+    return toks[len(prompt):]
+
+
+def test_the_cpu_never_captures_a_prefill(params):
+    """Whole-bucket prefills of 4 and 1 rows in bucket 16 and of 2 and 1 in
+    bucket 32 run eagerly on the CPU: no prefill graph is captured or
+    replayed, none is kept, and the greedy tokens are those of full
+    forwards without a cache."""
+    rng = np.random.default_rng(7)
+    lens = (3, 5, 9, 12, 20, 30, 2, 18)
+    prompts = [[int(t) for t in rng.integers(0, 128, n)] for n in lens]
+    eng, reqs = _serve(params, prompts, n_new=4, kv_quantized=False)
+    st = eng.stats
+    assert st["prefill_graph_replays"] == st["prefill_graph_captures"] == 0
+    assert st["prefill_graph_capture_s"] == 0.0
+    assert not eng._prefill_graphs and not eng._prefill_in
+    shapes = {(len(r["rows"]), r["padded"] // len(r["rows"]))
+              for r in eng.dispatch_log if r["kind"] == "prefill"}
+    assert shapes == {(4, 16), (1, 16), (2, 32), (1, 32)}
+    assert [q.output_tokens for q in reqs] == [_greedy(params, p, 4)
+                                               for p in prompts]
+
+
 class _Event:
     """A stand-in for a timing CUDA event that ran at device time ``t``."""
 
